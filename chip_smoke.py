@@ -1,0 +1,280 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, each fatal on failure (non-zero exit, no result line):
+  1. device  — name, count, torch/CUDA versions, ``nvidia-smi`` name and
+               power limit, SM count and L2 size against the machine file;
+  2. build   — both CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
+               sm_90a, in parallel; build seconds and ptxas resource usage;
+  3. check   — each kernel against its plain PyTorch version on the card at
+               ragged shapes and at the main-path shape, at the reference
+               tolerances; boundaries must be bit-exact copies;
+  4. main    — the stencil case study at full size: the 7-point stencil at
+               (512, 512, 512) and the long-range stencil at the paper's §3
+               size (130, 1015, 1015), fp32.  Per stencil: ECM and Roofline
+               prediction on the H100 machine file, a run through the
+               ``ops`` wrappers, CUDA-event timing, the plain version's and
+               (7-point) ``conv3d``'s times, and the HBM bound.  Launch
+               counters are zeroed just before this phase and must be
+               positive just after it;
+  5. a JSON line naming each ported kernel, then the card's line, then
+     ``{"ok": true, "device": {...}}`` as the last line.
+
+It imports nothing of JAX or of the JAX package ``repro``; it needs the
+repository's ``src/repro_torch`` beside it and a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+SEED = 0
+RAGGED = [(12, 37, 37), (20, 45, 45), (3, 9, 9)]
+MAIN = {"stencil3d7pt": (512, 512, 512), "longrange3d": (130, 1015, 1015)}
+# tolerances of the reference's own kernel tests (tests/test_kernels.py):
+# the kernel contracts a*b+c into FMAs and the plain version does not
+TOL = {"stencil3d7pt": dict(rtol=2e-5, atol=1e-6),
+       "longrange3d": dict(rtol=2e-4, atol=1e-5)}
+REPLACES = {"stencil3d7pt": "src/repro/kernels/stencil3d7pt.py:77",
+            "longrange3d": "src/repro/kernels/longrange3d.py:91"}
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def phase(name: str) -> None:
+    print(f"\n=== {name} ===", flush=True)
+
+
+def nvidia_smi() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if proc.returncode != 0:
+        raise SmokeError(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def compare(name: str, got, want, halo: int) -> tuple[float, float]:
+    """Max abs and max rel error of ``got`` against ``want`` (rel over
+    ``max(|want|, atol)``), within tolerance, and a bit-exact boundary of
+    width ``halo``; raises SmokeError otherwise."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise SmokeError(f"{name}: shape {tuple(got.shape)} or non-finite "
+                         "values")
+    err = (got - want).abs()
+    bad = err > TOL[name]["atol"] + TOL[name]["rtol"] * want.abs()
+    if bad.any():
+        raise SmokeError(f"{name} {tuple(got.shape)}: {int(bad.sum())} "
+                         f"values outside {TOL[name]}, max abs err "
+                         f"{err.max().item():.3e}")
+    inner = torch.zeros_like(got, dtype=torch.bool)
+    M, N, _ = got.shape
+    if M > 2 * halo and N > 2 * halo:
+        inner[halo:-halo, halo:-halo, halo:-halo] = True
+    if not torch.equal(got[~inner], want[~inner]):
+        raise SmokeError(f"{name} {tuple(got.shape)}: boundary not a "
+                         "bit-exact copy")
+    rel = err / want.abs().clamp_min(TOL[name]["atol"])
+    return err.max().item(), rel.max().item()
+
+
+def check_kernel(name: str, shape, fam, stencil) -> float:
+    """The kernel (through its ops wrapper) against its plain version on
+    the same inputs on the card; returns the max abs error."""
+    args = stencil.make_inputs(name, shape, "cuda", SEED)
+    got = fam.op(*args)
+    want = fam.module.plain(*args)
+    torch.cuda.synchronize()
+    err, rel = compare(name, got, want, fam.module.RADIUS)
+    print(f"  {name:13s} {str(shape):17s} max abs err {err:.3e}  "
+          f"max rel err {rel:.3e}  ok")
+    return err
+
+
+def conv3d_yardstick(a, coeffs):
+    """One ``torch.nn.functional.conv3d`` computing the 7-point interior
+    (timed only, as the library's figure; the port never calls it)."""
+    cW, cE, cN, cS, cF, cB, s = coeffs
+    w = torch.zeros(1, 1, 3, 3, 3, device=a.device, dtype=a.dtype)
+    w[0, 0, 1, 1, 0], w[0, 0, 1, 1, 2] = cW, cE
+    w[0, 0, 1, 0, 1], w[0, 0, 1, 2, 1] = cN, cS
+    w[0, 0, 0, 1, 1], w[0, 0, 2, 1, 1] = cF, cB
+    w[0, 0, 1, 1, 1] = s
+    x = a.view(1, 1, *a.shape)
+    return lambda: torch.nn.functional.conv3d(x, w)
+
+
+def main_path(name: str, fam, stencil, measure) -> dict:
+    shape = MAIN[name]
+    pred = stencil.predict_seconds(name, shape, "H100")
+    print(f"  {name} {shape} fp32, predicted on the H100 machine file at "
+          f"{pred.cores} cores:")
+    print(f"    ECM {pred.ecm.notation()}  overlapped "
+          f"{[(n, round(c, 3)) for n, c in pred.ecm.overlapped]}")
+    print(f"    ECM {pred.ecm_s * 1e3:.4f} ms   Roofline "
+          f"{pred.roofline_s * 1e3:.4f} ms (bottleneck "
+          f"{pred.roofline.bottleneck})")
+    args = stencil.make_inputs(name, shape, "cuda", SEED)
+    out = fam.op(*args)                      # the run through ops
+    t_kernel = measure.time_cuda(lambda: fam.op(*args))
+    torch.cuda.synchronize()
+    if out.shape != shape or not torch.isfinite(out).all():
+        raise SmokeError(f"{name}: main-path output not finite {shape}")
+    return {"pred": pred, "args": args, "out": out, "t_kernel": t_kernel}
+
+
+def report(name: str, run: dict, stencil, measure, h100, card: str) -> dict:
+    """Plain-version and library timings, the bound, and the kernels-line
+    entry for one main-path run (launches are filled in by the caller)."""
+    fam, args, pred = stencil.family(name), run["args"], run["pred"]
+    err, rel = compare(name, run["out"], fam.module.plain(*args),
+                       fam.module.RADIUS)
+    t_plain = measure.time_cuda(lambda: fam.module.plain(*args), iters=3)
+    lib_ms = None
+    if name == "stencil3d7pt":
+        conv = conv3d_yardstick(args[0], args[1])
+        ref = conv()
+        lib_err = (ref[0, 0] - run["out"][1:-1, 1:-1, 1:-1]).abs().max().item()
+        if lib_err > 1e-4:
+            raise SmokeError(f"conv3d yardstick disagrees by {lib_err:.3e}")
+        lib_ms = measure.time_cuda(conv).wall_s * 1e3
+    bound = stencil.bound_seconds(name, args, h100)
+    ms = run["t_kernel"].wall_s * 1e3
+    bound_ms = bound.seconds * 1e3
+    print(f"  {name} {MAIN[name]} on {card}:")
+    print(f"    kernel   {ms:.4f} ms  ({bound.bytes / (ms / 1e3) / 1e12:.3f}"
+          f" TB/s effective, {bound_ms / ms:.1%} of the bound)")
+    print(f"    bound    {bound_ms:.4f} ms by {bound.by}  (bytes: "
+          f"{bound.bytes / 1e9:.3f} GB at {h100.hbm_bandwidth / 1e12:.2f} "
+          f"TB/s, {bound.bytes_s * 1e3:.4f} ms; ops at "
+          f"{h100.peak_flops['FP32'] / 1e12:.0f} TFLOP/s fp32, "
+          f"{bound.ops_s * 1e3:.4f} ms)")
+    print(f"    plain    {t_plain.wall_s * 1e3:.4f} ms")
+    print(f"    library  " + (f"{lib_ms:.4f} ms (conv3d, cudnn tf32 off)"
+                               if lib_ms is not None else "none"))
+    print(f"    predicted ECM {pred.ecm_s * 1e3:.4f} ms "
+          f"(measured/predicted {ms / (pred.ecm_s * 1e3):.3f}), Roofline "
+          f"{pred.roofline_s * 1e3:.4f} ms "
+          f"(measured/predicted {ms / (pred.roofline_s * 1e3):.3f})")
+    print(f"    main-path max abs err vs plain {err:.3e}, max rel err "
+          f"{rel:.3e}")
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": 0,
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": t_plain.wall_s * 1e3, "bound_ms": bound_ms,
+            "bound_by": bound.by,
+            "library_ms": lib_ms}
+
+
+def smoke(out_path: str | None) -> int:
+    if not torch.cuda.is_available():
+        raise SmokeError("torch.cuda.is_available() is False: this smoke "
+                         "test runs on a CUDA card only")
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        raise SmokeError(f"no src/repro_torch beside {__file__}: run it "
+                         "from a checkout of the repository")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import machine as machine_mod
+    from repro_torch.kernels import _build
+    from repro_torch.tune import measure, stencil
+
+    phase("1 device")
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    card = nvidia_smi()
+    props = torch.cuda.get_device_properties(0)
+    h100 = machine_mod.load("H100")
+    print(f"device {kind!r}, count {count}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    print(f"nvidia-smi: {card}")
+    print(f"SMs {props.multi_processor_count} (machine file "
+          f"{h100.extra['SM count']}), L2 "
+          f"{getattr(props, 'L2_cache_size', 0)} B (machine file "
+          f"{h100.levels[-1].size_bytes:.0f} B)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    phase("2 build")
+    t0 = time.perf_counter()
+    info = _build.build_all()
+    print(f"built {sorted(info)} in {time.perf_counter() - t0:.1f} s "
+          "(parallel nvcc, sm_90a)")
+    for name, d in info.items():
+        print(f"  {name}: {d['seconds']:.1f} s")
+        for ln in d["ptxas"]:
+            print(f"    {ln}")
+
+    phase("3 check against the plain versions on the card")
+    max_err = {}
+    for name in MAIN:
+        fam = stencil.family(name)
+        for shape in RAGGED + [MAIN[name]]:
+            err = check_kernel(name, shape, fam, stencil)
+            max_err[name] = max(max_err.get(name, 0.0), err)
+
+    phase("4 main path at full size")
+    # each family's kernel wrapper carries the family's name
+    wrappers = {n: getattr(stencil.family(n).module, n) for n in MAIN}
+    for w in wrappers.values():
+        w.launches = 0
+    runs = {name: main_path(name, stencil.family(name), stencil, measure)
+            for name in MAIN}
+    launches = {n: w.launches for n, w in wrappers.items()}
+    print(f"  launches during the main path: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise SmokeError(f"main path never launched the {name} kernel")
+    entries, predicted = [], {}
+    for name, run in runs.items():
+        e = report(name, run, stencil, measure, h100, card)
+        e["launches"] = launches[name]
+        e["max_abs_err"] = max(max_err[name], e["max_abs_err"])
+        predicted[name] = {"ecm_ms": run["pred"].ecm_s * 1e3,
+                           "roofline_ms": run["pred"].roofline_s * 1e3}
+        entries.append(e)
+        del run["args"], run["out"]
+        torch.cuda.empty_cache()
+
+    phase("5 result")
+    result = {"kernels": entries}
+    if out_path:
+        pathlib.Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(out_path).write_text(json.dumps(
+            {**result, "predicted": predicted, "card": card, "device": kind,
+             "torch": torch.__version__, "cuda": torch.version.cuda,
+             "build": info}, indent=2))
+    print(json.dumps(result))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": kind, "count": count}}))
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write the full results as JSON here")
+    args = ap.parse_args()
+    try:
+        return smoke(args.out)
+    except SmokeError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

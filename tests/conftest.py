@@ -31,3 +31,8 @@ def run_with_devices(code: str, n_devices: int = 8, timeout: int = 300):
 @pytest.fixture(scope="session")
 def devices8():
     return lambda code, timeout=300: run_with_devices(code, 8, timeout)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips with a reason elsewhere")

@@ -1,0 +1,253 @@
+"""Tests of the port that need no JAX: the shared-memory tile advisor, the
+wrappers' operand checks, device resolution, the card timer, and — marked
+``gpu`` — the CUDA kernels against their plain PyTorch versions on the
+card.  Card tests skip here with a reason; run them on a machine with a
+card with ``python -m pytest -m gpu tests/test_torch_*.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:    # container without hypothesis: deterministic shim
+    from _hypothesis_fallback import given, settings, st
+
+from repro_torch import convert, device
+from repro_torch.core import blocking
+from repro_torch.kernels import longrange3d as t_lr
+from repro_torch.kernels import ops
+from repro_torch.kernels import stencil3d7pt as t_s7
+from repro_torch.tune import measure, stencil
+
+COEFFS = dict(W=0.1, E=0.2, N=0.3, S=0.15, F=0.25, B=0.05, s=-1.0)
+CVEC = [COEFFS[c] for c in "WENSFB"] + [COEFFS["s"]]
+LR_C = [0.5, 0.1, 0.05, 0.02, 0.01]
+# the reference's tolerances (tests/test_kernels.py); on the card the
+# kernel contracts a*b+c into FMAs where the plain version rounds twice
+TOL7 = dict(rtol=2e-5, atol=1e-6)
+TOL_LR = dict(rtol=2e-4, atol=1e-5)
+
+
+def _grids(shape, n, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
+
+
+def test_coefficient_maps_round_trip():
+    assert convert.star7_vector(COEFFS) == tuple(CVEC)
+    assert convert.star7_dict(CVEC) == COEFFS
+    assert convert.longrange_vector(np.array(LR_C)) == tuple(LR_C)
+    with pytest.raises(ValueError, match="7 coefficients"):
+        convert.star7_vector(CVEC[:6])
+    with pytest.raises(ValueError, match="miss"):
+        convert.star7_vector({"W": 1.0})
+
+
+@pytest.mark.parametrize("bad, err", [
+    (torch.zeros(4, 8, 8, dtype=torch.float64), TypeError),
+    (torch.zeros(4, 8, 9), ValueError),
+    (torch.zeros(8, 8), ValueError),
+    (torch.zeros(4, 8, 8).transpose(1, 2), ValueError),
+])
+def test_wrappers_reject_bad_operands(bad, err):
+    """Checks are the same on every device: float32, (M, N, N),
+    contiguous — a float64 grid raises instead of being converted."""
+    with pytest.raises(err):
+        t_s7.stencil3d7pt(bad, CVEC, tile=(8, 64))
+    with pytest.raises(err):
+        t_lr.longrange3d(bad, bad, bad, LR_C, tile=(16, 32))
+
+
+@pytest.mark.parametrize("tile", [(8, 48), (0, 32), (64, 32), (1, 16)])
+def test_wrappers_reject_illegal_tiles(tile):
+    a = torch.zeros(4, 8, 8)
+    with pytest.raises(ValueError, match="CTA tile"):
+        t_s7.stencil3d7pt(a, CVEC, tile=tile)
+    with pytest.raises(ValueError, match="CTA tile"):
+        t_lr.longrange3d(a, a, a, LR_C, tile=tile)
+
+
+def test_longrange_tile_needs_radius_rows():
+    """Each of the first r thread rows loads one halo row above and one
+    below, so the long-range kernel needs bj >= 4."""
+    a = torch.zeros(4, 8, 8)
+    with pytest.raises(ValueError, match="bj >= 4"):
+        t_lr.longrange3d(a, a, a, LR_C, tile=(3, 32))
+    t_lr.longrange3d(a, a, a, LR_C, tile=(4, 32))
+
+
+def test_cpu_path_counts_no_launch():
+    """The plain version runs for CPU tensors; the launch counter counts
+    kernel launches only."""
+    before = t_s7.stencil3d7pt.launches, t_lr.longrange3d.launches
+    a = torch.zeros(4, 10, 10)
+    ops.stencil3d7pt(a, CVEC)
+    ops.longrange3d(a, a, a, LR_C)
+    assert (t_s7.stencil3d7pt.launches, t_lr.longrange3d.launches) == before
+
+
+def test_device_resolution_never_falls_back():
+    assert device.resolve("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert device.resolve(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="is_available"):
+            device.resolve(None)
+        with pytest.raises(RuntimeError):
+            convert.to_tensor(np.zeros(3), "cuda")
+
+
+def test_time_cuda_refuses_the_cpu():
+    with pytest.raises(ValueError, match="times the card"):
+        measure.time_cuda(lambda: None, device="cpu")
+
+
+def test_make_inputs_are_seeded():
+    a = stencil.make_inputs("longrange3d", (5, 9, 9), "cpu", seed=3)
+    b = stencil.make_inputs("longrange3d", (5, 9, 9), "cpu", seed=3)
+    assert len(a) == 4 and len(a[3]) == 5
+    for x, y in zip(a[:3], b[:3]):
+        assert x.dtype == torch.float32 and torch.equal(x, y)
+    with pytest.raises(ValueError, match="unknown stencil family"):
+        stencil.family("flash_attention")
+
+
+@pytest.mark.parametrize("name,grids,flops", [("stencil3d7pt", 1, 13),
+                                              ("longrange3d", 3, 33)])
+def test_bound_seconds(name, grids, flops):
+    """Bytes: each grid read once and the output written once at the H100
+    file's HBM rate; operations: the kernel's flops per interior point at
+    its fp32 peak."""
+    shape = (12, 20, 20)
+    args = stencil.make_inputs(name, shape, "cpu")
+    b = stencil.bound_seconds(name, args, "H100")
+    r = stencil.family(name).module.RADIUS
+    assert b.bytes == (grids + 1) * 12 * 20 * 20 * 4
+    assert b.bytes_s == b.bytes / 3.35e12
+    assert b.ops_s == flops * (12 - 2 * r) * (20 - 2 * r) ** 2 / 67e12
+    assert b.seconds == max(b.bytes_s, b.ops_s) and b.by == "bytes"
+
+
+# ----------------------------------------------------------------------
+# the shared-memory tile advisor
+# ----------------------------------------------------------------------
+
+@settings(max_examples=25, deadline=None)
+@given(radius=st.integers(0, 8), n=st.integers(1, 4096))
+def test_cta_tile_property(radius, n):
+    """Every tile fits the shared-memory budget and the thread limit, bi is
+    a whole number of warps, and bj >= radius."""
+    t = blocking.stencil_cta_tile(radius, (16, n, n))
+    assert t.smem_bytes == \
+        blocking.TILES * (t.bj + 2 * radius) * (t.bi + 2 * radius) * 4
+    assert t.smem_bytes <= blocking.SMEM_PER_CTA <= 227 * 1024
+    assert t.bi % 32 == 0 and t.threads <= blocking.THREADS <= 1024
+    assert max(1, radius) <= t.bj <= max(n, radius)
+    assert t.words_per_point >= 1.0
+
+
+def test_cta_tile_main_path_shapes():
+    """The tiles the main path launches with (float32)."""
+    t7 = blocking.stencil_cta_tile(1, (512, 512, 512))
+    tl = blocking.stencil_cta_tile(4, (130, 1015, 1015))
+    assert (t7.bj, t7.bi) == (4, 64)
+    assert (tl.bj, tl.bi) == (8, 32)
+
+
+@pytest.mark.parametrize("radius", [9, 16])
+def test_advisor_raises_without_legal_tile(radius):
+    """A halo of more than THREADS // 32 rows leaves no tile of whole warps
+    that fits the thread limit."""
+    with pytest.raises(ValueError, match="no legal CTA tile"):
+        blocking.stencil_cta_tile(radius, (40, 64, 64))
+    with pytest.raises(ValueError, match="radius must be non-negative"):
+        blocking.stencil_cta_tile(-radius, (40, 64, 64))
+
+
+# ----------------------------------------------------------------------
+# on the card: the CUDA kernels against the plain versions
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _boundary(shape, r):
+    inner = np.zeros(shape, bool)
+    if min(shape) > 2 * r:
+        inner[r:-r, r:-r, r:-r] = True
+    return ~inner
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 9, 9), (12, 37, 37), (20, 45, 45),
+                                   (6, 16, 16), (5, 1, 1), (2, 33, 33)])
+def test_cuda_stencil7pt_matches_plain(cuda, shape):
+    (a,) = _grids(shape, 1, seed=7)
+    t = convert.to_tensor(a, cuda)
+    n0 = t_s7.stencil3d7pt.launches
+    got = ops.stencil3d7pt(t, CVEC)
+    assert t_s7.stencil3d7pt.launches == n0 + 1
+    want = t_s7.plain(t, CVEC).cpu().numpy()
+    got = got.cpu().numpy()
+    np.testing.assert_allclose(got, want, **TOL7)
+    edge = _boundary(shape, 1)
+    np.testing.assert_array_equal(got[edge], a[edge])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 9, 9), (12, 37, 37), (20, 45, 45),
+                                   (9, 40, 40), (11, 2, 2), (8, 64, 64)])
+def test_cuda_longrange_matches_plain(cuda, shape):
+    u, v, roc = _grids(shape, 3, seed=11)
+    t = [convert.to_tensor(x, cuda) for x in (u, v, roc)]
+    n0 = t_lr.longrange3d.launches
+    got = ops.longrange3d(*t, LR_C)
+    assert t_lr.longrange3d.launches == n0 + 1
+    want = t_lr.plain(*t, LR_C).cpu().numpy()
+    got = got.cpu().numpy()
+    np.testing.assert_allclose(got, want, **TOL_LR)
+    edge = _boundary(shape, 4)
+    np.testing.assert_array_equal(got[edge], u[edge])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [(1, 32), (32, 32), (4, 256), (1, 1024)])
+def test_cuda_stencil7pt_takes_any_legal_tile(cuda, tile):
+    """Results do not depend on the CTA tile, from one-row tiles up to
+    1024-thread CTAs."""
+    a = convert.to_tensor(_grids((10, 70, 70), 1, 5)[0], cuda)
+    np.testing.assert_allclose(
+        t_s7.stencil3d7pt(a, CVEC, tile=tile).cpu().numpy(),
+        t_s7.plain(a, CVEC).cpu().numpy(), **TOL7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [(4, 32), (32, 32), (4, 256), (5, 64)])
+def test_cuda_longrange_takes_any_legal_tile(cuda, tile):
+    u, v, roc = (convert.to_tensor(x, cuda) for x in _grids((10, 70, 70), 3,
+                                                           5))
+    np.testing.assert_allclose(
+        t_lr.longrange3d(u, v, roc, LR_C, tile=tile).cpu().numpy(),
+        t_lr.plain(u, v, roc, LR_C).cpu().numpy(), **TOL_LR)
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_refuses_device_coefficients(cuda):
+    a = torch.zeros(4, 8, 8, device=cuda)
+    with pytest.raises(TypeError, match="host numbers"):
+        ops.stencil3d7pt(a, torch.tensor(CVEC, device=cuda))
+    with pytest.raises(TypeError):
+        ops.stencil3d7pt(a.double(), CVEC)
+
+
+@pytest.mark.gpu
+def test_cuda_timer_measures_the_kernel(cuda):
+    args = stencil.make_inputs("stencil3d7pt", (64, 128, 128), cuda)
+    run = measure.time_cuda(lambda: ops.stencil3d7pt(*args), iters=5,
+                            reps=4)
+    assert run.ok and 0 < run.wall_s < 1.0 and len(run.samples) == 4
