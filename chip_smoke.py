@@ -6,20 +6,32 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device  — name, count, torch/CUDA versions, ``nvidia-smi`` name and
                power limit, SM count and L2 size against the machine file;
-  2. build   — both CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-               sm_90a, in parallel; build seconds and ptxas resource usage;
-  3. check   — each kernel against its plain PyTorch version on the card at
-               ragged shapes and at the main-path shape, at the reference
-               tolerances; boundaries must be bit-exact copies;
+  2. build   — the three CUDA kernels from ``src/repro_torch/csrc`` with
+               nvcc for sm_90a, in parallel; build seconds and ptxas
+               resource usage;
+  3. check   — each kernel against its plain PyTorch version on the card,
+               at the reference tolerances: the stencils at ragged shapes
+               and at the main-path shape (boundaries bit-exact); flash
+               attention in f32 and bf16, head_dim 32/64/96/128, causal
+               and full, the decode shape (1, 32, 128, 4096), and every
+               feasible candidate of a small tune space;
   4. main    — the stencil case study at full size: the 7-point stencil at
                (512, 512, 512) and the long-range stencil at the paper's §3
                size (130, 1015, 1015), fp32.  Per stencil: ECM and Roofline
                prediction on the H100 machine file, a run through the
                ``ops`` wrappers, CUDA-event timing, the plain version's and
-               (7-point) ``conv3d``'s times, and the HBM bound.  Launch
-               counters are zeroed just before this phase and must be
-               positive just after it;
-  5. a JSON line naming each ported kernel, then the card's line, then
+               (7-point) ``conv3d``'s times, and the HBM bound;
+  5. tune    — ``tune flash_attention`` at granite-8b's attention (32
+               heads, head_dim 128, bf16, causal, batch 1, seq 4096):
+               predict every candidate, measure the top 4 and the default
+               in spawned children, derive calibration and write it to a
+               copy of the machine file under ``build/``; then one launch
+               at the chosen blocks in this process, held against the
+               plain version and timed beside the plain version, SDPA
+               (the yardstick only) and the bound.
+     Launch counters are zeroed just before each main path (4, 5) and
+     must be positive just after it;
+  6. a JSON line naming each ported kernel, then the card's line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX or of the JAX package ``repro``; it needs the
@@ -47,7 +59,14 @@ MAIN = {"stencil3d7pt": (512, 512, 512), "longrange3d": (130, 1015, 1015)}
 TOL = {"stencil3d7pt": dict(rtol=2e-5, atol=1e-6),
        "longrange3d": dict(rtol=2e-4, atol=1e-5)}
 REPLACES = {"stencil3d7pt": "src/repro/kernels/stencil3d7pt.py:77",
-            "longrange3d": "src/repro/kernels/longrange3d.py:91"}
+            "longrange3d": "src/repro/kernels/longrange3d.py:91",
+            "flash_attention": "src/repro/kernels/flash_attention.py:150"}
+# flash attention: the reference's tolerances (tests/test_kernels.py)
+FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+# granite-8b's attention (src/repro/configs/granite_8b.py: 32 heads of
+# 128) at the train_4k length, bf16, causal, batch 1
+GRANITE = {"batch": 1, "heads": 32, "seq_q": 4096, "seq_kv": 4096,
+           "head_dim": 128, "causal": True, "dtype": "bfloat16"}
 
 
 class SmokeError(RuntimeError):
@@ -181,6 +200,147 @@ def report(name: str, run: dict, stencil, measure, h100, card: str) -> dict:
             "library_ms": lib_ms}
 
 
+def fa_compare(what: str, got, want, dtype) -> float:
+    """Max abs error of a flash result against the plain version, within
+    the reference tolerance ``|got - want| <= tol + tol * |want|``."""
+    tol = FA_TOL[dtype]
+    if got.shape != want.shape or got.dtype != dtype \
+            or not torch.isfinite(got.float()).all():
+        raise SmokeError(f"flash_attention {what}: shape, dtype or "
+                         "non-finite values")
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bad = err > tol + tol * w.abs()
+    if bad.any():
+        raise SmokeError(f"flash_attention {what}: {int(bad.sum())} values "
+                         f"outside {tol}, max abs err {err.max().item():.3e}")
+    return err.max().item()
+
+
+def qkv(shape_q, skv: int, dtype, seed: int):
+    """q, k, v normal from ``seed``, made on the card in fp32, rounded."""
+    b, h, _, d = shape_q
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=gen, device="cuda").to(dtype)
+            for s in (shape_q, (b, h, skv, d), (b, h, skv, d))]
+
+
+def check_flash(fa, ops, space) -> float:
+    """The flash kernel against its plain version on the card; returns the
+    max abs error over every case."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (32, 64, 96, 128):
+            for causal in (True, False):
+                q, k, v = qkv((2, 4, 256, d), 512, dtype, seed=d)
+                what = f"{str(dtype)[6:]} d={d} causal={causal}"
+                err = fa_compare(what, ops.flash_attention(q, k, v,
+                                                           causal=causal),
+                                 fa.plain(q, k, v, causal=causal), dtype)
+                worst = max(worst, err)
+                print(f"  flash (2, 4, 256, {d}) kv 512 {what:28s} max abs "
+                      f"err {err:.3e}  ok")
+        q, k, v = qkv((1, 32, 128, 128), 4096, dtype, seed=1)
+        err = fa_compare("decode", ops.flash_attention(q, k, v),
+                         fa.plain(q, k, v), dtype)
+        worst = max(worst, err)
+        print(f"  flash decode (1, 32, 128, 128) kv 4096 (q_offset 3968) "
+              f"{str(dtype)[6:]}: max abs err {err:.3e}  ok")
+        sp = space.resolve_space("flash_attention", "H100", batch=1,
+                                 heads=4, seq_q=256, seq_kv=256,
+                                 head_dim=128, causal=True,
+                                 dtype=str(dtype)[6:])
+        cands = sp.candidates()
+        q, k, v = sp.inputs("cuda", seed=2)
+        want = fa.plain(q, k, v)
+        n = 0
+        for c, pred in zip(cands, sp.predict(cands)):
+            if not pred.feasible:
+                continue
+            bq, bkv = c.config["block_q"], c.config["block_kv"]
+            got = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+            worst = max(worst, fa_compare(f"candidate {bq}x{bkv}", got,
+                                          want, dtype))
+            n += 1
+        torch.cuda.synchronize()
+        print(f"  flash: all {n} feasible candidates of {len(cands)} in the "
+              f"seq-256 {str(dtype)[6:]} space launch and match")
+    return worst
+
+
+def tune_path(fa, space, tune_mod, measure, machine_mod) -> dict:
+    """The tuner at the granite shape, calibration written to a copy of
+    the machine file under build/, and one launch at the chosen blocks."""
+    rep = tune_mod.tune("flash_attention", "H100", config=GRANITE, top_k=4,
+                        isolate=True, device="cuda")
+    print("  " + rep.render().replace("\n", "\n  "))
+    if rep.n_failed or rep.measured_chosen_s is None:
+        raise SmokeError("tune flash_attention measured no candidate or "
+                         "lost one")
+    h100_yaml = tune_mod.machine_yaml_path("H100")
+    cal_copy = ROOT / "build" / "chip_smoke" / h100_yaml.name
+    cal_copy.parent.mkdir(parents=True, exist_ok=True)
+    cal_copy.write_text(h100_yaml.read_text())
+    tune_mod.apply_calibration(cal_copy, rep.calibration)
+    factor = machine_mod.Machine.from_yaml(cal_copy).calibration_factor(
+        "time", "flash_attention")
+    print(f"  calibration written to {cal_copy.relative_to(ROOT)}; "
+          f"reloaded: time[flash_attention] = {factor:.6g}")
+    sp = space.resolve_space("flash_attention", "H100", **GRANITE)
+    q, k, v = sp.inputs("cuda")
+    bq, bkv = rep.chosen_params["block_q"], rep.chosen_params["block_kv"]
+    out = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+    t_kernel = measure.time_cuda(
+        lambda: fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv),
+        warmup=1, iters=3, reps=5)
+    torch.cuda.synchronize()
+    return {"report": rep, "qkv": (q, k, v), "out": out,
+            "t_kernel": t_kernel, "factor": factor}
+
+
+def flash_report(run: dict, fa, space, measure, h100, card: str) -> dict:
+    q, k, v = run["qkv"]
+    rep = run["report"]
+    err = fa_compare("granite", run["out"], fa.plain(q, k, v), q.dtype)
+    t_plain = measure.time_cuda(lambda: fa.plain(q, k, v), warmup=1,
+                                iters=2, reps=3)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+    # SDPA's causal mask is top-left aligned: it equals the kernel's only
+    # at seq_q == seq_kv, which the granite shape has
+    fa_compare("SDPA yardstick", sdpa(), run["out"], q.dtype)
+    lib_ms = measure.time_cuda(sdpa).wall_s * 1e3
+    bound = space.attention_bound(q, k, causal=True, machine=h100)
+    fp32_s = bound.ops_s * h100.peak_flops["BF16"] / h100.peak_flops["FP32"]
+    ms = run["t_kernel"].wall_s * 1e3
+    bq, bkv = rep.chosen_params["block_q"], rep.chosen_params["block_kv"]
+    print(f"  flash_attention {tuple(q.shape)} bf16 causal, blocks "
+          f"({bq}, {bkv}) on {card}:")
+    print(f"    kernel   {ms:.4f} ms  ({bound.seconds * 1e3 / ms:.1%} of the "
+          f"bound, {fp32_s * 1e3 / ms:.1%} of the fp32 CUDA-core floor "
+          f"{fp32_s * 1e3:.4f} ms)")
+    print(f"    bound    {bound.seconds * 1e3:.4f} ms by {bound.by} "
+          f"({bound.ops_s * 1e3:.4f} ms of operations at "
+          f"{h100.peak_flops['BF16'] / 1e12:.0f} TFLOP/s bf16; "
+          f"{bound.bytes / 1e6:.1f} MB at {h100.hbm_bandwidth / 1e12:.2f} "
+          f"TB/s, {bound.bytes_s * 1e3:.4f} ms)")
+    print(f"    plain    {t_plain.wall_s * 1e3:.4f} ms")
+    print(f"    library  {lib_ms:.4f} ms (scaled_dot_product_attention, "
+          "yardstick only)")
+    print(f"    tuner predicted {rep.predicted_chosen_s * 1e3:.4f} ms "
+          f"(measured/predicted {ms / (rep.predicted_chosen_s * 1e3):.3f})")
+    print(f"    max abs err vs plain {err:.3e}")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": REPLACES["flash_attention"], "launches": 0,
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": t_plain.wall_s * 1e3,
+            "bound_ms": bound.seconds * 1e3, "bound_by": bound.by,
+            "library_ms": lib_ms}
+
+
 def smoke(out_path: str | None) -> int:
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is False: this smoke "
@@ -189,9 +349,11 @@ def smoke(out_path: str | None) -> int:
         raise SmokeError(f"no src/repro_torch beside {__file__}: run it "
                          "from a checkout of the repository")
     sys.path.insert(0, str(SRC))
+    from repro_torch import tune as tune_mod
     from repro_torch.core import machine as machine_mod
-    from repro_torch.kernels import _build
-    from repro_torch.tune import measure, stencil
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.tune import measure, space, stencil
 
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
@@ -226,6 +388,7 @@ def smoke(out_path: str | None) -> int:
         for shape in RAGGED + [MAIN[name]]:
             err = check_kernel(name, shape, fam, stencil)
             max_err[name] = max(max_err.get(name, 0.0), err)
+    max_err["flash_attention"] = check_flash(fa, ops, space)
 
     phase("4 main path at full size")
     # each family's kernel wrapper carries the family's name
@@ -250,7 +413,31 @@ def smoke(out_path: str | None) -> int:
         del run["args"], run["out"]
         torch.cuda.empty_cache()
 
-    phase("5 result")
+    phase("5 tune flash_attention at granite-8b's attention")
+    fa.flash_attention.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
+    fa_run = tune_path(fa, space, tune_mod, measure, machine_mod)
+    launches["flash_attention"] = fa.flash_attention.launches
+    print(f"  launches in this process during the tune path: "
+          f"{launches['flash_attention']} (the measuring runs are in "
+          "spawned children)")
+    if launches["flash_attention"] <= 0:
+        raise SmokeError("tune path never launched the flash kernel")
+    e = flash_report(fa_run, fa, space, measure, h100, card)
+    e["launches"] = launches["flash_attention"]
+    e["max_abs_err"] = max(max_err["flash_attention"], e["max_abs_err"])
+    entries.append(e)
+    rep = fa_run["report"]
+    predicted["flash_attention"] = {
+        "tuner_predicted_ms": rep.predicted_chosen_s * 1e3,
+        "candidates": [c.to_dict() for c in rep.measured_outcomes],
+        "calibration": rep.calibration,
+        "chosen": rep.chosen_params, "default": rep.default_params}
+    del fa_run
+    torch.cuda.empty_cache()
+
+    phase("6 result")
     result = {"kernels": entries}
     if out_path:
         pathlib.Path(out_path).parent.mkdir(parents=True, exist_ok=True)

@@ -22,7 +22,11 @@ LONGRANGE_NCOEF = 5
 
 def to_tensor(x, device=None, dtype: torch.dtype | None = None) -> torch.Tensor:
     """numpy (or anything ``np.asarray`` takes) -> contiguous tensor on
-    ``device`` (resolved by :func:`repro_torch.device.resolve`)."""
+    ``device`` (resolved by :func:`repro_torch.device.resolve`), cast to
+    ``dtype``.  This is how attention's q, k and v cross from the tests'
+    numpy: made in float32 and cast here, bfloat16 rounds to nearest even
+    as ``jnp.asarray(x, jnp.bfloat16)`` does, so both packages get
+    bit-identical inputs."""
     arr = np.ascontiguousarray(np.asarray(x))
     return torch.from_numpy(arr).to(device=_device.resolve(device),
                                     dtype=dtype)

@@ -82,3 +82,13 @@ def analyze(source: Any, machine: Machine | str, model: str = "ecm",
     kernel = load_kernel(source, constants, element_bytes)
     return fn(kernel, resolve_machine(machine), predictor=predictor,
               cores=cores, incore=incore)
+
+
+def tune(family: str, machine: Machine | str, **opts):
+    """Autotune a kernel family on ``machine`` — the predict → measure →
+    calibrate loop (:func:`repro_torch.tune.tune`), with the same keyword
+    arguments (``config=``, ``top_k=``, ``measure=``, ``device=``, ...);
+    returns a :class:`repro_torch.tune.TuneReport`.  Imported lazily:
+    analysis-only callers never load the tuner."""
+    from ..tune import tune as _tune
+    return _tune(family, machine, **opts)

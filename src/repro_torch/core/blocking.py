@@ -1,5 +1,7 @@
-"""CTA tile advisor for the 2.5-D blocked stencil kernels on Hopper — the
-GPU counterpart of ``repro.core.blocking.stencil_blocks``.
+"""CTA tile advisors for the port's Hopper kernels: the 2.5-D blocked
+stencils (the GPU counterpart of ``repro.core.blocking.stencil_blocks``)
+and flash attention (:func:`attention_cta_tiles`, the counterpart of
+``attention_tiles``, at the end of this module).
 
 On the TPU the advisor sizes a 3-D block whose haloed working set fits
 VMEM.  On the H100 a CTA holds one haloed ``(bj, bi)`` tile of one plane
@@ -28,10 +30,12 @@ import dataclasses
 import functools
 import math
 
+from ..kernels import flash_attention as fa
+
 WARP = 32
 SECTOR_BYTES = 32                 # L2 -> SM transfer granule
 ELEM_BYTES = 4                    # the kernels run float32 only
-SMEM_PER_CTA = 232448             # 227 KiB, the H100's opt-in maximum
+SMEM_PER_CTA = fa.SMEM_PER_CTA    # 227 KiB, the H100's opt-in maximum
 THREADS = 256                     # per CTA, at most
 TILES = 2                         # shared-memory tiles per CTA, used in turn
 
@@ -79,3 +83,50 @@ def stencil_cta_tile(radius: int, shape: tuple[int, int, int]) -> CTATile:
             f"no legal CTA tile for radius {radius} on {shape}: a tile needs "
             f"bj >= {radius} rows of {WARP} threads, more than {THREADS}")
     return best
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionCTATiles:
+    bq: int
+    bkv: int
+    smem_bytes: int
+
+
+#: the advisor's first blocks: at head_dim 128 a q tile of 256 fp32 rows
+#: alone takes 128 KiB of the 227 KiB, leaving no room for a useful kv tile
+ATTENTION_START = 128
+
+
+def attention_cta_tiles(seq_q: int, seq_kv: int, head_dim: int,
+                        dtype="bfloat16") -> AttentionCTATiles:
+    """Flash-attention block sizes for one CTA of the Hopper kernel — the
+    shared-memory counterpart of ``repro.core.blocking.attention_tiles``.
+
+    The q tile is the 'layer' kept resident while the kv stream passes
+    (the LC structure of attention), so blocks start as large as the
+    lengths allow (at most :data:`ATTENTION_START`, in steps of
+    ``GRANULE * 2**k``) and shrink in the JAX advisor's order — ``bkv``
+    first, then ``bq`` — until :func:`repro_torch.kernels.flash_attention
+    .launch_limits` accepts the pair.  The result need not divide the
+    lengths; :func:`~repro_torch.kernels.flash_attention.fit_blocks`
+    clamps it.  Raises ``ValueError`` when even the smallest pair does not
+    launch."""
+    def start(n: int) -> int:
+        b = fa.GRANULE
+        while 2 * b <= min(n, ATTENTION_START):
+            b *= 2
+        return b
+
+    bq, bkv = start(seq_q), start(seq_kv)
+
+    def lim(a: int, b: int):
+        return fa.launch_limits(a, b, head_dim, dtype)
+
+    while not lim(bq, bkv).ok and bkv > fa.GRANULE:
+        bkv //= 2
+    while not lim(bq, bkv).ok and bq > fa.GRANULE:
+        bq //= 2
+    last = lim(bq, bkv)
+    if not last.ok:
+        raise ValueError(f"no flash-attention CTA tile: {last.reason}")
+    return AttentionCTATiles(bq=bq, bkv=bkv, smem_bytes=last.smem_bytes)

@@ -25,7 +25,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("stencil3d7pt", "longrange3d")
+SOURCES = ("stencil3d7pt", "longrange3d", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -120,7 +120,7 @@ def library(name: str) -> ctypes.CDLL:
 
 
 # ----------------------------------------------------------------------
-# binding and the checks every stencil wrapper makes before a launch
+# binding, and the checks every stencil wrapper makes before a launch
 # ----------------------------------------------------------------------
 
 def check_grid(*tensors: torch.Tensor) -> tuple[int, int]:
@@ -153,17 +153,24 @@ def check_tile(tile: tuple[int, int], radius: int) -> tuple[int, int]:
     return bj, bi
 
 
-def bind(name: str, n_ptrs: int, n_coef: int):
-    """The ctypes binding of ``repro_<name>`` with its argument types set:
-    pointers and the stream as ``c_void_p`` (a plain int would be cut to
-    32 bits), then M, N, the tile and the coefficients by value."""
+def entry(name: str, argtypes: list):
+    """The ctypes binding of ``repro_<name>`` in ``csrc/<name>.cu`` with
+    its argument types set (a pointer or the stream must be ``c_void_p``:
+    a plain int would be cut to 32 bits) and an ``int`` result, the
+    ``cudaError_t`` of the launch."""
     fn = getattr(library(name), f"repro_{name}")
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs
-                   + [ctypes.c_longlong, ctypes.c_longlong,
-                      ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_float] * n_coef + [ctypes.c_void_p])
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def bind(name: str, n_ptrs: int, n_coef: int):
+    """The binding of a stencil launch function: pointers, M, N, the tile
+    and the coefficients by value, then the stream."""
+    return entry(name, [ctypes.c_void_p] * n_ptrs
+                 + [ctypes.c_longlong, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_int]
+                 + [ctypes.c_float] * n_coef + [ctypes.c_void_p])
 
 
 def check_status(name: str, err: int) -> None:

@@ -1,13 +1,15 @@
-"""Public wrappers for the port's stencil kernels, with the CTA tile chosen
-by the shared-memory advisor (:func:`repro_torch.core.blocking
-.stencil_cta_tile`) — the counterpart of ``repro.kernels.ops``, whose VMEM
-working-set guards the advisor replaces.  A grid for which no legal tile
-exists raises ``ValueError`` before anything launches."""
+"""Public wrappers for the port's kernels, with the CTA tiles chosen by the
+shared-memory advisors (:func:`repro_torch.core.blocking.stencil_cta_tile`,
+:func:`~repro_torch.core.blocking.attention_cta_tiles`) — the counterpart
+of ``repro.kernels.ops``, whose VMEM working-set guards the advisors
+replace.  A shape for which no legal tile exists raises ``ValueError``
+before anything launches."""
 from __future__ import annotations
 
 import torch
 
 from ..core import blocking
+from . import flash_attention as _fa
 from . import longrange3d as _lr
 from . import stencil3d7pt as _s7
 
@@ -28,3 +30,19 @@ def longrange3d(u: torch.Tensor, v: torch.Tensor, roc: torch.Tensor,
                 coeffs) -> torch.Tensor:
     """The long-range stencil update of ``u``; coefficients c0..c4."""
     return _lr.longrange3d(u, v, roc, coeffs, tile=_tile(_lr.RADIUS, u))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    q_offset: int | None = None) -> torch.Tensor:
+    """Attention with blocks from the shared-memory advisor, clamped by
+    halving to divisors of the lengths; kv heads broadcast by GQA
+    callers."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("flash_attention takes (b, h, s, d) tensors")
+    sq, d = int(q.shape[2]), int(q.shape[3])
+    skv = int(k.shape[2])
+    tiles = blocking.attention_cta_tiles(sq, skv, d, q.dtype)
+    bq, bkv = _fa.fit_blocks(sq, skv, tiles.bq, tiles.bkv, d)
+    return _fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                               block_kv=bkv, q_offset=q_offset)

@@ -1,13 +1,16 @@
-"""Plain PyTorch versions of the stencil oracles (the counterparts of
-``repro.kernels.ref.stencil3d7pt`` and ``.longrange3d``).
+"""Plain PyTorch versions of the reference oracles (the counterparts of
+``repro.kernels.ref.stencil3d7pt``, ``.longrange3d`` and ``.attention``).
 
-They keep the JAX oracles' slicing and term order, return a new tensor,
-and run on whatever device their inputs live on.  Attention waits for the
-flash-attention slice.
+They keep the JAX oracles' slicing, term order and masking, return a new
+tensor, and run on whatever device their inputs live on.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from .flash_attention import NEG_INF
 
 
 # ----------------------------------------------------------------------
@@ -53,3 +56,23 @@ def longrange3d(u: torch.Tensor, v: torch.Tensor, roc: torch.Tensor,
     out = u.clone()
     out[r:-r, r:-r, r:-r] = upd.to(u.dtype)
     return out
+
+
+# ----------------------------------------------------------------------
+# flash attention (causal / full), grouped heads handled by the caller
+# ----------------------------------------------------------------------
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """q: (b, h, sq, d), k/v: (b, h, skv, d) -> (b, h, sq, d); fp32 inside,
+    the output in q's dtype.  The causal mask aligns the last query with
+    the last key (query i sees keys up to ``i + skv - sq``)."""
+    sq, d = q.shape[2], q.shape[3]
+    skv = k.shape[2]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        / math.sqrt(d)
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        mask = rows >= torch.arange(skv, device=q.device)[None]
+        scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

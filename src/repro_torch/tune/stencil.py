@@ -26,6 +26,7 @@ from ..core import api
 from ..core.ecm import ECMResult
 from ..core.roofline import RooflineResult
 from ..kernels import longrange3d, ops, stencil3d7pt
+from .measure import Bound
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,21 +83,6 @@ def predict_seconds(name: str, shape: tuple[int, int, int],
         flops_total=kernel.flops.total * kernel.total_iterations(),
         ecm=api.MODELS["ecm"](kernel, mach, cores=cores),
         roofline=api.MODELS["roofline"](kernel, mach, cores=cores))
-
-
-@dataclasses.dataclass(frozen=True)
-class Bound:
-    bytes: int                    # each grid read once, the output written once
-    bytes_s: float                # those bytes at the HBM rate
-    ops_s: float                  # the kernel's flops at the fp32 peak
-
-    @property
-    def seconds(self) -> float:
-        return max(self.bytes_s, self.ops_s)
-
-    @property
-    def by(self) -> str:
-        return "bytes" if self.bytes_s >= self.ops_s else "operations"
 
 
 def bound_seconds(name: str, args, machine="H100") -> Bound:

@@ -15,10 +15,11 @@ except ImportError:    # container without hypothesis: deterministic shim
 
 from repro_torch import convert, device
 from repro_torch.core import blocking
+from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import longrange3d as t_lr
 from repro_torch.kernels import ops
 from repro_torch.kernels import stencil3d7pt as t_s7
-from repro_torch.tune import measure, stencil
+from repro_torch.tune import measure, space, stencil
 
 COEFFS = dict(W=0.1, E=0.2, N=0.3, S=0.15, F=0.25, B=0.05, s=-1.0)
 CVEC = [COEFFS[c] for c in "WENSFB"] + [COEFFS["s"]]
@@ -251,3 +252,103 @@ def test_cuda_timer_measures_the_kernel(cuda):
     run = measure.time_cuda(lambda: ops.stencil3d7pt(*args), iters=5,
                             reps=4)
     assert run.ok and 0 < run.wall_s < 1.0 and len(run.samples) == 4
+
+
+# ----------------------------------------------------------------------
+# on the card: the flash-attention kernel against its plain version
+# ----------------------------------------------------------------------
+
+# the reference's tolerances (tests/test_kernels.py): the kernel sums its
+# products in another order than the plain version's matmuls
+TOL_FA = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+
+
+def _qkv(shape_q, skv, dtype, device, seed=0):
+    """q, k, v made with numpy from ``seed`` and rounded to ``dtype`` on
+    the way in (bfloat16 rounds to nearest even)."""
+    b, h, sq, d = shape_q
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s, dtype=np.float32)
+            for s in (shape_q, (b, h, skv, d), (b, h, skv, d))]
+    return [convert.to_tensor(a, device, dtype) for a in arrs]
+
+
+def _close(got, want, dtype):
+    tol = TOL_FA[dtype]
+    assert got.dtype == want.dtype == dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq, skv", [(256, 256), (128, 512)])
+def test_cuda_flash_matches_plain(cuda, dtype, d, causal, sq, skv):
+    q, k, v = _qkv((2, 2, sq, d), skv, dtype, cuda, seed=d + sq)
+    n0 = t_fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert t_fa.flash_attention.launches == n0 + 1
+    _close(got, t_fa.plain(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_shape(cuda, dtype):
+    """128 queries at the end of a 4096-key prefix (q_offset 3968)."""
+    q, k, v = _qkv((1, 32, 128, 128), 4096, dtype, cuda, seed=5)
+    got = ops.flash_attention(q, k, v, causal=True)
+    _close(got, t_fa.plain(q, k, v, causal=True), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_every_feasible_candidate(cuda, dtype):
+    """Every candidate the tune space calls feasible launches and
+    matches, and every infeasible one is refused before launch."""
+    sp = space.resolve_space("flash_attention", "H100", batch=1, heads=2,
+                             seq_q=256, seq_kv=256, head_dim=128,
+                             causal=True, dtype=dtype)
+    cands = sp.candidates()
+    preds = sp.predict(cands)
+    tdt = t_fa.torch_dtype(dtype)
+    q, k, v = _qkv((1, 2, 256, 128), 256, tdt, cuda, seed=9)
+    want = t_fa.plain(q, k, v, causal=True)
+    n_ok = 0
+    for c, p in zip(cands, preds):
+        bq, bkv = c.config["block_q"], c.config["block_kv"]
+        if p.feasible:
+            _close(t_fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv),
+                   want, tdt)
+            n_ok += 1
+        else:
+            with pytest.raises(ValueError):
+                t_fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+    assert n_ok >= 20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [(100, 64), (64, 100), (2, 64),
+                                    (128, 128)])
+def test_cuda_flash_refuses_before_launch(cuda, blocks):
+    """A block that does not divide the length, misses the granule, or
+    needs more shared memory than a CTA has raises ValueError and
+    launches nothing."""
+    q, k, v = _qkv((1, 1, 512, 128), 512, torch.float32, cuda)
+    n0 = t_fa.flash_attention.launches
+    with pytest.raises(ValueError):
+        t_fa.flash_attention(q, k, v, block_q=blocks[0], block_kv=blocks[1])
+    assert t_fa.flash_attention.launches == n0
+
+
+@pytest.mark.gpu
+def test_cuda_flash_never_reaches_plain(cuda, monkeypatch):
+    """A CUDA tensor goes to the kernel, never to the plain version."""
+    def boom(*a, **kw):
+        raise AssertionError("plain called for a CUDA tensor")
+    monkeypatch.setattr(t_fa, "plain", boom)
+    q, k, v = _qkv((1, 2, 64, 64), 64, torch.bfloat16, cuda)
+    out = t_fa.flash_attention(q, k, v, block_q=32, block_kv=32)
+    assert out.is_cuda and torch.isfinite(out.float()).all()

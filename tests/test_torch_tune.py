@@ -1,0 +1,324 @@
+"""The port's autotuner (``repro_torch.tune``) against the JAX package's.
+
+The flash-attention space's visited-step count, the harness's median, the
+error summary and the calibration derivation are held to the JAX copies
+on the same inputs; reports decode through either package's
+``from_dict``; the tune loop runs end to end on the CPU (named as such:
+nothing falls back to it), in process and in a spawned child with an
+injected fault; and the command line exits 0 without touching a device.
+"""
+import json
+import math
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:    # container without hypothesis: deterministic shim
+    from _hypothesis_fallback import given, settings, st
+
+from repro.core.machine import Machine as JMachine  # noqa: E402
+from repro.tune import calibrate as j_cal  # noqa: E402
+from repro.tune import measure as j_measure  # noqa: E402
+from repro.tune import report as j_report  # noqa: E402
+from repro.tune import space as j_space  # noqa: E402
+
+from repro_torch.core import api as t_api  # noqa: E402
+from repro_torch.core import blocking  # noqa: E402
+from repro_torch.core import machine as t_machine  # noqa: E402
+from repro_torch.kernels import flash_attention as t_fa  # noqa: E402
+from repro_torch.tune import calibrate as t_cal  # noqa: E402
+from repro_torch.tune import measure as t_measure  # noqa: E402
+from repro_torch.tune import report as t_report  # noqa: E402
+from repro_torch.tune import space as t_space  # noqa: E402
+from repro_torch.tune import tune  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+H100_YAML = REPO / "src" / "repro_torch" / "machines" / "h100_sxm.yaml"
+H100 = t_machine.load("H100")
+TINY = {"batch": 1, "heads": 2, "seq_q": 64, "seq_kv": 64, "head_dim": 32,
+        "causal": True, "dtype": "float32"}
+
+
+def _spaces(**config):
+    j = j_space.resolve_space("flash_attention",
+                              JMachine.from_yaml(H100_YAML), **config)
+    t = t_space.resolve_space("flash_attention", H100, **config)
+    return j, t
+
+
+@pytest.mark.parametrize("sq, skv", [(256, 256), (128, 512), (512, 512),
+                                     (64, 4096), (96, 96)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_steps_equal_jax(sq, skv, causal):
+    """The causal visit rule of the model equals the JAX space's over a
+    grid of blocks (and so the kernel's loop bound, which it states)."""
+    j, t = _spaces(seq_q=sq, seq_kv=skv, causal=causal)
+    for bq in (4, 8, 16, 32, 64, 96, 128):
+        for bkv in (4, 8, 32, 64, 128, 192):
+            if sq % bq or skv % bkv:
+                continue
+            assert t._steps(bq, bkv) == j._steps(bq, bkv), (bq, bkv)
+
+
+@settings(max_examples=30, deadline=None)
+@given(sq=st.integers(1, 256), extra=st.integers(0, 256),
+       d=st.sampled_from([4, 32, 64, 96, 128, 256]),
+       causal=st.booleans(), dtype=st.sampled_from(["float32", "bfloat16"]))
+def test_default_and_advisor_are_feasible(sq, extra, d, causal, dtype):
+    """default() and the advisor's pick are feasible — they divide the
+    lengths and pass the launch limits — at every shape the space takes."""
+    sp = t_space.resolve_space(
+        "flash_attention", H100, seq_q=4 * sq, seq_kv=4 * (sq + extra),
+        head_dim=d, causal=causal, dtype=dtype)
+    cands = [sp.default(), sp._advisor()]
+    assert all(c in sp.candidates() for c in cands)
+    for p in sp.predict(cands):
+        assert p.feasible and 0 < p.seconds < math.inf, p.reason
+
+
+def test_space_refuses_what_the_kernel_refuses():
+    with pytest.raises(ValueError, match="multiples of 4"):
+        t_space.resolve_space("flash_attention", H100, seq_q=66)
+    with pytest.raises(ValueError, match="ROADMAP Queue 3"):
+        t_space.resolve_space("flash_attention", H100, seq_q=128,
+                              seq_kv=64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_space.resolve_space("flash_attention", H100, dtype="float16")
+    with pytest.raises(ValueError, match="unknown flash_attention config"):
+        t_space.resolve_space("flash_attention", H100, seq=1)
+    for fam in ("stencil3d7pt", "longrange3d"):
+        with pytest.raises(ValueError, match="ROADMAP Queue 1, item 4"):
+            t_space.resolve_space(fam, H100)
+    with pytest.raises(ValueError, match="unknown tune family"):
+        t_space.resolve_space("matmul", H100)
+
+
+def test_feasibility_is_the_launch_limit():
+    """Every candidate is feasible exactly when the wrapper would launch
+    it: blocks divide the lengths and launch_limits accept them."""
+    sp = t_space.resolve_space("flash_attention", H100, seq_q=512,
+                               seq_kv=1024, head_dim=128)
+    cands = sp.candidates()
+    n = 0
+    for c, p in zip(cands, sp.predict(cands)):
+        bq, bkv = c.config["block_q"], c.config["block_kv"]
+        ok = (512 % bq == 0 and 1024 % bkv == 0
+              and t_fa.launch_limits(bq, bkv, 128).ok)
+        assert p.feasible == ok, (c, p)
+        n += ok
+    assert n > 10
+
+
+def test_model_follows_the_kernel():
+    """The matmul term runs at the kernel's unit (fp32 CUDA cores), and
+    the peak is shared over the SMs the CTAs keep busy: with fewer CTAs
+    than SMs a pair of halved q blocks runs about twice as fast."""
+    assert t_fa.MATMUL_UNIT == "FP32"
+    sp = t_space.resolve_space("flash_attention", H100, batch=1, heads=1,
+                               seq_q=1024, seq_kv=1024, causal=False)
+    big, small = sp.predict([
+        t_space.Candidate.make("flash_attention", block_q=64, block_kv=64),
+        t_space.Candidate.make("flash_attention", block_q=32, block_kv=64)])
+    assert big.bound == small.bound == "compute"
+    assert 1.8 < big.seconds / small.seconds < 2.2
+    # 16 CTAs keep 16 of the 132 SMs busy: the products alone take the
+    # flops over 16 SMs' share of the fp32 peak
+    assert big.seconds >= \
+        4 * 1024 * 1024 * 128 / (H100.peak_flops["FP32"] * 16 / 132)
+
+
+def test_attention_bound_at_the_granite_shape():
+    """4·d flops per visible pair at the BF16 peak, 4 × 32 MiB moved."""
+    q = torch.empty(1, 32, 4096, 128, dtype=torch.bfloat16, device="meta")
+    b = t_space.attention_bound(q, q, causal=True, machine=H100)
+    assert b.bytes == 4 * 32 * 2 ** 20
+    flops = 4 * 128 * 32 * 4096 * 4097 // 2
+    assert b.ops_s == flops / 9.89e14 and b.by == "operations"
+    assert abs(b.seconds * 1e3 - 0.139) < 5e-4
+    assert t_space.attention_bound(q.float(), q.float(), causal=False,
+                                   machine=H100).ops_s == \
+        4 * 128 * 32 * 4096 * 4096 / 6.7e13
+
+
+@pytest.mark.parametrize("samples", [
+    [], [1.0], [3.0, 1.0, 2.0], [1.0, 1.1, 0.9, 1.05, 50.0],
+    [0.5, 0.6, 0.55, 0.52, 0.58, 0.01, 0.57, 0.56]])
+def test_robust_median_equals_jax(samples):
+    assert t_measure.robust_median(samples) == \
+        j_measure.robust_median(samples)
+
+
+PAIRS = [(1e-3, 2e-3, "compute"), (2e-3, 3e-3, "compute"),
+         (1e-3, 0.5e-3, "L2"), (0.0, 1.0, "compute"),
+         (1e-3, math.inf, "compute")]
+
+
+def test_prediction_error_and_calibration_equal_jax():
+    pairs = [(p, m) for p, m, _ in PAIRS]
+    assert t_cal.prediction_error(pairs) == j_cal.prediction_error(pairs)
+    assert t_cal.prediction_error([]) == j_cal.prediction_error([])
+    jm = JMachine.from_yaml(H100_YAML)
+    got = t_cal.derive_calibration("flash_attention", PAIRS, H100,
+                                   meta={"k": "v"})
+    want = j_cal.derive_calibration("flash_attention", PAIRS, jm,
+                                    meta={"k": "v"})
+    assert got == want and got["levels"] == {"L2": 0.5}
+
+
+def test_apply_calibration_round_trips(tmp_path):
+    path = tmp_path / "h100_sxm.yaml"
+    shutil.copy(H100_YAML, path)
+    cal = t_cal.derive_calibration(
+        "flash_attention", [(1e-3, 4e-3, "compute")], H100)
+    mach = t_cal.apply_calibration(path, cal)
+    assert mach.calibration_factor("time", "flash_attention") == \
+        pytest.approx(4.0)
+    again = t_api.resolve_machine(str(path))
+    assert again.calibration == mach.calibration
+    assert again.peak_flops == H100.peak_flops
+    # written twice, the section is replaced, not appended
+    t_cal.apply_calibration(path, cal)
+    assert path.read_text().count("calibration:") == 1
+    assert path.read_text().startswith(H100_YAML.read_text()[:200])
+    assert t_cal.machine_yaml_path("H100") == H100_YAML
+    assert t_cal.machine_yaml_path(path) == path
+    with pytest.raises(ValueError, match="cannot resolve"):
+        t_cal.machine_yaml_path("no_such_machine")
+
+
+def test_tune_on_the_cpu_end_to_end():
+    """The whole loop on the CPU, which the caller names: the report says
+    where it measured, chooses the fastest measured candidate and derives
+    a time factor."""
+    rep = tune("flash_attention", "H100", config=TINY, top_k=2, reps=2,
+               isolate=False, device="cpu")
+    assert rep.options["device"] == "cpu"
+    assert "measured on: cpu" in rep.render()
+    ok = [c for c in rep.candidates if c.status == "ok"]
+    assert len(ok) >= 2 and rep.n_failed == 0
+    assert rep.measured_chosen_s == min(c.measured_s for c in ok)
+    assert rep.speedup_vs_default >= 1.0
+    assert rep.calibration["time"]["flash_attention"] > 0
+    assert rep.calibration["meta"]["flash_attention.device"] == "cpu"
+    assert rep.machine_fingerprint == H100.fingerprint
+
+
+def test_predict_only_touches_no_device():
+    rep = tune("flash_attention", "H100", config=TINY, measure=False,
+               device="cuda:7")
+    assert rep.options["device"] is None and rep.measured_chosen_s is None
+    preds = [c for c in rep.candidates if c.status == "predicted"]
+    assert preds[0].params == rep.chosen_params
+    assert not rep.calibration
+
+
+def test_measuring_on_a_missing_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="is_available"):
+        tune("flash_attention", "H100", config=TINY, top_k=1)
+
+
+def test_time_closure_never_times_the_cpu_for_the_card():
+    assert t_measure.time_closure(lambda: None, "cpu", reps=3).ok
+    with pytest.raises(ValueError, match="cannot time"):
+        t_measure.time_closure(lambda: None, "meta")
+
+
+def test_failed_candidate_does_not_abort(monkeypatch):
+    """A candidate that raises is recorded 'failed'; the run completes and
+    chooses among the others."""
+    pred = tune("flash_attention", "H100", config=TINY, measure=False)
+    bad = pred.chosen_params                 # the predicted best
+    tag = ",".join(f"{k}={v}" for k, v in sorted(bad.items()))
+    monkeypatch.setenv("REPRO_TUNE_FAULT", "raise")
+    monkeypatch.setenv("REPRO_TUNE_FAULT_MATCH", tag)
+    rep = tune("flash_attention", "H100", config=TINY, top_k=3, reps=1,
+               isolate=False, device="cpu")
+    failed = [c for c in rep.candidates if c.status == "failed"]
+    assert [c.params for c in failed] == [bad]
+    assert "injected tune fault" in failed[0].measured.error
+    assert rep.chosen_params != bad and rep.measured_chosen_s is not None
+
+
+def test_isolated_child_exit_is_recorded_not_raised(monkeypatch):
+    """A spawned measuring child that dies is a failed record."""
+    monkeypatch.setenv("REPRO_TUNE_FAULT", "exit")
+    tr = t_measure.measure_candidate(
+        "flash_attention", TINY, {"block_q": 16, "block_kv": 32}, H100,
+        device="cpu", reps=1, retries=0, timeout_s=120)
+    assert not tr.ok and tr.wall_s == math.inf
+    assert "exit code 3" in tr.error and tr.retries == 0
+
+
+def test_reports_decode_across_packages():
+    rep = tune("flash_attention", "H100", config=TINY, top_k=1, reps=1,
+               isolate=False, device="cpu")
+    payload = json.loads(json.dumps(rep.to_dict()))
+    theirs = j_report.TuneReport.from_dict(payload)
+    assert theirs.to_dict() == payload
+    ours = t_report.TuneReport.from_dict(theirs.to_dict())
+    assert ours.to_dict() == rep.to_dict()
+    # and a JAX-side report decodes through the port's class
+    jrep = j_report.TuneReport(
+        family="flash_attention", machine="m", machine_fingerprint="f",
+        config={"seq_q": 8}, options={"interpret": True},
+        candidates=(j_report.CandidateOutcome(
+            params={"block_q": 8}, status="ok", predicted_s=1e-3,
+            bound="compute", measured=j_measure.TimedRun(
+                ok=True, wall_s=2e-3, samples=(2e-3,))),),
+        n_enumerated=1, n_feasible=1, default_params={"block_q": 8},
+        chosen_params={"block_q": 8}, error={"n": 1})
+    assert t_report.TuneReport.from_dict(jrep.to_dict()).to_dict() == \
+        jrep.to_dict()
+
+
+def test_api_tune_is_the_tuner():
+    rep = t_api.tune("flash_attention", "H100", config=TINY, measure=False)
+    assert rep.family == "flash_attention" and rep.n_feasible > 0
+
+
+def test_cli_predict_only_json_exits_0():
+    env_src = str(REPO / "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "tune", "flash_attention",
+         "-m", "H100", "--no-measure", "--json"],
+        capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": env_src, "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout)
+    assert out["kind"] == "tune" and out["options"]["device"] is None
+    assert out["n_feasible"] > 0
+
+
+def test_cli_measures_on_the_cpu_when_named(capsys, tmp_path):
+    from repro_torch import cli
+    path = tmp_path / "h100.yaml"
+    shutil.copy(H100_YAML, path)
+    args = ["tune", "flash_attention", "-m", str(path), "--device", "cpu",
+            "--no-isolate", "--reps", "1", "--top-k", "1",
+            "--apply-calibration"]
+    for k, v in TINY.items():
+        args += ["--shape", k, str(v)]
+    assert cli.main(args) == 0
+    out = capsys.readouterr().out
+    assert "measured on: cpu" in out and f"written to {path}" in out
+    assert t_api.resolve_machine(str(path)).calibration_factor(
+        "time", "flash_attention") > 0
+    assert cli.main(["tune", "stencil3d7pt", "-m", "H100",
+                     "--no-measure"]) == 2
+
+
+def test_advisor_pick_is_a_candidate():
+    sp = t_space.resolve_space("flash_attention", H100, seq_q=4096,
+                               seq_kv=4096, heads=32, head_dim=128)
+    t = blocking.attention_cta_tiles(4096, 4096, 128, "bfloat16")
+    assert sp._advisor().config == {"block_q": t.bq, "block_kv": t.bkv}
