@@ -6,15 +6,22 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device  — name, count, torch/CUDA versions, ``nvidia-smi`` name and
                power limit, SM count and L2 size against the machine file;
-  2. build   — the three CUDA kernels from ``src/repro_torch/csrc`` with
-               nvcc for sm_90a, in parallel; build seconds and ptxas
-               resource usage;
+  2. build   — the four CUDA sources from ``src/repro_torch/csrc`` with
+               nvcc for sm_90a, in parallel; build seconds, the ptxas
+               report (registers, spills) of every kernel instantiation,
+               the count of HGMMA (tensor-core) instructions in each flash
+               library's SASS (``cuobjdump -sass``), and the wgmma launch
+               limits as the library states them against ``launch_limits``;
   3. check   — each kernel against its plain PyTorch version on the card,
                at the reference tolerances: the stencils at ragged shapes
                and at the main-path shape (boundaries bit-exact); flash
-               attention in f32 and bf16, head_dim 32/64/96/128, causal
-               and full, the decode shape (1, 32, 128, 4096), and every
-               feasible candidate of a small tune space;
+               attention on both routes — bf16 on the tensor cores
+               ("wgmma") and f32 on the CUDA cores ("simt") — at head_dim
+               32/64/96/128, causal and full, the decode shape
+               (1, 32, 128, 4096) in both types, padded q blocks (16, 32)
+               in bf16, and every feasible candidate of the seq-256 tune
+               spaces in both types; each case prints the route whose
+               launch counter moved;
   4. main    — the stencil case study at full size: the 7-point stencil at
                (512, 512, 512) and the long-range stencil at the paper's §3
                size (130, 1015, 1015), fp32.  Per stencil: ECM and Roofline
@@ -28,10 +35,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
                copy of the machine file under ``build/``; then one launch
                at the chosen blocks in this process, held against the
                plain version and timed beside the plain version, SDPA
-               (the yardstick only) and the bound.
-     Launch counters are zeroed just before each main path (4, 5) and
+               (the yardstick only) and the bound.  The chosen blocks
+               must take the wgmma route, and its counter must move;
+  6. f32     — the same attention in float32 through ``ops`` (the simt
+               route), held against the plain version, timed beside it,
+               SDPA in f32 and the FP32 bound.
+     Launch counters are zeroed just before each main path (4, 5, 6) and
      must be positive just after it;
-  6. a JSON line naming each ported kernel, then the card's line, then
+  7. a JSON line naming each ported kernel (flash attention once per
+     route), then the card's line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX or of the JAX package ``repro``; it needs the
@@ -41,7 +53,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -61,12 +75,16 @@ TOL = {"stencil3d7pt": dict(rtol=2e-5, atol=1e-6),
 REPLACES = {"stencil3d7pt": "src/repro/kernels/stencil3d7pt.py:77",
             "longrange3d": "src/repro/kernels/longrange3d.py:91",
             "flash_attention": "src/repro/kernels/flash_attention.py:150"}
+# the kernels line's entry per flash route
+FA_ENTRY = {"wgmma": "flash_attention", "simt": "flash_attention_simt"}
 # flash attention: the reference's tolerances (tests/test_kernels.py)
 FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # granite-8b's attention (src/repro/configs/granite_8b.py: 32 heads of
 # 128) at the train_4k length, bf16, causal, batch 1
 GRANITE = {"batch": 1, "heads": 32, "seq_q": 4096, "seq_kv": 4096,
            "head_dim": 128, "causal": True, "dtype": "bfloat16"}
+WGMMA_KERNEL = re.compile(
+    r"_ZN\w*?flash_attention_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E\w*")
 
 
 class SmokeError(RuntimeError):
@@ -225,52 +243,81 @@ def qkv(shape_q, skv: int, dtype, seed: int):
             for s in (shape_q, (b, h, skv, d), (b, h, skv, d))]
 
 
-def check_flash(fa, ops, space) -> float:
-    """The flash kernel against its plain version on the card; returns the
-    max abs error over every case."""
-    worst = 0.0
+def routed(fa, call):
+    """``call()`` and the one flash route whose launch counter it moved."""
+    n0 = dict(fa.flash_attention.launches_by_route)
+    out = call()
+    moved = [r for r, n in fa.flash_attention.launches_by_route.items()
+             if n != n0[r]]
+    if len(moved) != 1:
+        raise SmokeError(f"flash_attention launched on {moved or 'no route'}"
+                         ", not on one")
+    return out, moved[0]
+
+
+def check_flash(fa, ops, space) -> dict[str, float]:
+    """Both flash routes against the plain version on the card; returns
+    the max abs error per route."""
+    worst = dict.fromkeys(fa.SOURCES, 0.0)
+
+    def case(what: str, call, want, dtype, expect: str) -> str:
+        got, route = routed(fa, call)
+        if route != expect:
+            raise SmokeError(f"flash {what} ran on {route}, not {expect}")
+        err = fa_compare(what, got, want, dtype)
+        worst[route] = max(worst[route], err)
+        return f"{route:5s} max abs err {err:.3e}  ok"
+
     for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        expect = "wgmma" if dtype == torch.bfloat16 else "simt"
         for d in (32, 64, 96, 128):
             for causal in (True, False):
                 q, k, v = qkv((2, 4, 256, d), 512, dtype, seed=d)
-                what = f"{str(dtype)[6:]} d={d} causal={causal}"
-                err = fa_compare(what, ops.flash_attention(q, k, v,
-                                                           causal=causal),
-                                 fa.plain(q, k, v, causal=causal), dtype)
-                worst = max(worst, err)
-                print(f"  flash (2, 4, 256, {d}) kv 512 {what:28s} max abs "
-                      f"err {err:.3e}  ok")
+                what = f"{name} d={d} causal={causal}"
+                res = case(what, lambda: ops.flash_attention(
+                    q, k, v, causal=causal), fa.plain(q, k, v, causal=causal),
+                    dtype, expect)
+                print(f"  flash (2, 4, 256, {d}) kv 512 {what:28s} {res}")
         q, k, v = qkv((1, 32, 128, 128), 4096, dtype, seed=1)
-        err = fa_compare("decode", ops.flash_attention(q, k, v),
-                         fa.plain(q, k, v), dtype)
-        worst = max(worst, err)
+        res = case(f"decode {name}", lambda: ops.flash_attention(q, k, v),
+                   fa.plain(q, k, v), dtype, expect)
         print(f"  flash decode (1, 32, 128, 128) kv 4096 (q_offset 3968) "
-              f"{str(dtype)[6:]}: max abs err {err:.3e}  ok")
+              f"{name}: {res}")
+    q, k, v = qkv((2, 4, 96, 64), 256, torch.bfloat16, seed=3)
+    want = fa.plain(q, k, v)
+    for bq in (16, 32):
+        res = case(f"padded block_q={bq}", lambda: fa.flash_attention(
+            q, k, v, block_q=bq, block_kv=64), want, torch.bfloat16, "wgmma")
+        print(f"  flash (2, 4, 96, 64) kv 256 bfloat16 causal, blocks "
+              f"({bq}, 64) in a 64-row tile: {res}")
+    for dtype in ("float32", "bfloat16"):
         sp = space.resolve_space("flash_attention", "H100", batch=1,
                                  heads=4, seq_q=256, seq_kv=256,
-                                 head_dim=128, causal=True,
-                                 dtype=str(dtype)[6:])
+                                 head_dim=128, causal=True, dtype=dtype)
         cands = sp.candidates()
         q, k, v = sp.inputs("cuda", seed=2)
         want = fa.plain(q, k, v)
-        n = 0
+        counts = dict.fromkeys(fa.SOURCES, 0)
         for c, pred in zip(cands, sp.predict(cands)):
             if not pred.feasible:
                 continue
             bq, bkv = c.config["block_q"], c.config["block_kv"]
-            got = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
-            worst = max(worst, fa_compare(f"candidate {bq}x{bkv}", got,
-                                          want, dtype))
-            n += 1
+            case(f"candidate {bq}x{bkv} {dtype}", lambda: fa.flash_attention(
+                q, k, v, block_q=bq, block_kv=bkv), want, q.dtype,
+                sp.route(c))
+            counts[sp.route(c)] += 1
         torch.cuda.synchronize()
-        print(f"  flash: all {n} feasible candidates of {len(cands)} in the "
-              f"seq-256 {str(dtype)[6:]} space launch and match")
+        print(f"  flash: all {sum(counts.values())} feasible candidates of "
+              f"{len(cands)} in the seq-256 {dtype} space launch and match, "
+              f"by route {counts}")
     return worst
 
 
 def tune_path(fa, space, tune_mod, measure, machine_mod) -> dict:
     """The tuner at the granite shape, calibration written to a copy of
-    the machine file under build/, and one launch at the chosen blocks."""
+    the machine file under build/, and one launch at the chosen blocks,
+    which must take the tensor-core route."""
     rep = tune_mod.tune("flash_attention", "H100", config=GRANITE, top_k=4,
                         isolate=True, device="cuda")
     print("  " + rep.render().replace("\n", "\n  "))
@@ -289,19 +336,49 @@ def tune_path(fa, space, tune_mod, measure, machine_mod) -> dict:
     sp = space.resolve_space("flash_attention", "H100", **GRANITE)
     q, k, v = sp.inputs("cuda")
     bq, bkv = rep.chosen_params["block_q"], rep.chosen_params["block_kv"]
-    out = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+    route = fa.route(bq, bkv, GRANITE["head_dim"], q.dtype)
+    if route != "wgmma":
+        raise SmokeError(f"the tuner chose ({bq}, {bkv}), which takes the "
+                         f"{route} route, not wgmma")
+    out, ran = routed(fa, lambda: fa.flash_attention(
+        q, k, v, block_q=bq, block_kv=bkv))
+    if ran != "wgmma":
+        raise SmokeError(f"the chosen blocks launched on {ran}")
     t_kernel = measure.time_cuda(
         lambda: fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv),
         warmup=1, iters=3, reps=5)
     torch.cuda.synchronize()
-    return {"report": rep, "qkv": (q, k, v), "out": out,
-            "t_kernel": t_kernel, "factor": factor}
+    return {"report": rep, "qkv": (q, k, v), "out": out, "route": route,
+            "blocks": (bq, bkv), "t_kernel": t_kernel, "factor": factor}
+
+
+def f32_path(fa, ops, blocking, space, measure) -> dict:
+    """The same attention in float32 through ``ops``: the simt route."""
+    sp = space.resolve_space("flash_attention", "H100",
+                             **{**GRANITE, "dtype": "float32"})
+    q, k, v = sp.inputs("cuda")
+    d = GRANITE["head_dim"]
+    t = blocking.attention_cta_tiles(4096, 4096, d, q.dtype)
+    blocks = fa.fit_blocks(4096, 4096, t.bq, t.bkv, d, q.dtype)
+    out, route = routed(fa, lambda: ops.flash_attention(q, k, v))
+    if route != "simt":
+        raise SmokeError(f"f32 attention launched on {route}, not simt")
+    t_kernel = measure.time_cuda(lambda: ops.flash_attention(q, k, v),
+                                 warmup=1, iters=3, reps=5)
+    torch.cuda.synchronize()
+    return {"report": None, "qkv": (q, k, v), "out": out, "route": route,
+            "blocks": blocks, "t_kernel": t_kernel}
 
 
 def flash_report(run: dict, fa, space, measure, h100, card: str) -> dict:
+    """Plain-version and SDPA timings, the bound, and the kernels-line
+    entry for one flash main-path run (launches filled in by the
+    caller)."""
     q, k, v = run["qkv"]
-    rep = run["report"]
-    err = fa_compare("granite", run["out"], fa.plain(q, k, v), q.dtype)
+    rep, route = run["report"], run["route"]
+    name = str(q.dtype)[6:]
+    err = fa_compare(f"granite {name}", run["out"], fa.plain(q, k, v),
+                     q.dtype)
     t_plain = measure.time_cuda(lambda: fa.plain(q, k, v), warmup=1,
                                 iters=2, reps=3)
 
@@ -310,35 +387,78 @@ def flash_report(run: dict, fa, space, measure, h100, card: str) -> dict:
             q, k, v, is_causal=True)
     # SDPA's causal mask is top-left aligned: it equals the kernel's only
     # at seq_q == seq_kv, which the granite shape has
-    fa_compare("SDPA yardstick", sdpa(), run["out"], q.dtype)
+    fa_compare(f"SDPA yardstick {name}", sdpa(), run["out"], q.dtype)
     lib_ms = measure.time_cuda(sdpa).wall_s * 1e3
     bound = space.attention_bound(q, k, causal=True, machine=h100)
-    fp32_s = bound.ops_s * h100.peak_flops["BF16"] / h100.peak_flops["FP32"]
+    unit = "BF16" if q.dtype == torch.bfloat16 else "FP32"
     ms = run["t_kernel"].wall_s * 1e3
-    bq, bkv = rep.chosen_params["block_q"], rep.chosen_params["block_kv"]
-    print(f"  flash_attention {tuple(q.shape)} bf16 causal, blocks "
-          f"({bq}, {bkv}) on {card}:")
+    bq, bkv = run["blocks"]
+    print(f"  flash_attention {tuple(q.shape)} {name} causal, route {route}"
+          f", blocks ({bq}, {bkv}) on {card}:")
     print(f"    kernel   {ms:.4f} ms  ({bound.seconds * 1e3 / ms:.1%} of the "
-          f"bound, {fp32_s * 1e3 / ms:.1%} of the fp32 CUDA-core floor "
-          f"{fp32_s * 1e3:.4f} ms)")
+          f"bound)")
     print(f"    bound    {bound.seconds * 1e3:.4f} ms by {bound.by} "
           f"({bound.ops_s * 1e3:.4f} ms of operations at "
-          f"{h100.peak_flops['BF16'] / 1e12:.0f} TFLOP/s bf16; "
+          f"{h100.peak_flops[unit] / 1e12:.0f} TFLOP/s {unit.lower()}; "
           f"{bound.bytes / 1e6:.1f} MB at {h100.hbm_bandwidth / 1e12:.2f} "
           f"TB/s, {bound.bytes_s * 1e3:.4f} ms)")
     print(f"    plain    {t_plain.wall_s * 1e3:.4f} ms")
     print(f"    library  {lib_ms:.4f} ms (scaled_dot_product_attention, "
           "yardstick only)")
-    print(f"    tuner predicted {rep.predicted_chosen_s * 1e3:.4f} ms "
-          f"(measured/predicted {ms / (rep.predicted_chosen_s * 1e3):.3f})")
+    if rep is not None:
+        print(f"    tuner predicted {rep.predicted_chosen_s * 1e3:.4f} ms "
+              f"(measured/predicted "
+              f"{ms / (rep.predicted_chosen_s * 1e3):.3f})")
     print(f"    max abs err vs plain {err:.3e}")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+    return {"name": FA_ENTRY[route], "route": "cuda",
+            "source": f"src/repro_torch/csrc/{fa.SOURCES[route]}.cu",
             "replaces": REPLACES["flash_attention"], "launches": 0,
             "max_abs_err": err, "ms": ms,
             "plain_ms": t_plain.wall_s * 1e3,
             "bound_ms": bound.seconds * 1e3, "bound_by": bound.by,
             "library_ms": lib_ms}
+
+
+def sass_hgmma(_build, name: str) -> int:
+    """HGMMA (wgmma) instructions in the SASS of a built library."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise SmokeError(f"cuobjdump -sass failed on {name}: "
+                         f"{proc.stderr.strip()[-2000:]}")
+    return sum("HGMMA" in ln for ln in proc.stdout.splitlines())
+
+
+def check_build(_build, fa, info: dict) -> dict[str, int]:
+    """The ptxas report, the HGMMA counts, and the wgmma library's launch
+    limits against ``launch_limits``; returns the HGMMA count per flash
+    library."""
+    for name, d in info.items():
+        print(f"  {name}: {d['seconds']:.1f} s")
+        for ln in d["ptxas"]:
+            print("    " + WGMMA_KERNEL.sub(
+                lambda m: f"flash_attention_wgmma_kernel<D={m[1]}, "
+                          f"BKV={m[2]}, NWG={m[3]}>", ln))
+    hgmma = {src: sass_hgmma(_build, src) for src in fa.SOURCES.values()}
+    print(f"  HGMMA instructions in the SASS: {hgmma}")
+    if hgmma[fa.SOURCES["wgmma"]] <= 0:
+        raise SmokeError("the wgmma library's SASS has no HGMMA instruction")
+    n = 0
+    for d in fa.WGMMA_HEAD_DIMS:
+        for bkv in fa.WGMMA_BLOCK_KV:
+            for bq in fa.WGMMA_BLOCK_Q:
+                lim = fa.launch_limits(bq, bkv, d, torch.bfloat16)
+                got = fa.compiled_wgmma_limits(bq, bkv, d)
+                if got != (lim.smem_bytes, lim.threads):
+                    raise SmokeError(
+                        f"wgmma ({bq}, {bkv}) d={d}: the library states "
+                        f"{got}, launch_limits "
+                        f"{(lim.smem_bytes, lim.threads)}")
+                n += 1
+    print(f"  wgmma launch limits: the library and launch_limits agree on "
+          f"all {n} instantiated (block_q, block_kv, head_dim)")
+    return hgmma
 
 
 def smoke(out_path: str | None) -> int:
@@ -350,6 +470,7 @@ def smoke(out_path: str | None) -> int:
                          "from a checkout of the repository")
     sys.path.insert(0, str(SRC))
     from repro_torch import tune as tune_mod
+    from repro_torch.core import blocking
     from repro_torch.core import machine as machine_mod
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
@@ -376,10 +497,7 @@ def smoke(out_path: str | None) -> int:
     info = _build.build_all()
     print(f"built {sorted(info)} in {time.perf_counter() - t0:.1f} s "
           "(parallel nvcc, sm_90a)")
-    for name, d in info.items():
-        print(f"  {name}: {d['seconds']:.1f} s")
-        for ln in d["ptxas"]:
-            print(f"    {ln}")
+    hgmma = check_build(_build, fa, info)
 
     phase("3 check against the plain versions on the card")
     max_err = {}
@@ -388,7 +506,7 @@ def smoke(out_path: str | None) -> int:
         for shape in RAGGED + [MAIN[name]]:
             err = check_kernel(name, shape, fam, stencil)
             max_err[name] = max(max_err.get(name, 0.0), err)
-    max_err["flash_attention"] = check_flash(fa, ops, space)
+    fa_err = check_flash(fa, ops, space)
 
     phase("4 main path at full size")
     # each family's kernel wrapper carries the family's name
@@ -414,30 +532,45 @@ def smoke(out_path: str | None) -> int:
         torch.cuda.empty_cache()
 
     phase("5 tune flash_attention at granite-8b's attention")
-    fa.flash_attention.launches = 0
+    counts = fa.flash_attention.launches_by_route
+    for r in counts:
+        counts[r] = 0
     for w in wrappers.values():
         w.launches = 0
     fa_run = tune_path(fa, space, tune_mod, measure, machine_mod)
-    launches["flash_attention"] = fa.flash_attention.launches
-    print(f"  launches in this process during the tune path: "
-          f"{launches['flash_attention']} (the measuring runs are in "
-          "spawned children)")
-    if launches["flash_attention"] <= 0:
-        raise SmokeError("tune path never launched the flash kernel")
-    e = flash_report(fa_run, fa, space, measure, h100, card)
-    e["launches"] = launches["flash_attention"]
-    e["max_abs_err"] = max(max_err["flash_attention"], e["max_abs_err"])
-    entries.append(e)
+    fa_launches = dict(counts)
+    print(f"  launches in this process during the tune path: {fa_launches} "
+          "(the measuring runs are in spawned children)")
+    if fa_launches["wgmma"] <= 0:
+        raise SmokeError("tune path never launched the wgmma flash kernel")
     rep = fa_run["report"]
     predicted["flash_attention"] = {
         "tuner_predicted_ms": rep.predicted_chosen_s * 1e3,
         "candidates": [c.to_dict() for c in rep.measured_outcomes],
         "calibration": rep.calibration,
         "chosen": rep.chosen_params, "default": rep.default_params}
-    del fa_run
-    torch.cuda.empty_cache()
+    flash_runs = {"wgmma": fa_run}
+    launches.update({FA_ENTRY["wgmma"]: fa_launches["wgmma"]})
 
-    phase("6 result")
+    phase("6 the same attention in float32 (the CUDA-core route)")
+    for r in counts:
+        counts[r] = 0
+    flash_runs["simt"] = f32_path(fa, ops, blocking, space, measure)
+    fa_launches = dict(counts)
+    print(f"  launches during the f32 path: {fa_launches}")
+    if fa_launches["simt"] <= 0:
+        raise SmokeError("f32 path never launched the simt flash kernel")
+    launches.update({FA_ENTRY["simt"]: fa_launches["simt"]})
+    for route, run in flash_runs.items():
+        e = flash_report(run, fa, space, measure, h100, card)
+        e["launches"] = launches[e["name"]]
+        e["max_abs_err"] = max(fa_err[route], e["max_abs_err"])
+        entries.append(e)
+        run.clear()
+        torch.cuda.empty_cache()
+    predicted["hgmma_in_sass"] = hgmma
+
+    phase("7 result")
     result = {"kernels": entries}
     if out_path:
         pathlib.Path(out_path).parent.mkdir(parents=True, exist_ok=True)

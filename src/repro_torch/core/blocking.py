@@ -93,13 +93,14 @@ class AttentionCTATiles:
 
 
 #: the advisor's first blocks: at head_dim 128 a q tile of 256 fp32 rows
-#: alone takes 128 KiB of the 227 KiB, leaving no room for a useful kv tile
+#: alone takes 128 KiB of the 227 KiB, leaving no room for a useful kv
+#: tile; 128 is also the tensor-core kernel's largest block_q and block_kv
 ATTENTION_START = 128
 
 
 def attention_cta_tiles(seq_q: int, seq_kv: int, head_dim: int,
                         dtype="bfloat16") -> AttentionCTATiles:
-    """Flash-attention block sizes for one CTA of the Hopper kernel — the
+    """Flash-attention block sizes for one CTA of the Hopper kernels — the
     shared-memory counterpart of ``repro.core.blocking.attention_tiles``.
 
     The q tile is the 'layer' kept resident while the kv stream passes
@@ -107,10 +108,12 @@ def attention_cta_tiles(seq_q: int, seq_kv: int, head_dim: int,
     lengths allow (at most :data:`ATTENTION_START`, in steps of
     ``GRANULE * 2**k``) and shrink in the JAX advisor's order — ``bkv``
     first, then ``bq`` — until :func:`repro_torch.kernels.flash_attention
-    .launch_limits` accepts the pair.  The result need not divide the
-    lengths; :func:`~repro_torch.kernels.flash_attention.fit_blocks`
-    clamps it.  Raises ``ValueError`` when even the smallest pair does not
-    launch."""
+    .launch_limits` accepts the pair on its route.  In bfloat16 at a
+    tensor-core head_dim the starting pair is a wgmma pair whenever the kv
+    length reaches 64, and it always fits (bf16 tiles, no fp32 staging).
+    The result need not divide the lengths;
+    :func:`~repro_torch.kernels.flash_attention.fit_blocks` fits it.
+    Raises ``ValueError`` when even the smallest pair does not launch."""
     def start(n: int) -> int:
         b = fa.GRANULE
         while 2 * b <= min(n, ATTENTION_START):

@@ -25,7 +25,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("stencil3d7pt", "longrange3d", "flash_attention")
+SOURCES = ("stencil3d7pt", "longrange3d", "flash_attention",
+           "flash_attention_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,9 +50,9 @@ def nvcc() -> str:
                        "to build the repro_torch CUDA kernels")
 
 
-def _target(name: str) -> pathlib.Path:
-    """The library's path, tagged by its source, the shared headers and
-    the flags."""
+def library_path(name: str) -> pathlib.Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built,
+    tagged by its source, the shared headers and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.read_bytes())
@@ -60,7 +61,7 @@ def _target(name: str) -> pathlib.Path:
 
 
 def _start(name: str) -> tuple[subprocess.Popen, pathlib.Path, pathlib.Path]:
-    out = _target(name)
+    out = library_path(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen(
@@ -85,16 +86,18 @@ def _finish(name: str, proc: subprocess.Popen, tmp: pathlib.Path,
 
 
 def _ptxas_lines(log: str) -> list[str]:
-    """The per-kernel register / shared-memory / spill report."""
-    return [ln.strip() for ln in log.splitlines() if "ptxas info" in ln
-            and ("Used" in ln or "spill" in ln or "Compiling" in ln)]
+    """The per-kernel register / shared-memory / spill report (ptxas puts
+    the stack and spill counts on a line of their own)."""
+    return [ln.strip() for ln in log.splitlines()
+            if ("ptxas info" in ln and ("Used" in ln or "Compiling" in ln))
+            or "spill" in ln]
 
 
 def build_all(names=SOURCES) -> dict[str, dict]:
     """Build every missing library in parallel; returns :data:`BUILD_INFO`."""
     with _LOCK:
         t0 = time.perf_counter()
-        todo = [n for n in names if not _target(n).exists()]
+        todo = [n for n in names if not library_path(n).exists()]
         started = [(n, *_start(n)) for n in todo]
         # wait for every compiler before reporting any failure
         errors = [_finish(n, proc, tmp, out, t0)
@@ -102,7 +105,7 @@ def build_all(names=SOURCES) -> dict[str, dict]:
         if any(errors):
             raise RuntimeError("\n".join(e for e in errors if e))
         for n in names:           # built by an earlier process
-            log = _target(n).with_suffix(".log")
+            log = library_path(n).with_suffix(".log")
             BUILD_INFO.setdefault(n, {
                 "seconds": 0.0, "ptxas": ["(cached build)"]
                 + (_ptxas_lines(log.read_text()) if log.exists() else [])})
@@ -115,7 +118,7 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all((name,))
         with _LOCK:
-            lib = _LIBS.setdefault(name, ctypes.CDLL(str(_target(name))))
+            lib = _LIBS.setdefault(name, ctypes.CDLL(str(library_path(name))))
     return lib
 
 

@@ -35,14 +35,14 @@ def longrange3d(u: torch.Tensor, v: torch.Tensor, roc: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     q_offset: int | None = None) -> torch.Tensor:
-    """Attention with blocks from the shared-memory advisor, clamped by
-    halving to divisors of the lengths; kv heads broadcast by GQA
-    callers."""
+    """Attention with blocks from the shared-memory advisor, fitted to the
+    lengths (a wgmma pair for bf16 wherever one divides them); kv heads
+    broadcast by GQA callers."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention takes (b, h, s, d) tensors")
     sq, d = int(q.shape[2]), int(q.shape[3])
     skv = int(k.shape[2])
     tiles = blocking.attention_cta_tiles(sq, skv, d, q.dtype)
-    bq, bkv = _fa.fit_blocks(sq, skv, tiles.bq, tiles.bkv, d)
+    bq, bkv = _fa.fit_blocks(sq, skv, tiles.bq, tiles.bkv, d, q.dtype)
     return _fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                block_kv=bkv, q_offset=q_offset)

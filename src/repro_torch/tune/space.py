@@ -137,30 +137,34 @@ def resolve_space(family: str, machine: Machine | str,
 
 @register_space
 class FlashAttentionSpace(CandidateSpace):
-    """``(block_q, block_kv)`` for the CUDA flash-attention kernel
-    (:mod:`repro_torch.kernels.flash_attention`).
+    """``(block_q, block_kv)`` for the CUDA flash-attention kernels
+    (:mod:`repro_torch.kernels.flash_attention`), each candidate on the
+    route the wrapper would take for it (``fa.route``).
 
-    The closed-form time model follows the kernel's schedule: one CTA per
+    The closed-form time model follows the kernels' schedule: one CTA per
     (batch·head, q block) walks its kv blocks, skipping those wholly above
     the causal diagonal, so the exact visited-step count enters the
-    model.  Per visited step the CTA does the two products (4·bq·bkv·d
-    flops) on the unit the kernel names (``MATMUL_UNIT``), ~8 fp32 flops
-    per score for the online softmax, and a fixed ``STEP_OVERHEAD_CY``.
-    CTAs run in parallel: the card's peak is scaled by the share of its
-    SMs that the ``b·h·(seq_q/block_q)`` CTAs keep busy, and the per-step
-    overhead is spread over those SMs.  HBM traffic streams q/out once and
-    re-fetches k/v per visited step.  The predicted seconds are
-    ``max(compute, hbm)``; HBM-bound candidates are attributed to the last
-    cache level (the L2 → memory transfer).  A candidate is feasible when
-    its blocks divide the lengths and the kernel's
-    :func:`~repro_torch.kernels.flash_attention.launch_limits` accept
-    them — the wrapper's own checks.
+    model.  Per visited step the CTA does the two products (4·rows·bkv·d
+    flops, rows = bq, or the 64-row tile a short wgmma q block is padded
+    to) on the unit its route names (``fa.MATMUL_UNIT``), ~8 fp32 flops
+    per score for the online softmax, and the route's fixed
+    ``fa.STEP_OVERHEAD_CY``.  The card's peak is scaled by the share of
+    its SMs that the ``b·h·(seq_q/block_q)`` CTAs keep busy.  The per-step
+    overhead is latency, hidden across the CTAs resident at once: it is
+    spread over ``min(ctas, SMs × CTAs per SM)``, CTAs per SM from the
+    route's shared memory and threads (``LaunchLimits.ctas_per_sm``).  HBM
+    traffic streams q/out once and re-fetches k/v per visited step.  The
+    predicted seconds are ``max(compute, hbm)``; HBM-bound candidates are
+    attributed to the last cache level (the L2 → memory transfer).  A
+    candidate is feasible when its blocks divide the lengths and
+    :func:`~repro_torch.kernels.flash_attention.launch_limits` accept them
+    — the wrapper's own checks.
     """
 
     family = "flash_attention"
     DEFAULTS = {"batch": 1, "heads": 4, "seq_q": 512, "seq_kv": 512,
                 "head_dim": 128, "causal": True, "dtype": "bfloat16"}
-    sources = ("flash_attention",)
+    sources = tuple(fa.SOURCES.values())
 
     def __init__(self, machine: Machine, **config):
         super().__init__(machine, **config)
@@ -185,7 +189,9 @@ class FlashAttentionSpace(CandidateSpace):
         """Block sizes enumerated along ``axis`` (0: q, 1: kv) for a length
         ``n``: the granule's powers of two below a warp, then multiples of
         the warp size, up to ``n`` and to the largest block that launches
-        with the other block at its smallest (:func:`launch_limits`)."""
+        with the other block at its smallest (:func:`launch_limits`, on
+        the CUDA-core route that a granule-wide block takes); in bfloat16
+        at a tensor-core head_dim, also the wgmma blocks up to ``n``."""
         warp = int(self.machine.extra.get("warp size", 32))
         d = int(self.config["head_dim"])
         small = [fa.GRANULE << k for k in range(8)
@@ -193,9 +199,12 @@ class FlashAttentionSpace(CandidateSpace):
         out = []
         for b in small + list(range(warp, n + 1, warp)):
             pair = (b, fa.GRANULE) if axis == 0 else (fa.GRANULE, b)
-            if b > n or not fa.launch_limits(*pair, d).ok:
+            if b > n or not fa.launch_limits(*pair, d, self.dtype).ok:
                 break
             out.append(b)
+        if self.dtype == torch.bfloat16 and d in fa.WGMMA_HEAD_DIMS:
+            wg = fa.WGMMA_BLOCK_Q if axis == 0 else fa.WGMMA_BLOCK_KV
+            out = sorted(set(out) | {b for b in wg if b <= n})
         return out
 
     def candidates(self) -> list[Candidate]:
@@ -216,14 +225,29 @@ class FlashAttentionSpace(CandidateSpace):
         sq, skv = int(self.config["seq_q"]), int(self.config["seq_kv"])
         d = int(self.config["head_dim"])
         t = blocking.attention_cta_tiles(sq, skv, d, self.dtype)
-        bq, bkv = fa.fit_blocks(sq, skv, t.bq, t.bkv, d)
+        bq, bkv = fa.fit_blocks(sq, skv, t.bq, t.bkv, d, self.dtype)
         return Candidate.make(self.family, block_q=bq, block_kv=bkv)
 
     def default(self) -> Candidate:
         bq, bkv = fa.default_config(int(self.config["seq_q"]),
                                     int(self.config["seq_kv"]),
-                                    int(self.config["head_dim"]))
+                                    int(self.config["head_dim"]), self.dtype)
         return Candidate.make(self.family, block_q=bq, block_kv=bkv)
+
+    def route(self, cand: Candidate) -> str:
+        """The kernel the wrapper launches for ``cand``."""
+        p = cand.config
+        return fa.route(p["block_q"], p["block_kv"],
+                        int(self.config["head_dim"]), self.dtype)
+
+    def concurrency(self, bq: int, bkv: int) -> int:
+        """CTAs resident on the card at once for ``(bq, bkv)``:
+        ``min(ctas, SMs × CTAs per SM)``."""
+        c = self.config
+        ctas = int(c["batch"]) * int(c["heads"]) * (int(c["seq_q"]) // bq)
+        lim = fa.launch_limits(bq, bkv, int(c["head_dim"]), self.dtype)
+        return min(ctas, int(self.machine.extra["SM count"])
+                   * lim.ctas_per_sm)
 
     def _steps(self, bq: int, bkv: int) -> int:
         """kv steps per (batch·head) actually visited: causal schedules
@@ -245,7 +269,6 @@ class FlashAttentionSpace(CandidateSpace):
         d, e = int(c["head_dim"]), self._elem_bytes()
         B = int(c["batch"]) * int(c["heads"])
         sms = int(m.extra["SM count"])
-        peak_mm = m.peak_flops[fa.MATMUL_UNIT]
         peak_vec = m.peak_flops["FP32"]
         out: list[Prediction] = []
         for cand in cands:
@@ -264,12 +287,15 @@ class FlashAttentionSpace(CandidateSpace):
                                          f"{fa.MAX_Q_BLOCKS}"))
                 continue
             steps = self._steps(bq, bkv)
-            ctas = B * (sq // bq)
-            busy = min(ctas, sms)
-            share = busy / sms
-            t_mm = 4.0 * B * steps * bq * bkv * d / (peak_mm * share)
-            t_vec = 8.0 * B * steps * bq * bkv / (peak_vec * share)
-            t_step = B * steps * fa.STEP_OVERHEAD_CY / (m.clock_hz * busy)
+            share = min(B * (sq // bq), sms) / sms
+            rows = bq
+            if lim.route == "wgmma":
+                rows = max(bq, fa.WGMMA_TILE_M)
+            peak_mm = m.peak_flops[fa.MATMUL_UNIT[lim.route]]
+            t_mm = 4.0 * B * steps * rows * bkv * d / (peak_mm * share)
+            t_vec = 8.0 * B * steps * rows * bkv / (peak_vec * share)
+            t_step = (B * steps * fa.STEP_OVERHEAD_CY[lim.route]
+                      / (m.clock_hz * self.concurrency(bq, bkv)))
             t_compute = t_mm + t_vec + t_step
             bytes_hbm = (2.0 * B * sq * d * e            # q in, out
                          + 2.0 * B * steps * bkv * d * e)  # k, v re-fetch

@@ -165,15 +165,74 @@ def test_cpu_path_counts_no_launch():
 
 
 def test_launch_limits_shared_memory():
-    """The formula of csrc/flash_attention.cu: q and k transposed, v, the
-    score tile and the accumulator in fp32, plus m, l, alpha."""
+    """Per route.  wgmma (csrc/flash_attention_wgmma.cu): the bf16 q tiles
+    (64 rows per warpgroup), two stages of bf16 k and v tiles, 1024 bytes
+    of alignment slack and 64 of mbarriers; 128 threads per warpgroup and
+    a producer warp.  simt (csrc/flash_attention.cu): q and k transposed,
+    v, the score tile and the accumulator in fp32, plus m, l, alpha; 256
+    threads."""
     lim = t_fa.launch_limits(64, 64, 128, "bfloat16")
-    assert lim.ok and lim.threads == 256
-    assert lim.smem_bytes == 4 * (2 * 128 * 64 * 2 + 64 * 64 + 3 * 64)
-    assert t_fa.launch_limits(64, 64, 128, torch.float32) == lim
+    assert lim.ok and lim.route == "wgmma" and lim.threads == 160
+    assert lim.smem_bytes == 1024 + 64 + 2 * 128 * (64 + 2 * 2 * 64)
+    big = t_fa.launch_limits(128, 128, 128, torch.bfloat16)
+    assert big.ok and big.route == "wgmma" and big.threads == 288
+    assert big.smem_bytes == 1024 + 64 + 2 * 128 * (128 + 2 * 2 * 128)
+    f32 = t_fa.launch_limits(64, 64, 128, torch.float32)
+    assert f32.ok and f32.route == "simt" and f32.threads == 256
+    assert f32.smem_bytes == 4 * (2 * 128 * 64 * 2 + 64 * 64 + 3 * 64)
     assert not t_fa.launch_limits(128, 128, 128).ok
+    # bf16 outside the instantiated set takes the simt formula
+    assert t_fa.launch_limits(64, 32, 128, "bfloat16") == \
+        t_fa.launch_limits(64, 32, 128, "float32")
     with pytest.raises(TypeError):
         t_fa.launch_limits(64, 64, 128, torch.float16)
+
+
+@pytest.mark.parametrize("blocks, d, dtype, want", [
+    ((64, 64), 128, "bfloat16", "wgmma"),
+    ((128, 128), 32, "bfloat16", "wgmma"),
+    ((16, 64), 96, "bfloat16", "wgmma"),
+    ((4, 128), 64, "bfloat16", "wgmma"),
+    ((64, 64), 128, "float32", "simt"),
+    ((128, 128), 64, "float32", "simt"),
+    ((64, 64), 4, "bfloat16", "simt"),
+    ((64, 64), 160, "bfloat16", "simt"),
+    ((64, 64), 256, "bfloat16", "simt"),
+    ((64, 32), 128, "bfloat16", "simt"),
+    ((64, 256), 128, "bfloat16", "simt"),
+    ((96, 64), 128, "bfloat16", "simt"),
+    ((48, 64), 128, "bfloat16", "simt"),
+    ((256, 64), 64, "bfloat16", "simt")])
+def test_route(blocks, d, dtype, want):
+    """bf16 at an instantiated (head_dim, block_kv) and a block_q that
+    divides or fills the 64-row tiles takes the tensor cores; all else
+    takes the CUDA-core kernel."""
+    assert t_fa.route(*blocks, d, dtype) == want
+    assert t_fa.launch_limits(*blocks, d, dtype).route == want
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_fa.route(*blocks, d, torch.float16)
+
+
+def test_launch_limits_wgmma_instantiated_set():
+    """Every pair of the instantiated set launches, at the formula of the
+    source, with 160 or 288 threads; CTAs per SM follow from shared
+    memory and threads."""
+    for d in t_fa.WGMMA_HEAD_DIMS:
+        for bkv in t_fa.WGMMA_BLOCK_KV:
+            for bq in t_fa.WGMMA_BLOCK_Q:
+                lim = t_fa.launch_limits(bq, bkv, d, torch.bfloat16)
+                nwg = 2 if bq == 128 else 1
+                assert lim.ok and lim.route == "wgmma"
+                assert lim.threads == 128 * nwg + 32
+                assert lim.smem_bytes == t_fa.wgmma_smem_bytes(bq, bkv, d) \
+                    == 1088 + 2 * d * (64 * nwg + 4 * bkv)
+                assert lim.smem_bytes <= t_fa.SMEM_PER_CTA
+    ctas = {pair: t_fa.launch_limits(*pair, 128, "bfloat16").ctas_per_sm
+            for pair in ((64, 64), (128, 64), (64, 128), (128, 128))}
+    assert ctas == {(64, 64): 2, (128, 64): 2, (64, 128): 1,
+                    (128, 128): 1}
+    assert t_fa.launch_limits(64, 64, 32, "bfloat16").ctas_per_sm == 10
+    assert t_fa.launch_limits(64, 128, 128, "float32").ctas_per_sm == 1
 
 
 def test_default_configs_launch_at_head_dim_128():
@@ -182,13 +241,20 @@ def test_default_configs_launch_at_head_dim_128():
 
 
 def test_advisor_shrinks_kv_first():
-    """The JAX advisor's order: bkv halves before bq does."""
-    t = blocking.attention_cta_tiles(4096, 4096, 128, "bfloat16")
+    """The JAX advisor's order on the simt route: bkv halves before bq
+    does.  In bf16 at a tensor-core head_dim the first pair is a wgmma
+    pair and fits as it is."""
+    t = blocking.attention_cta_tiles(4096, 4096, 128, "float32")
     assert (t.bq, t.bkv) == (128, 64)
     assert t.smem_bytes == t_fa.launch_limits(128, 64, 128).smem_bytes
     t = blocking.attention_cta_tiles(4096, 4096, 64, "float32")
     assert (t.bq, t.bkv) == (128, 128)
     t = blocking.attention_cta_tiles(4096, 4096, 256, "float32")
+    assert (t.bq, t.bkv) == (64, 4)
+    t = blocking.attention_cta_tiles(4096, 4096, 128, "bfloat16")
+    assert (t.bq, t.bkv) == (128, 128)
+    assert t.smem_bytes == t_fa.wgmma_smem_bytes(128, 128, 128)
+    t = blocking.attention_cta_tiles(4096, 4096, 256, "bfloat16")
     assert (t.bq, t.bkv) == (64, 4)
     with pytest.raises(ValueError, match="no flash-attention CTA tile"):
         blocking.attention_cta_tiles(64, 64, 4096, "float32")
@@ -207,6 +273,95 @@ def test_default_and_advisor_blocks_launch(sq, skv, d):
                     t_fa.fit_blocks(sq, skv, t.bq, t.bkv, d)):
         assert sq % bq == 0 and skv % bkv == 0
         assert t_fa.launch_limits(bq, bkv, d).ok
+
+
+@settings(max_examples=60, deadline=None)
+@given(sq=st.integers(1, 512), skv=st.integers(1, 1024),
+       d=st.sampled_from([4, 32, 64, 96, 128, 256]),
+       dtype=st.sampled_from(["float32", "bfloat16"]))
+def test_blocks_launch_on_their_route(sq, skv, d, dtype):
+    """default_config, fit_blocks and the advisor (as ops uses it) give a
+    pair that divides the lengths and launches; in bf16 at a tensor-core
+    head_dim it is a wgmma pair wherever one divides the lengths."""
+    sq, skv = 4 * sq, 4 * skv
+    t = blocking.attention_cta_tiles(sq, skv, d, dtype)
+    wgmma_divides = (
+        dtype == "bfloat16" and d in t_fa.WGMMA_HEAD_DIMS
+        and any(sq % b == 0 for b in t_fa.WGMMA_BLOCK_Q)
+        and any(skv % b == 0 for b in t_fa.WGMMA_BLOCK_KV))
+    for bq, bkv in (t_fa.default_config(sq, skv, d, dtype),
+                    t_fa.fit_blocks(sq, skv, t.bq, t.bkv, d, dtype)):
+        assert sq % bq == 0 and skv % bkv == 0
+        lim = t_fa.launch_limits(bq, bkv, d, dtype)
+        assert lim.ok, lim.reason
+        assert (lim.route == "wgmma") == wgmma_divides, (bq, bkv)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _emulate_wgmma(q, k, v, causal, block_q, block_kv):
+    """The tensor-core kernel's arithmetic, written out in torch on the
+    CPU: per q block, fp32 scores of the bf16 inputs in the base-2 domain,
+    the causal mask, the online softmax over the visited kv blocks, l
+    summing the fp32 p, and p rounded to bf16 for p·v (the one departure
+    from the reference, which multiplies p·v in fp32)."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    q_offset = skv - sq
+    scale = np.float32(np.float32(1.0 / np.sqrt(d)) * np.float32(LOG2E))
+    nk = skv // block_kv
+    out = torch.empty(b, h, sq, d)
+    kf, vf = k.float(), v.float()
+    for qi in range(sq // block_q):
+        r0 = qi * block_q
+        qt = q[:, :, r0:r0 + block_q].float()
+        m = torch.full((b, h, block_q), t_fa.NEG_INF)
+        l = torch.zeros(b, h, block_q)
+        acc = torch.zeros(b, h, block_q, d)
+        visit = (min(nk, (r0 + q_offset + block_q - 1) // block_kv + 1)
+                 if causal else nk)
+        for ki in range(visit):
+            k0 = ki * block_kv
+            s = qt @ kf[:, :, k0:k0 + block_kv].transpose(-1, -2) \
+                * float(scale)
+            if causal:
+                qpos = torch.arange(block_q)[:, None] + r0 + q_offset
+                kpos = torch.arange(block_kv)[None] + k0
+                s = torch.where(qpos >= kpos, s, t_fa.NEG_INF)
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - mx)
+            p = torch.exp2(s - mx[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + \
+                p.bfloat16().float() @ vf[:, :, k0:k0 + block_kv]
+            m = mx
+        out[:, :, r0:r0 + block_q] = acc / l.clamp_min(1e-30)[..., None]
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", [
+    (2, 4, 256, 256, 64), (1, 2, 128, 512, 64),
+    (1, 1, 512, 512, 128), (2, 2, 256, 256, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_numerics_within_the_reference_tolerance(b, h, sq, skv, d,
+                                                       causal):
+    """The tensor-core kernel's one numerical departure — p rounded to
+    bf16 before p·v — stays within the reference's bf16 tolerance (2e-2)
+    of the JAX kernel (interpret mode) and its oracle, at the shapes of
+    test_flash_matches_jax and the route's default blocks."""
+    arrs = _inputs(b, h, sq, skv, d, seed=sq + skv + d)
+    jq, tq, tol = _both(arrs, "bfloat16")
+    bq, bkv = t_fa.default_config(sq, skv, d, torch.bfloat16)
+    assert t_fa.route(bq, bkv, d, torch.bfloat16) == "wgmma"
+    got = _emulate_wgmma(*tq, causal, bq, bkv)
+    want = j_fa.flash_attention(*jq, causal=causal, block_q=bq,
+                                block_kv=bkv)
+    oracle = j_ref.attention(*jq, causal=causal)
+    for ref in (want, oracle):
+        np.testing.assert_allclose(_np(got), _np(ref), rtol=tol, atol=tol)
+    # the rounding of p is a real departure, not a no-op
+    assert not torch.equal(got, t_fa.plain(*tq, causal=causal))
 
 
 def test_bfloat16_inputs_are_bit_identical():

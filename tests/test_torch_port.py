@@ -316,17 +316,23 @@ def test_cuda_flash_every_feasible_candidate(cuda, dtype):
     tdt = t_fa.torch_dtype(dtype)
     q, k, v = _qkv((1, 2, 256, 128), 256, tdt, cuda, seed=9)
     want = t_fa.plain(q, k, v, causal=True)
-    n_ok = 0
+    n_ok, routes = 0, set()
     for c, p in zip(cands, preds):
         bq, bkv = c.config["block_q"], c.config["block_kv"]
         if p.feasible:
+            route = sp.route(c)
+            n0 = t_fa.flash_attention.launches_by_route[route]
             _close(t_fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv),
                    want, tdt)
+            assert t_fa.flash_attention.launches_by_route[route] == n0 + 1
             n_ok += 1
+            routes.add(route)
         else:
             with pytest.raises(ValueError):
                 t_fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
     assert n_ok >= 20
+    assert routes == ({"simt", "wgmma"} if dtype == "bfloat16"
+                      else {"simt"})
 
 
 @pytest.mark.gpu
@@ -344,11 +350,99 @@ def test_cuda_flash_refuses_before_launch(cuda, blocks):
 
 
 @pytest.mark.gpu
-def test_cuda_flash_never_reaches_plain(cuda, monkeypatch):
-    """A CUDA tensor goes to the kernel, never to the plain version."""
+@pytest.mark.parametrize("fail", [None, "build", "launch"])
+def test_cuda_flash_never_reaches_plain(cuda, monkeypatch, fail):
+    """A CUDA tensor goes to the kernel of its route, never to the plain
+    version; a wgmma build or launch that fails raises, and neither the
+    CUDA-core kernel nor plain runs in its place."""
     def boom(*a, **kw):
         raise AssertionError("plain called for a CUDA tensor")
     monkeypatch.setattr(t_fa, "plain", boom)
-    q, k, v = _qkv((1, 2, 64, 64), 64, torch.bfloat16, cuda)
-    out = t_fa.flash_attention(q, k, v, block_q=32, block_kv=32)
-    assert out.is_cuda and torch.isfinite(out.float()).all()
+    q, k, v = _qkv((1, 2, 128, 64), 128, torch.bfloat16, cuda)
+    if fail is None:
+        out = t_fa.flash_attention(q, k, v, block_q=32, block_kv=32)
+        assert out.is_cuda and torch.isfinite(out.float()).all()
+        return
+    real = t_fa._build.entry
+
+    def entry(name, argtypes):
+        if name != "flash_attention_wgmma":
+            return real(name, argtypes)
+        if fail == "build":
+            raise RuntimeError("nvcc failed for csrc/flash_attention_wgmma.cu")
+        return lambda *args: 98     # cudaErrorInvalidDeviceFunction
+    monkeypatch.setattr(t_fa._build, "entry", entry)
+    n0 = dict(t_fa.flash_attention.launches_by_route)
+    with pytest.raises(RuntimeError):
+        t_fa.flash_attention(q, k, v, block_q=64, block_kv=64)
+    assert t_fa.flash_attention.launches_by_route == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq, skv", [(256, 256), (128, 512)])
+def test_cuda_flash_wgmma_matches_plain(cuda, d, causal, sq, skv):
+    """bf16 through ops takes the tensor-core route at every instantiated
+    head_dim and matches the plain version at the reference's 2e-2."""
+    q, k, v = _qkv((2, 2, sq, d), skv, torch.bfloat16, cuda, seed=d + skv)
+    n0 = dict(t_fa.flash_attention.launches_by_route)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert t_fa.flash_attention.launches_by_route == {
+        **n0, "wgmma": n0["wgmma"] + 1}
+    _close(got, t_fa.plain(q, k, v, causal=causal), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [(128, 128), (64, 64), (32, 128),
+                                    (16, 64)])
+def test_cuda_flash_wgmma_decode_shape(cuda, blocks):
+    """128 queries at the end of 4096 keys (q_offset 3968) on the
+    tensor cores: the accumulator's (row, col) map meets absolute
+    positions off the main diagonal."""
+    q, k, v = _qkv((1, 32, 128, 128), 4096, torch.bfloat16, cuda, seed=6)
+    assert t_fa.route(*blocks, 128, torch.bfloat16) == "wgmma"
+    got = t_fa.flash_attention(q, k, v, causal=True, block_q=blocks[0],
+                               block_kv=blocks[1])
+    _close(got, t_fa.plain(q, k, v, causal=True), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bq", [4, 16, 32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_wgmma_padded_q_blocks(cuda, bq, causal):
+    """q blocks below 64 rows run in a zero-padded 64-row tile whose
+    extra rows are never stored: a stored padding row would overwrite
+    the rows of the next q block, which the comparison would catch."""
+    q, k, v = _qkv((2, 2, 96, 64), 256, torch.bfloat16, cuda, seed=bq)
+    assert t_fa.route(bq, 64, 64, torch.bfloat16) == "wgmma"
+    got = t_fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                               block_kv=64)
+    _close(got, t_fa.plain(q, k, v, causal=causal), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_counts_launches_per_route(cuda):
+    """launches counts every launch; launches_by_route the route's."""
+    n0 = dict(t_fa.flash_attention.launches_by_route)
+    total = t_fa.flash_attention.launches
+    qb = _qkv((1, 2, 128, 64), 128, torch.bfloat16, cuda)
+    qf = _qkv((1, 2, 128, 64), 128, torch.float32, cuda)
+    t_fa.flash_attention(*qb, block_q=64, block_kv=64)
+    t_fa.flash_attention(*qb, block_q=64, block_kv=32)
+    t_fa.flash_attention(*qf, block_q=64, block_kv=64)
+    assert t_fa.flash_attention.launches == total + 3
+    assert t_fa.flash_attention.launches_by_route == {
+        "wgmma": n0["wgmma"] + 1, "simt": n0["simt"] + 2}
+
+
+@pytest.mark.gpu
+def test_cuda_wgmma_limits_match_the_source(cuda):
+    """launch_limits states what the built library reports for every
+    instantiation."""
+    for d in t_fa.WGMMA_HEAD_DIMS:
+        for bkv in t_fa.WGMMA_BLOCK_KV:
+            for bq in t_fa.WGMMA_BLOCK_Q:
+                lim = t_fa.launch_limits(bq, bkv, d, torch.bfloat16)
+                assert t_fa.compiled_wgmma_limits(bq, bkv, d) == \
+                    (lim.smem_bytes, lim.threads)

@@ -103,27 +103,44 @@ def test_space_refuses_what_the_kernel_refuses():
 
 def test_feasibility_is_the_launch_limit():
     """Every candidate is feasible exactly when the wrapper would launch
-    it: blocks divide the lengths and launch_limits accept them."""
-    sp = t_space.resolve_space("flash_attention", H100, seq_q=512,
-                               seq_kv=1024, head_dim=128)
-    cands = sp.candidates()
-    n = 0
-    for c, p in zip(cands, sp.predict(cands)):
-        bq, bkv = c.config["block_q"], c.config["block_kv"]
-        ok = (512 % bq == 0 and 1024 % bkv == 0
-              and t_fa.launch_limits(bq, bkv, 128).ok)
-        assert p.feasible == ok, (c, p)
-        n += ok
-    assert n > 10
+    it: blocks divide the lengths and launch_limits accept them on the
+    route the wrapper takes; in bf16 the tensor-core pairs are among
+    them."""
+    for dtype in ("bfloat16", "float32"):
+        sp = t_space.resolve_space("flash_attention", H100, seq_q=512,
+                                   seq_kv=1024, head_dim=128, dtype=dtype)
+        cands = sp.candidates()
+        n, routes = 0, set()
+        for c, p in zip(cands, sp.predict(cands)):
+            bq, bkv = c.config["block_q"], c.config["block_kv"]
+            lim = t_fa.launch_limits(bq, bkv, 128, dtype)
+            ok = 512 % bq == 0 and 1024 % bkv == 0 and lim.ok
+            assert p.feasible == ok, (c, p)
+            assert sp.route(c) == lim.route \
+                == t_fa.route(bq, bkv, 128, dtype)
+            n += ok
+            routes.add(lim.route)
+        assert n > 10
+        assert routes == ({"simt", "wgmma"} if dtype == "bfloat16"
+                          else {"simt"})
+    assert {(b, k) for b in t_fa.WGMMA_BLOCK_Q
+            for k in t_fa.WGMMA_BLOCK_KV} <= \
+        {(c.config["block_q"], c.config["block_kv"])
+         for c in t_space.resolve_space(
+             "flash_attention", H100, seq_q=512, seq_kv=1024,
+             head_dim=128, dtype="bfloat16").candidates()}
 
 
 def test_model_follows_the_kernel():
-    """The matmul term runs at the kernel's unit (fp32 CUDA cores), and
-    the peak is shared over the SMs the CTAs keep busy: with fewer CTAs
-    than SMs a pair of halved q blocks runs about twice as fast."""
-    assert t_fa.MATMUL_UNIT == "FP32"
+    """The matmul term runs at the unit of the candidate's route (the
+    tensor cores in bf16 for wgmma, fp32 CUDA cores for simt), and the
+    peak is shared over the SMs the CTAs keep busy: with fewer CTAs than
+    SMs a pair of halved q blocks runs about twice as fast."""
+    assert t_fa.MATMUL_UNIT == {"wgmma": "BF16", "simt": "FP32"}
+    assert set(t_fa.STEP_OVERHEAD_CY) == {"wgmma", "simt"}
     sp = t_space.resolve_space("flash_attention", H100, batch=1, heads=1,
-                               seq_q=1024, seq_kv=1024, causal=False)
+                               seq_q=1024, seq_kv=1024, causal=False,
+                               dtype="float32")
     big, small = sp.predict([
         t_space.Candidate.make("flash_attention", block_q=64, block_kv=64),
         t_space.Candidate.make("flash_attention", block_q=32, block_kv=64)])
@@ -133,6 +150,40 @@ def test_model_follows_the_kernel():
     # flops over 16 SMs' share of the fp32 peak
     assert big.seconds >= \
         4 * 1024 * 1024 * 128 / (H100.peak_flops["FP32"] * 16 / 132)
+    bf = t_space.resolve_space("flash_attention", H100, batch=1, heads=1,
+                               seq_q=1024, seq_kv=1024, causal=False,
+                               dtype="bfloat16")
+    cand = t_space.Candidate.make("flash_attention", block_q=64,
+                                  block_kv=64)
+    assert bf.route(cand) == "wgmma"
+    (wg,) = bf.predict([cand])
+    floor = 4 * 1024 * 1024 * 128 / (H100.peak_flops["BF16"] * 16 / 132)
+    assert floor <= wg.seconds < big.seconds / 5
+
+
+def test_model_counts_occupancy_and_padding():
+    """CTAs resident per SM come from the route's shared memory and
+    threads: at granite-8b's attention a (64, 64) wgmma CTA fits twice on
+    an SM, (128, 128) once, so the per-step latency of (64, 64) is spread
+    over 264 resident CTAs.  A q block below 64 rows still pays for the
+    64-row tile it is padded to."""
+    sp = t_space.resolve_space("flash_attention", H100, batch=1, heads=32,
+                               seq_q=4096, seq_kv=4096, head_dim=128,
+                               causal=False, dtype="bfloat16")
+    lim = {pair: t_fa.launch_limits(*pair, 128, "bfloat16")
+           for pair in ((64, 64), (128, 128))}
+    assert lim[(64, 64)].ctas_per_sm == 2
+    assert lim[(128, 128)].ctas_per_sm == 1
+    assert sp.concurrency(64, 64) == 264
+    assert sp.concurrency(128, 128) == 132
+    small = t_space.resolve_space("flash_attention", H100, batch=1,
+                                  heads=1, seq_q=256, seq_kv=256,
+                                  dtype="bfloat16")
+    assert small.concurrency(64, 64) == 4       # fewer CTAs than slots
+    pad, full = sp.predict([
+        t_space.Candidate.make("flash_attention", block_q=16, block_kv=64),
+        t_space.Candidate.make("flash_attention", block_q=64, block_kv=64)])
+    assert pad.seconds > 3 * full.seconds
 
 
 def test_attention_bound_at_the_granite_shape():
