@@ -6,22 +6,27 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device  — name, count, torch/CUDA versions, ``nvidia-smi`` name and
                power limit, SM count and L2 size against the machine file;
-  2. build   — the four CUDA sources from ``src/repro_torch/csrc`` with
+  2. build   — the five CUDA sources from ``src/repro_torch/csrc`` with
                nvcc for sm_90a, in parallel; build seconds, the ptxas
                report (registers, spills) of every kernel instantiation,
                the count of HGMMA (tensor-core) instructions in each flash
-               library's SASS (``cuobjdump -sass``), and the wgmma launch
-               limits as the library states them against ``launch_limits``;
+               library's SASS (``cuobjdump -sass``, positive for both
+               tensor-core libraries), and the launch limits of every
+               wgmma and bf16x3 instantiation as the library states them
+               against ``launch_limits``;
   3. check   — each kernel against its plain PyTorch version on the card,
                at the reference tolerances: the stencils at ragged shapes
-               and at the main-path shape (boundaries bit-exact); flash
-               attention on both routes — bf16 on the tensor cores
-               ("wgmma") and f32 on the CUDA cores ("simt") — at head_dim
+               and at the main-path shape (boundaries bit-exact); the
+               bf16x3 split pass bit-exact against ``plain_split``; flash
+               attention on all three routes — bf16 on the tensor cores
+               ("wgmma"), f32 on the tensor cores as three bf16 passes
+               ("bf16x3"), and both types off those sets on the CUDA cores
+               ("simt": blocks (64, 32), head_dim 160) — at head_dim
                32/64/96/128, causal and full, the decode shape
-               (1, 32, 128, 4096) in both types, padded q blocks (16, 32)
-               in bf16, and every feasible candidate of the seq-256 tune
-               spaces in both types; each case prints the route whose
-               launch counter moved;
+               (1, 32, 128, 4096), padded q blocks (16, 32), and every
+               feasible candidate of the seq-256 tune spaces, in both
+               types; each case prints the route whose launch counter
+               moved, and the worst error is kept per (route, dtype);
   4. main    — the stencil case study at full size: the 7-point stencil at
                (512, 512, 512) and the long-range stencil at the paper's §3
                size (130, 1015, 1015), fp32.  Per stencil: ECM and Roofline
@@ -37,11 +42,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
                plain version and timed beside the plain version, SDPA
                (the yardstick only) and the bound.  The chosen blocks
                must take the wgmma route, and its counter must move;
-  6. f32     — the same attention in float32 through ``ops`` (the simt
-               route), held against the plain version, timed beside it,
-               SDPA in f32 and the FP32 bound.
+  6. f32     — ``tune flash_attention`` at the same attention in float32
+               (top 4 and the default measured in spawned children, no
+               calibration written); the chosen blocks must take the
+               bf16x3 route: one launch held against the plain version,
+               timed with its split pass (the split also alone), beside
+               the plain version, SDPA in f32, the three-pass bound and
+               the FP32 floor; then the CUDA-core route at the same shape
+               at (64, 32), a pair off the bf16x3 set, held and timed.
      Launch counters are zeroed just before each main path (4, 5, 6) and
-     must be positive just after it;
+     must be positive just after it (in 6: bf16x3, its split, simt);
   7. a JSON line naming each ported kernel (flash attention once per
      route), then the card's line, then
      ``{"ok": true, "device": {...}}`` as the last line.
@@ -76,15 +86,22 @@ REPLACES = {"stencil3d7pt": "src/repro/kernels/stencil3d7pt.py:77",
             "longrange3d": "src/repro/kernels/longrange3d.py:91",
             "flash_attention": "src/repro/kernels/flash_attention.py:150"}
 # the kernels line's entry per flash route
-FA_ENTRY = {"wgmma": "flash_attention", "simt": "flash_attention_simt"}
+FA_ENTRY = {"wgmma": "flash_attention", "simt": "flash_attention_simt",
+            "bf16x3": "flash_attention_bf16x3"}
+# the tensor-core route of each type
+TC_ROUTE = {torch.float32: "bf16x3", torch.bfloat16: "wgmma"}
 # flash attention: the reference's tolerances (tests/test_kernels.py)
 FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # granite-8b's attention (src/repro/configs/granite_8b.py: 32 heads of
 # 128) at the train_4k length, bf16, causal, batch 1
 GRANITE = {"batch": 1, "heads": 32, "seq_q": 4096, "seq_kv": 4096,
            "head_dim": 128, "causal": True, "dtype": "bfloat16"}
-WGMMA_KERNEL = re.compile(
-    r"_ZN\w*?flash_attention_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E\w*")
+GRANITE_F32 = {**GRANITE, "dtype": "float32"}
+# the CUDA-core route's pair at the granite shape in f32: off the bf16x3
+# set (block_kv 32), the fastest simt pair measured at this shape
+SIMT_BLOCKS = (64, 32)
+TC_KERNEL = re.compile(r"_ZN\w*?(flash_attention_(?:wgmma|bf16x3)_kernel)"
+                       r"ILi(\d+)ELi(\d+)ELi(\d+)E\w*")
 
 
 class SmokeError(RuntimeError):
@@ -255,22 +272,52 @@ def routed(fa, call):
     return out, moved[0]
 
 
-def check_flash(fa, ops, space) -> dict[str, float]:
-    """Both flash routes against the plain version on the card; returns
-    the max abs error per route."""
-    worst = dict.fromkeys(fa.SOURCES, 0.0)
+def check_split(fa) -> float:
+    """The split kernel bit-exact against ``plain_split`` on the card, at
+    the decode shape's q against 4096 keys, values spread over 40
+    binades; returns the max abs difference of its halves (0)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def draw(shape):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        e = torch.randint(-20, 20, shape, generator=gen, device="cuda")
+        return x * torch.exp2(e.float())
+    xs = [draw((1, 32, n, 128)) for n in (128, 4096, 4096)]
+    n0 = fa.split_bf16x3.launches
+    halves = fa.split_bf16x3(*xs)
+    torch.cuda.synchronize()
+    if fa.split_bf16x3.launches != n0 + 1:
+        raise SmokeError("split_bf16x3 did not count one launch")
+    err = 0.0
+    for name, (hi, lo), x in zip("qkv", halves, xs):
+        want = fa.plain_split(x)
+        for got, w, part in ((hi, want[0], "hi"), (lo, want[1], "lo")):
+            if not torch.equal(got.view(torch.int16), w.view(torch.int16)):
+                raise SmokeError(f"split {name} {part} differs from "
+                                 "plain_split")
+            err = max(err, (got.float() - w.float()).abs().max().item())
+    print(f"  bf16x3 split of q {tuple(xs[0].shape)}, k and v "
+          f"{tuple(xs[1].shape)}: hi and lo bit-exact against plain_split")
+    return err
+
+
+def check_flash(fa, ops, space) -> dict[tuple[str, str], float]:
+    """Every flash route against the plain version on the card; returns
+    the max abs error per (route, dtype)."""
+    worst: dict[tuple[str, str], float] = {}
 
     def case(what: str, call, want, dtype, expect: str) -> str:
         got, route = routed(fa, call)
         if route != expect:
             raise SmokeError(f"flash {what} ran on {route}, not {expect}")
         err = fa_compare(what, got, want, dtype)
-        worst[route] = max(worst[route], err)
-        return f"{route:5s} max abs err {err:.3e}  ok"
+        key = (route, str(dtype)[6:])
+        worst[key] = max(worst.get(key, 0.0), err)
+        return f"{route:6s} max abs err {err:.3e}  ok"
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        expect = "wgmma" if dtype == torch.bfloat16 else "simt"
+        expect = TC_ROUTE[dtype]
         for d in (32, 64, 96, 128):
             for causal in (True, False):
                 q, k, v = qkv((2, 4, 256, d), 512, dtype, seed=d)
@@ -284,13 +331,24 @@ def check_flash(fa, ops, space) -> dict[str, float]:
                    fa.plain(q, k, v), dtype, expect)
         print(f"  flash decode (1, 32, 128, 128) kv 4096 (q_offset 3968) "
               f"{name}: {res}")
-    q, k, v = qkv((2, 4, 96, 64), 256, torch.bfloat16, seed=3)
-    want = fa.plain(q, k, v)
-    for bq in (16, 32):
-        res = case(f"padded block_q={bq}", lambda: fa.flash_attention(
-            q, k, v, block_q=bq, block_kv=64), want, torch.bfloat16, "wgmma")
-        print(f"  flash (2, 4, 96, 64) kv 256 bfloat16 causal, blocks "
-              f"({bq}, 64) in a 64-row tile: {res}")
+        q, k, v = qkv((2, 4, 96, 64), 256, dtype, seed=3)
+        want = fa.plain(q, k, v)
+        for bq in (16, 32):
+            res = case(f"padded block_q={bq} {name}", lambda: fa.flash_attention(
+                q, k, v, block_q=bq, block_kv=64), want, dtype, expect)
+            print(f"  flash (2, 4, 96, 64) kv 256 {name} causal, blocks "
+                  f"({bq}, 64) in a 64-row tile: {res}")
+        # off every tensor-core set: the CUDA-core route
+        q, k, v = qkv((2, 4, 256, 128), 512, dtype, seed=4)
+        res = case(f"{name} blocks {SIMT_BLOCKS}", lambda: fa.flash_attention(
+            q, k, v, block_q=SIMT_BLOCKS[0], block_kv=SIMT_BLOCKS[1]),
+            fa.plain(q, k, v), dtype, "simt")
+        print(f"  flash (2, 4, 256, 128) kv 512 {name} blocks {SIMT_BLOCKS}: "
+              f"{res}")
+        q, k, v = qkv((2, 4, 256, 160), 512, dtype, seed=5)
+        res = case(f"{name} d=160", lambda: ops.flash_attention(q, k, v),
+                   fa.plain(q, k, v), dtype, "simt")
+        print(f"  flash (2, 4, 256, 160) kv 512 {name} through ops: {res}")
     for dtype in ("float32", "bfloat16"):
         sp = space.resolve_space("flash_attention", "H100", batch=1,
                                  heads=4, seq_q=256, seq_kv=256,
@@ -311,98 +369,151 @@ def check_flash(fa, ops, space) -> dict[str, float]:
         print(f"  flash: all {sum(counts.values())} feasible candidates of "
               f"{len(cands)} in the seq-256 {dtype} space launch and match, "
               f"by route {counts}")
+    print("  worst max abs err per (route, dtype): " + ", ".join(
+        f"{r} {t} {e:.3e}" for (r, t), e in sorted(worst.items())))
     return worst
 
 
-def tune_path(fa, space, tune_mod, measure, machine_mod) -> dict:
-    """The tuner at the granite shape, calibration written to a copy of
-    the machine file under build/, and one launch at the chosen blocks,
-    which must take the tensor-core route."""
-    rep = tune_mod.tune("flash_attention", "H100", config=GRANITE, top_k=4,
+def print_ratios(rep, fa, config) -> None:
+    """measured / predicted of every measured candidate, with its route."""
+    for c in rep.measured_outcomes:
+        bq, bkv = c.params["block_q"], c.params["block_kv"]
+        route = fa.route(bq, bkv, config["head_dim"], config["dtype"])
+        meas = c.measured_s
+        ratio = "-" if meas is None else f"{meas / c.predicted_s:.3f}"
+        print(f"    ({bq}, {bkv}) {route:6s} predicted "
+              f"{c.predicted_s * 1e3:.4f} ms, measured "
+              + ("-" if meas is None else f"{meas * 1e3:.4f} ms")
+              + f", measured/predicted {ratio}")
+
+
+def tune_path(fa, space, tune_mod, measure, machine_mod, config: dict,
+              expect: str, calibrate: bool) -> dict:
+    """The tuner at ``config``, with calibration written to a copy of the
+    machine file under build/ when ``calibrate``, and one launch at the
+    chosen blocks, which must take the ``expect`` route; on bf16x3 the
+    split pass is also timed alone."""
+    rep = tune_mod.tune("flash_attention", "H100", config=config, top_k=4,
                         isolate=True, device="cuda")
     print("  " + rep.render().replace("\n", "\n  "))
+    print_ratios(rep, fa, config)
     if rep.n_failed or rep.measured_chosen_s is None:
         raise SmokeError("tune flash_attention measured no candidate or "
                          "lost one")
-    h100_yaml = tune_mod.machine_yaml_path("H100")
-    cal_copy = ROOT / "build" / "chip_smoke" / h100_yaml.name
-    cal_copy.parent.mkdir(parents=True, exist_ok=True)
-    cal_copy.write_text(h100_yaml.read_text())
-    tune_mod.apply_calibration(cal_copy, rep.calibration)
-    factor = machine_mod.Machine.from_yaml(cal_copy).calibration_factor(
-        "time", "flash_attention")
-    print(f"  calibration written to {cal_copy.relative_to(ROOT)}; "
-          f"reloaded: time[flash_attention] = {factor:.6g}")
-    sp = space.resolve_space("flash_attention", "H100", **GRANITE)
+    factor = None
+    if calibrate:
+        h100_yaml = tune_mod.machine_yaml_path("H100")
+        cal_copy = ROOT / "build" / "chip_smoke" / h100_yaml.name
+        cal_copy.parent.mkdir(parents=True, exist_ok=True)
+        cal_copy.write_text(h100_yaml.read_text())
+        tune_mod.apply_calibration(cal_copy, rep.calibration)
+        factor = machine_mod.Machine.from_yaml(cal_copy).calibration_factor(
+            "time", "flash_attention")
+        print(f"  calibration written to {cal_copy.relative_to(ROOT)}; "
+              f"reloaded: time[flash_attention] = {factor:.6g}")
+    sp = space.resolve_space("flash_attention", "H100", **config)
     q, k, v = sp.inputs("cuda")
     bq, bkv = rep.chosen_params["block_q"], rep.chosen_params["block_kv"]
-    route = fa.route(bq, bkv, GRANITE["head_dim"], q.dtype)
-    if route != "wgmma":
+    route = fa.route(bq, bkv, config["head_dim"], q.dtype)
+    if route != expect:
         raise SmokeError(f"the tuner chose ({bq}, {bkv}), which takes the "
-                         f"{route} route, not wgmma")
+                         f"{route} route, not {expect}")
     out, ran = routed(fa, lambda: fa.flash_attention(
         q, k, v, block_q=bq, block_kv=bkv))
-    if ran != "wgmma":
+    if ran != expect:
         raise SmokeError(f"the chosen blocks launched on {ran}")
     t_kernel = measure.time_cuda(
         lambda: fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv),
         warmup=1, iters=3, reps=5)
+    run = {"report": rep, "qkv": (q, k, v), "out": out, "route": route,
+           "blocks": (bq, bkv), "t_kernel": t_kernel, "factor": factor}
+    if route == "bf16x3":
+        run["t_split"] = measure.time_cuda(lambda: fa.split_bf16x3(q, k, v),
+                                           warmup=1, iters=3, reps=5)
     torch.cuda.synchronize()
-    return {"report": rep, "qkv": (q, k, v), "out": out, "route": route,
-            "blocks": (bq, bkv), "t_kernel": t_kernel, "factor": factor}
+    return run
 
 
-def f32_path(fa, ops, blocking, space, measure) -> dict:
-    """The same attention in float32 through ``ops``: the simt route."""
-    sp = space.resolve_space("flash_attention", "H100",
-                             **{**GRANITE, "dtype": "float32"})
+def simt_path(fa, space, measure) -> dict:
+    """The same attention in float32 on the CUDA-core route, at
+    :data:`SIMT_BLOCKS`, a pair off the bf16x3 set."""
+    sp = space.resolve_space("flash_attention", "H100", **GRANITE_F32)
     q, k, v = sp.inputs("cuda")
-    d = GRANITE["head_dim"]
-    t = blocking.attention_cta_tiles(4096, 4096, d, q.dtype)
-    blocks = fa.fit_blocks(4096, 4096, t.bq, t.bkv, d, q.dtype)
-    out, route = routed(fa, lambda: ops.flash_attention(q, k, v))
+    bq, bkv = SIMT_BLOCKS
+
+    def call():
+        return fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+    out, route = routed(fa, call)
     if route != "simt":
-        raise SmokeError(f"f32 attention launched on {route}, not simt")
-    t_kernel = measure.time_cuda(lambda: ops.flash_attention(q, k, v),
-                                 warmup=1, iters=3, reps=5)
+        raise SmokeError(f"f32 attention at {SIMT_BLOCKS} launched on "
+                         f"{route}, not simt")
+    t_kernel = measure.time_cuda(call, warmup=1, iters=3, reps=5)
     torch.cuda.synchronize()
     return {"report": None, "qkv": (q, k, v), "out": out, "route": route,
-            "blocks": blocks, "t_kernel": t_kernel}
+            "blocks": (bq, bkv), "t_kernel": t_kernel}
 
 
-def flash_report(run: dict, fa, space, measure, h100, card: str) -> dict:
-    """Plain-version and SDPA timings, the bound, and the kernels-line
-    entry for one flash main-path run (launches filled in by the
-    caller)."""
+def flash_report(run: dict, fa, space, measure, h100, card: str,
+                 yard: dict) -> dict:
+    """Plain-version and SDPA timings (once per dtype, kept in ``yard``:
+    every run of a dtype has the same seeded inputs), the bound, and the
+    kernels-line entry for one flash main-path run (launches filled in by
+    the caller)."""
     q, k, v = run["qkv"]
     rep, route = run["report"], run["route"]
     name = str(q.dtype)[6:]
-    err = fa_compare(f"granite {name}", run["out"], fa.plain(q, k, v),
+    err = fa_compare(f"granite {name} {route}", run["out"], fa.plain(q, k, v),
                      q.dtype)
-    t_plain = measure.time_cuda(lambda: fa.plain(q, k, v), warmup=1,
-                                iters=2, reps=3)
+    if name not in yard:
+        t_plain = measure.time_cuda(lambda: fa.plain(q, k, v), warmup=1,
+                                    iters=2, reps=3)
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True)
-    # SDPA's causal mask is top-left aligned: it equals the kernel's only
-    # at seq_q == seq_kv, which the granite shape has
-    fa_compare(f"SDPA yardstick {name}", sdpa(), run["out"], q.dtype)
-    lib_ms = measure.time_cuda(sdpa).wall_s * 1e3
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True)
+        # SDPA's causal mask is top-left aligned: it equals the kernel's
+        # only at seq_q == seq_kv, which the granite shape has
+        fa_compare(f"SDPA yardstick {name}", sdpa(), run["out"], q.dtype)
+        yard[name] = (t_plain.wall_s * 1e3, measure.time_cuda(sdpa).wall_s
+                      * 1e3)
+    plain_ms, lib_ms = yard[name]
     bound = space.attention_bound(q, k, causal=True, machine=h100)
-    unit = "BF16" if q.dtype == torch.bfloat16 else "FP32"
     ms = run["t_kernel"].wall_s * 1e3
     bq, bkv = run["blocks"]
+    unit = ("bf16, one pass" if q.dtype == torch.bfloat16
+            else "bf16, three passes")
     print(f"  flash_attention {tuple(q.shape)} {name} causal, route {route}"
           f", blocks ({bq}, {bkv}) on {card}:")
     print(f"    kernel   {ms:.4f} ms  ({bound.seconds * 1e3 / ms:.1%} of the "
           f"bound)")
     print(f"    bound    {bound.seconds * 1e3:.4f} ms by {bound.by} "
           f"({bound.ops_s * 1e3:.4f} ms of operations at "
-          f"{h100.peak_flops[unit] / 1e12:.0f} TFLOP/s {unit.lower()}; "
+          f"{h100.peak_flops['BF16'] / 1e12:.0f} TFLOP/s, {unit}; "
           f"{bound.bytes / 1e6:.1f} MB at {h100.hbm_bandwidth / 1e12:.2f} "
           f"TB/s, {bound.bytes_s * 1e3:.4f} ms)")
-    print(f"    plain    {t_plain.wall_s * 1e3:.4f} ms")
+    entry = {"name": FA_ENTRY[route], "route": "cuda",
+             "source": f"src/repro_torch/csrc/{fa.SOURCES[route]}.cu",
+             "replaces": REPLACES["flash_attention"], "launches": 0,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound.seconds * 1e3, "bound_by": bound.by,
+             "library_ms": lib_ms}
+    if q.dtype == torch.float32:
+        floor = space.attention_bound(q, k, causal=True, machine=h100,
+                                      unit="FP32")
+        entry["fp32_cores_bound_ms"] = floor.seconds * 1e3
+        print(f"    FP32     {floor.seconds * 1e3:.4f} ms, the floor of the "
+              f"CUDA cores at {h100.peak_flops['FP32'] / 1e12:.0f} TFLOP/s "
+              f"({floor.seconds * 1e3 / ms:.1%} of it)")
+    if "t_split" in run:
+        split_ms = run["t_split"].wall_s * 1e3
+        moved = fa.split_bytes(q.numel(), k.numel())
+        split_bound = moved / h100.hbm_bandwidth * 1e3
+        entry.update(split_ms=split_ms, split_bound_ms=split_bound)
+        print(f"    split    {split_ms:.4f} ms of it, alone ({moved / 1e6:.1f}"
+              f" MB, bound {split_bound:.4f} ms by bytes, "
+              f"{split_bound / split_ms:.1%} of it); the attention kernel "
+              f"{ms - split_ms:.4f} ms")
+    print(f"    plain    {plain_ms:.4f} ms")
     print(f"    library  {lib_ms:.4f} ms (scaled_dot_product_attention, "
           "yardstick only)")
     if rep is not None:
@@ -410,13 +521,7 @@ def flash_report(run: dict, fa, space, measure, h100, card: str) -> dict:
               f"(measured/predicted "
               f"{ms / (rep.predicted_chosen_s * 1e3):.3f})")
     print(f"    max abs err vs plain {err:.3e}")
-    return {"name": FA_ENTRY[route], "route": "cuda",
-            "source": f"src/repro_torch/csrc/{fa.SOURCES[route]}.cu",
-            "replaces": REPLACES["flash_attention"], "launches": 0,
-            "max_abs_err": err, "ms": ms,
-            "plain_ms": t_plain.wall_s * 1e3,
-            "bound_ms": bound.seconds * 1e3, "bound_by": bound.by,
-            "library_ms": lib_ms}
+    return entry
 
 
 def sass_hgmma(_build, name: str) -> int:
@@ -437,27 +542,43 @@ def check_build(_build, fa, info: dict) -> dict[str, int]:
     for name, d in info.items():
         print(f"  {name}: {d['seconds']:.1f} s")
         for ln in d["ptxas"]:
-            print("    " + WGMMA_KERNEL.sub(
-                lambda m: f"flash_attention_wgmma_kernel<D={m[1]}, "
-                          f"BKV={m[2]}, NWG={m[3]}>", ln))
+            print("    " + TC_KERNEL.sub(
+                lambda m: f"{m[1]}<D={m[2]}, BKV={m[3]}, NWG={m[4]}>", ln))
     hgmma = {src: sass_hgmma(_build, src) for src in fa.SOURCES.values()}
     print(f"  HGMMA instructions in the SASS: {hgmma}")
-    if hgmma[fa.SOURCES["wgmma"]] <= 0:
-        raise SmokeError("the wgmma library's SASS has no HGMMA instruction")
-    n = 0
-    for d in fa.WGMMA_HEAD_DIMS:
-        for bkv in fa.WGMMA_BLOCK_KV:
-            for bq in fa.WGMMA_BLOCK_Q:
-                lim = fa.launch_limits(bq, bkv, d, torch.bfloat16)
-                got = fa.compiled_wgmma_limits(bq, bkv, d)
-                if got != (lim.smem_bytes, lim.threads):
-                    raise SmokeError(
-                        f"wgmma ({bq}, {bkv}) d={d}: the library states "
-                        f"{got}, launch_limits "
-                        f"{(lim.smem_bytes, lim.threads)}")
-                n += 1
-    print(f"  wgmma launch limits: the library and launch_limits agree on "
-          f"all {n} instantiated (block_q, block_kv, head_dim)")
+    for route in TC_ROUTE.values():
+        if hgmma[fa.SOURCES[route]] <= 0:
+            raise SmokeError(f"the {route} library's SASS has no HGMMA "
+                             "instruction")
+    for route, dtype, compiled in (
+            ("wgmma", torch.bfloat16, fa.compiled_wgmma_limits),
+            ("bf16x3", torch.float32, fa.compiled_bf16x3_limits)):
+        n = refused = 0
+        for d in fa.WGMMA_HEAD_DIMS:
+            for bkv in fa.WGMMA_BLOCK_KV:
+                for bq in fa.WGMMA_BLOCK_Q:
+                    if (bq, bkv, d) not in fa.tc_set(dtype):
+                        try:        # the library must refuse it too
+                            compiled(bq, bkv, d)
+                        except RuntimeError:
+                            refused += 1
+                            continue
+                        raise SmokeError(f"the {route} library states "
+                                         f"limits for ({bq}, {bkv}) d={d}, "
+                                         "off its set")
+                    lim = fa.launch_limits(bq, bkv, d, dtype)
+                    got = compiled(bq, bkv, d)
+                    if lim.route != route or \
+                            got != (lim.smem_bytes, lim.threads):
+                        raise SmokeError(
+                            f"{route} ({bq}, {bkv}) d={d}: the library "
+                            f"states {got}, launch_limits "
+                            f"{(lim.smem_bytes, lim.threads)} on "
+                            f"{lim.route}")
+                    n += 1
+        print(f"  {route} launch limits: the library and launch_limits "
+              f"agree on all {n} instantiated (block_q, block_kv, "
+              f"head_dim); {refused} off the set refused by both")
     return hgmma
 
 
@@ -470,7 +591,6 @@ def smoke(out_path: str | None) -> int:
                          "from a checkout of the repository")
     sys.path.insert(0, str(SRC))
     from repro_torch import tune as tune_mod
-    from repro_torch.core import blocking
     from repro_torch.core import machine as machine_mod
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
@@ -506,6 +626,7 @@ def smoke(out_path: str | None) -> int:
         for shape in RAGGED + [MAIN[name]]:
             err = check_kernel(name, shape, fam, stencil)
             max_err[name] = max(max_err.get(name, 0.0), err)
+    split_err = check_split(fa)
     fa_err = check_flash(fa, ops, space)
 
     phase("4 main path at full size")
@@ -537,7 +658,8 @@ def smoke(out_path: str | None) -> int:
         counts[r] = 0
     for w in wrappers.values():
         w.launches = 0
-    fa_run = tune_path(fa, space, tune_mod, measure, machine_mod)
+    fa_run = tune_path(fa, space, tune_mod, measure, machine_mod, GRANITE,
+                       "wgmma", calibrate=True)
     fa_launches = dict(counts)
     print(f"  launches in this process during the tune path: {fa_launches} "
           "(the measuring runs are in spawned children)")
@@ -552,19 +674,43 @@ def smoke(out_path: str | None) -> int:
     flash_runs = {"wgmma": fa_run}
     launches.update({FA_ENTRY["wgmma"]: fa_launches["wgmma"]})
 
-    phase("6 the same attention in float32 (the CUDA-core route)")
+    phase("6 the same attention in float32: tune on bf16x3, then simt")
     for r in counts:
         counts[r] = 0
-    flash_runs["simt"] = f32_path(fa, ops, blocking, space, measure)
+    fa.split_bf16x3.launches = 0
+    flash_runs["bf16x3"] = tune_path(fa, space, tune_mod, measure,
+                                     machine_mod, GRANITE_F32, "bf16x3",
+                                     calibrate=False)
+    flash_runs["simt"] = simt_path(fa, space, measure)
     fa_launches = dict(counts)
-    print(f"  launches during the f32 path: {fa_launches}")
-    if fa_launches["simt"] <= 0:
-        raise SmokeError("f32 path never launched the simt flash kernel")
-    launches.update({FA_ENTRY["simt"]: fa_launches["simt"]})
+    split_launches = fa.split_bf16x3.launches
+    print(f"  launches in this process during the f32 path: {fa_launches}, "
+          f"split {split_launches} (the measuring runs are in spawned "
+          "children)")
+    for r in ("bf16x3", "simt"):
+        if fa_launches[r] <= 0:
+            raise SmokeError(f"f32 path never launched the {r} flash kernel")
+        launches[FA_ENTRY[r]] = fa_launches[r]
+    if split_launches <= 0:
+        raise SmokeError("f32 path never launched the bf16x3 split kernel")
+    rep = flash_runs["bf16x3"]["report"]
+    predicted["flash_attention_f32"] = {
+        "tuner_predicted_ms": rep.predicted_chosen_s * 1e3,
+        "candidates": [c.to_dict() for c in rep.measured_outcomes],
+        "calibration": rep.calibration,
+        "chosen": rep.chosen_params, "default": rep.default_params}
+    yard: dict = {}
     for route, run in flash_runs.items():
-        e = flash_report(run, fa, space, measure, h100, card)
+        e = flash_report(run, fa, space, measure, h100, card, yard)
+        dtype = str(run["qkv"][0].dtype)[6:]
         e["launches"] = launches[e["name"]]
-        e["max_abs_err"] = max(fa_err[route], e["max_abs_err"])
+        e["max_abs_err"] = max(fa_err.get((route, dtype), 0.0),
+                               e["max_abs_err"])
+        if route == "bf16x3":
+            e.update(split_launches=split_launches,
+                     split_max_abs_err=split_err)
+        if route == "simt":   # the same kernel in bf16, off the wgmma set
+            e["max_abs_err_bfloat16"] = fa_err[("simt", "bfloat16")]
         entries.append(e)
         run.clear()
         torch.cuda.empty_cache()

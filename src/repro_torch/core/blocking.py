@@ -107,10 +107,12 @@ def attention_cta_tiles(seq_q: int, seq_kv: int, head_dim: int,
     (the LC structure of attention), so blocks start as large as the
     lengths allow (at most :data:`ATTENTION_START`, in steps of
     ``GRANULE * 2**k``) and shrink in the JAX advisor's order — ``bkv``
-    first, then ``bq`` — until :func:`repro_torch.kernels.flash_attention
-    .launch_limits` accepts the pair on its route.  In bfloat16 at a
-    tensor-core head_dim the starting pair is a wgmma pair whenever the kv
-    length reaches 64, and it always fits (bf16 tiles, no fp32 staging).
+    first, then ``bq``.  They shrink first until
+    :func:`repro_torch.kernels.flash_attention.launch_limits` accepts the
+    pair on a tensor-core route (wgmma in bfloat16, bf16x3 in float32, at
+    a head_dim of their sets; at head_dim 128 in float32 that is
+    (128, 64), the hi and lo tiles of (128, 128) being too large), and
+    only where no such pair is reached until it launches on any route.
     The result need not divide the lengths;
     :func:`~repro_torch.kernels.flash_attention.fit_blocks` fits it.
     Raises ``ValueError`` when even the smallest pair does not launch."""
@@ -120,15 +122,20 @@ def attention_cta_tiles(seq_q: int, seq_kv: int, head_dim: int,
             b *= 2
         return b
 
-    bq, bkv = start(seq_q), start(seq_kv)
-
     def lim(a: int, b: int):
         return fa.launch_limits(a, b, head_dim, dtype)
 
-    while not lim(bq, bkv).ok and bkv > fa.GRANULE:
-        bkv //= 2
-    while not lim(bq, bkv).ok and bq > fa.GRANULE:
-        bq //= 2
+    def shrink(accept) -> tuple[int, int]:
+        bq, bkv = start(seq_q), start(seq_kv)
+        while not accept(lim(bq, bkv)) and bkv > fa.GRANULE:
+            bkv //= 2
+        while not accept(lim(bq, bkv)) and bq > fa.GRANULE:
+            bq //= 2
+        return bq, bkv
+
+    bq, bkv = shrink(lambda l: l.ok and l.route != "simt")
+    if lim(bq, bkv).route == "simt":
+        bq, bkv = shrink(lambda l: l.ok)
     last = lim(bq, bkv)
     if not last.ok:
         raise ValueError(f"no flash-attention CTA tile: {last.reason}")

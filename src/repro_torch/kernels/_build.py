@@ -26,7 +26,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("stencil3d7pt", "longrange3d", "flash_attention",
-           "flash_attention_wgmma")
+           "flash_attention_wgmma", "flash_attention_bf16x3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -156,12 +156,12 @@ def check_tile(tile: tuple[int, int], radius: int) -> tuple[int, int]:
     return bj, bi
 
 
-def entry(name: str, argtypes: list):
-    """The ctypes binding of ``repro_<name>`` in ``csrc/<name>.cu`` with
-    its argument types set (a pointer or the stream must be ``c_void_p``:
-    a plain int would be cut to 32 bits) and an ``int`` result, the
-    ``cudaError_t`` of the launch."""
-    fn = getattr(library(name), f"repro_{name}")
+def entry(name: str, argtypes: list, symbol: str = ""):
+    """The ctypes binding of ``repro_<name>`` (or ``repro_<symbol>``) in
+    ``csrc/<name>.cu`` with its argument types set (a pointer or the
+    stream must be ``c_void_p``: a plain int would be cut to 32 bits) and
+    an ``int`` result, the ``cudaError_t`` of the launch."""
+    fn = getattr(library(name), f"repro_{symbol or name}")
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

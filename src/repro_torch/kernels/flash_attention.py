@@ -1,4 +1,4 @@
-"""Blocked online-softmax (flash) attention: its two hand-written Hopper
+"""Blocked online-softmax (flash) attention: its hand-written Hopper
 kernels, their launch limits, and beside them the plain PyTorch version.
 
 Counterpart of ``repro.kernels.flash_attention``.  :func:`flash_attention`
@@ -8,15 +8,23 @@ it runs :func:`plain`.  The checks (block divisibility, the launch
 limits, operand types and shapes) are the same on both devices, so a call
 that would be refused on the card is refused on the CPU too.
 
-Two routes, chosen by one rule, :func:`route`, before anything launches:
+Three routes, chosen by one rule, :func:`route`, before anything
+launches:
 
 - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bfloat16 on the tensor
   cores, at the head dims, kv blocks and q blocks the kernel was
-  instantiated for (:data:`WGMMA_HEAD_DIMS`, :data:`WGMMA_BLOCK_KV`,
-  :data:`WGMMA_BLOCK_Q`).  It rounds p to bf16 for the p·v product, the
-  one departure from the reference, within its 2e-2 bf16 tolerance.
-- ``"simt"`` (``csrc/flash_attention.cu``): everything else — all
-  float32, and bfloat16 outside that set — on the CUDA cores in fp32.
+  instantiated for (:data:`WGMMA_SET`).  It rounds p to bf16 for the p·v
+  product, the one departure from the reference, within its 2e-2 bf16
+  tolerance.
+- ``"bf16x3"`` (``csrc/flash_attention_bf16x3.cu``): float32 on the
+  tensor cores as three bf16 passes, at the triples of
+  :data:`BF16X3_SET`.  A split pass (:func:`split_bf16x3`, plain version
+  :func:`plain_split`) writes ``hi = bf16(x)`` and ``lo = bf16(x - hi)``
+  of q, k and v; each product is ``hi·hi + hi·lo + lo·hi`` in fp32
+  (about 16 mantissa bits, within the 2e-3 f32 tolerance), p is split
+  the same way in registers, and the output is fp32.
+- ``"simt"`` (``csrc/flash_attention.cu``): everything else — float32
+  and bfloat16 outside those sets — on the CUDA cores in fp32.
 
 A failed build or launch on a route raises; it never falls back to the
 other route or to :func:`plain`.  ``flash_attention.launches`` counts
@@ -56,29 +64,35 @@ THREADS_PER_SM = 2048
 CTAS_PER_SM = 32
 #: the q-block grid axis is the launch's y dimension
 MAX_Q_BLOCKS = 65535
-#: the tensor-core kernel's instantiated set: head_dim and block_kv are
-#: its template parameters; block_q is 128 (two 64-row warpgroup tiles) or
-#: divides the 64-row tile, whose rows past block_q are padding
+#: the bf16 tensor-core kernel's instantiated set: head_dim and block_kv
+#: are its template parameters; block_q is 128 (two 64-row warpgroup
+#: tiles) or divides the 64-row tile, whose rows past block_q are padding
 WGMMA_HEAD_DIMS = (32, 64, 96, 128)
 WGMMA_BLOCK_KV = (64, 128)
 WGMMA_BLOCK_Q = (4, 8, 16, 32, 64, 128)
 WGMMA_TILE_M = 64
-#: its K/V ring depth, and bytes for alignment and mbarriers
+#: the K/V ring depth of both tensor-core kernels, and bytes for
+#: alignment and mbarriers
 WGMMA_STAGES = 2
 WGMMA_SMEM_ALIGN = 1024
 WGMMA_SMEM_BARRIERS = 64
 #: the CUDA source of each route
-SOURCES = {"wgmma": "flash_attention_wgmma", "simt": "flash_attention"}
+SOURCES = {"wgmma": "flash_attention_wgmma", "simt": "flash_attention",
+           "bf16x3": "flash_attention_bf16x3"}
 #: peak-rate key (``peak flops`` in the machine file) of the unit each
-#: route's products run on: the tensor cores in bf16, the CUDA cores in
+#: route's products run on, and how many passes of it each product takes:
+#: the tensor cores in bf16 (three passes for bf16x3), the CUDA cores in
 #: fp32
-MATMUL_UNIT = {"wgmma": "BF16", "simt": "FP32"}
+MATMUL_UNIT = {"wgmma": "BF16", "simt": "FP32", "bf16x3": "BF16"}
+MATMUL_PASSES = {"wgmma": 1, "simt": 1, "bf16x3": 3}
 #: cycles a CTA spends per kv step outside the arithmetic.  simt: four
 #: barriers and the exposed latency of staging the k/v tiles.  wgmma: the
 #: full-barrier wait and two wgmma issue → wait round trips that the
-#: softmax sits between.  Both are estimates; the tuner's calibration
-#: factor absorbs their error.
-STEP_OVERHEAD_CY = {"wgmma": 600.0, "simt": 1000.0}
+#: softmax sits between.  bf16x3: the same round trips around three times
+#: the products, the split of p, and no second resident CTA at d = 128 to
+#: hide them.  All are estimates; the tuner's calibration factor absorbs
+#: their error.
+STEP_OVERHEAD_CY = {"wgmma": 600.0, "simt": 1000.0, "bf16x3": 900.0}
 #: the kernel's dtype codes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -98,6 +112,12 @@ DEFAULT_CONFIGS: tuple[tuple[int, tuple[int, int]], ...] = (
 #: pairs, smaller kv blocks and then one warpgroup for shorter sequences
 DEFAULT_CONFIGS_BF16: tuple[tuple[int, tuple[int, int]], ...] = (
     (1024, (128, 128)),
+    (256, (128, 64)),
+    (0, (64, 64)),
+)
+#: and for float32 at a head_dim of :data:`WGMMA_HEAD_DIMS`: bf16x3
+#: pairs; (128, 64) is the one two-warpgroup pair that fits at d = 128
+DEFAULT_CONFIGS_BF16X3: tuple[tuple[int, tuple[int, int]], ...] = (
     (256, (128, 64)),
     (0, (64, 64)),
 )
@@ -134,27 +154,57 @@ def torch_dtype(dtype) -> torch.dtype:
     return t
 
 
-def route(block_q: int, block_kv: int, head_dim: int, dtype) -> str:
-    """``"wgmma"`` for bfloat16 at a head_dim and block_kv the tensor-core
-    kernel was instantiated for and a block_q of :data:`WGMMA_BLOCK_Q`;
-    ``"simt"`` for everything else (all float32, whose 2e-3 tolerance
-    TF32 would not meet reliably, and any other bf16 shape)."""
-    if (torch_dtype(dtype) == torch.bfloat16
-            and int(head_dim) in WGMMA_HEAD_DIMS
-            and int(block_kv) in WGMMA_BLOCK_KV
-            and int(block_q) in WGMMA_BLOCK_Q):
-        return "wgmma"
-    return "simt"
+def _tc_smem_bytes(elem_bytes: int, block_q: int, block_kv: int,
+                   head_dim: int) -> int:
+    nwg = 2 if block_q > WGMMA_TILE_M else 1
+    return (WGMMA_SMEM_ALIGN + WGMMA_SMEM_BARRIERS
+            + elem_bytes * head_dim * (WGMMA_TILE_M * nwg
+                                       + 2 * WGMMA_STAGES * block_kv))
 
 
 def wgmma_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
-    """Dynamic shared memory of one tensor-core CTA: 1024 bytes of
+    """Dynamic shared memory of one bf16 tensor-core CTA: 1024 bytes of
     alignment slack, the bf16 q tiles (64 rows per warpgroup), the ring of
     :data:`WGMMA_STAGES` k and v tiles, and the mbarriers."""
-    nwg = 2 if block_q > WGMMA_TILE_M else 1
-    return (WGMMA_SMEM_ALIGN + WGMMA_SMEM_BARRIERS
-            + 2 * head_dim * (WGMMA_TILE_M * nwg
-                              + 2 * WGMMA_STAGES * block_kv))
+    return _tc_smem_bytes(2, block_q, block_kv, head_dim)
+
+
+def bf16x3_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
+    """Dynamic shared memory of one f32 tensor-core CTA: the layout of
+    :func:`wgmma_smem_bytes` with a hi and a lo bf16 tile in place of
+    each tile, 4 bytes per element."""
+    return _tc_smem_bytes(4, block_q, block_kv, head_dim)
+
+
+#: ``(block_q, block_kv, head_dim)`` triples each tensor-core kernel was
+#: instantiated for.  The f32 kernel ("bf16x3") is written for the same
+#: head dims and blocks as the bf16 one, but its hi and lo tiles double
+#: the shared memory, so it keeps the triples whose CTA fits
+#: :data:`SMEM_PER_CTA`: at head_dim 128 only block_kv 64, at 96 block_kv
+#: 128 only with one warpgroup
+WGMMA_SET = frozenset((bq, bkv, d) for d in WGMMA_HEAD_DIMS
+                      for bkv in WGMMA_BLOCK_KV for bq in WGMMA_BLOCK_Q)
+BF16X3_SET = frozenset(t for t in WGMMA_SET
+                       if bf16x3_smem_bytes(*t) <= SMEM_PER_CTA)
+
+
+def route(block_q: int, block_kv: int, head_dim: int, dtype) -> str:
+    """``"wgmma"`` for bfloat16 at a triple of :data:`WGMMA_SET`,
+    ``"bf16x3"`` for float32 at a triple of :data:`BF16X3_SET` (every one
+    of which launches), ``"simt"`` for everything else."""
+    t = torch_dtype(dtype)
+    key = (int(block_q), int(block_kv), int(head_dim))
+    if t == torch.bfloat16 and key in WGMMA_SET:
+        return "wgmma"
+    if t == torch.float32 and key in BF16X3_SET:
+        return "bf16x3"
+    return "simt"
+
+
+def tc_set(dtype) -> frozenset:
+    """The tensor-core set of ``dtype``: :data:`WGMMA_SET` for bfloat16,
+    :data:`BF16X3_SET` for float32."""
+    return WGMMA_SET if torch_dtype(dtype) == torch.bfloat16 else BF16X3_SET
 
 
 def launch_limits(block_q: int, block_kv: int, head_dim: int,
@@ -163,17 +213,21 @@ def launch_limits(block_q: int, block_kv: int, head_dim: int,
     head_dim)`` in ``dtype`` on the :func:`route` the pair takes, and
     whether it can launch.
 
-    wgmma: :func:`wgmma_smem_bytes` (always within the limit at the
-    instantiated sizes) and 128 threads per 64-row warpgroup tile plus a
-    producer warp.  simt: the three sizes positive multiples of
+    wgmma and bf16x3: :func:`wgmma_smem_bytes` or
+    :func:`bf16x3_smem_bytes` (within the limit on every triple the route
+    takes) and 128 threads per 64-row warpgroup tile plus a producer
+    warp.  simt: the three sizes positive multiples of
     :data:`GRANULE` and the CTA's shared memory — q and k staged
     transposed, v, the score tile and the accumulator, all fp32, plus m, l
     and alpha — within :data:`SMEM_PER_CTA`, for 256 threads."""
     bq, bkv, d = int(block_q), int(block_kv), int(head_dim)
-    if route(bq, bkv, d, dtype) == "wgmma":
+    r = route(bq, bkv, d, dtype)
+    if r != "simt":
         nwg = 2 if bq > WGMMA_TILE_M else 1
-        return LaunchLimits(smem_bytes=wgmma_smem_bytes(bq, bkv, d),
-                            threads=128 * nwg + 32, route="wgmma")
+        smem = (wgmma_smem_bytes if r == "wgmma" else bf16x3_smem_bytes)(
+            bq, bkv, d)
+        return LaunchLimits(smem_bytes=smem, threads=128 * nwg + 32,
+                            route=r)
     smem = 4 * (2 * d * bq + 2 * d * bkv + bq * bkv + 3 * bq)
     reason = ""
     if min(bq, bkv, d) <= 0 or bq % GRANULE or bkv % GRANULE or d % GRANULE:
@@ -209,33 +263,39 @@ def validate_blocks(seq_q: int, seq_kv: int, block_q: int,
             f"{seq_kv}))")
 
 
-def _wgmma_pair(seq_q: int, seq_kv: int, block_q: int, block_kv: int
-                ) -> tuple[int, int] | None:
-    """The largest wgmma blocks at most ``(block_q, block_kv)`` (else the
-    smallest) that divide the lengths; None when none divides."""
-    qs = [b for b in WGMMA_BLOCK_Q if seq_q % b == 0]
-    ks = [b for b in WGMMA_BLOCK_KV if seq_kv % b == 0]
-    if not qs or not ks:
+def _tc_pair(seq_q: int, seq_kv: int, block_q: int, block_kv: int,
+             head_dim: int, dtype) -> tuple[int, int] | None:
+    """The tensor-core pair of ``dtype`` (:func:`tc_set`) at ``head_dim``
+    nearest ``(block_q, block_kv)`` among those that divide the lengths:
+    the largest block_q at most ``block_q`` (else the smallest), then for
+    it the largest block_kv at most ``block_kv`` (else the smallest);
+    None when none divides."""
+    pairs = [(bq, bkv) for bq, bkv, d in tc_set(dtype)
+             if d == head_dim and seq_q % bq == 0 and seq_kv % bkv == 0]
+    if not pairs:
         return None
-    return (max((b for b in qs if b <= block_q), default=qs[0]),
-            max((b for b in ks if b <= block_kv), default=ks[0]))
+
+    def near(b: int, want: int) -> tuple[bool, int]:
+        return (b <= want, b if b <= want else -b)
+    return max(pairs, key=lambda p: (*near(p[0], block_q),
+                                     *near(p[1], block_kv)))
 
 
 def fit_blocks(seq_q: int, seq_kv: int, block_q: int, block_kv: int,
                head_dim: int, dtype=torch.float32) -> tuple[int, int]:
     """Launchable blocks near ``(block_q, block_kv)`` for the lengths.
 
-    bfloat16 at a head_dim of :data:`WGMMA_HEAD_DIMS` takes a wgmma pair
-    wherever one divides the lengths (:func:`_wgmma_pair`).  Otherwise:
+    A tensor-core pair of the dtype's route (wgmma for bfloat16, bf16x3
+    for float32) is taken wherever one divides the lengths at
+    ``head_dim`` (:func:`_tc_pair`).  Otherwise:
     clamp the blocks to the lengths, halve each until it divides its
     length, then halve ``block_kv``, then ``block_q``, while the pair does
     not fit :func:`launch_limits`.  With blocks of the form
     ``GRANULE * 2**k`` and lengths that are multiples of :data:`GRANULE`
     the result launches; raises ``ValueError`` when no pair does."""
-    if torch_dtype(dtype) == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        pair = _wgmma_pair(seq_q, seq_kv, block_q, block_kv)
-        if pair is not None:
-            return pair
+    pair = _tc_pair(seq_q, seq_kv, block_q, block_kv, head_dim, dtype)
+    if pair is not None:
+        return pair
     bq = max(1, min(block_q, seq_q))
     bkv = max(1, min(block_kv, seq_kv))
     while seq_q % bq:
@@ -260,12 +320,14 @@ def fit_blocks(seq_q: int, seq_kv: int, block_q: int, block_kv: int,
 def default_config(seq_q: int, seq_kv: int, head_dim: int = 128,
                    dtype=torch.float32) -> tuple[int, int]:
     """The default ``(block_q, block_kv)`` for a problem shape: the row
-    for ``seq_kv`` of :data:`DEFAULT_CONFIGS_BF16` (bfloat16 at a head_dim
-    of :data:`WGMMA_HEAD_DIMS`) or :data:`DEFAULT_CONFIGS` (the rest),
-    fitted to the lengths and the launch limits (:func:`fit_blocks`)."""
+    for ``seq_kv`` of :data:`DEFAULT_CONFIGS_BF16` (bfloat16) or
+    :data:`DEFAULT_CONFIGS_BF16X3` (float32) at a tensor-core head_dim,
+    or of :data:`DEFAULT_CONFIGS` (the rest), fitted to the lengths and
+    the launch limits (:func:`fit_blocks`)."""
     table = DEFAULT_CONFIGS
-    if torch_dtype(dtype) == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        table = DEFAULT_CONFIGS_BF16
+    if head_dim in WGMMA_HEAD_DIMS:
+        table = (DEFAULT_CONFIGS_BF16 if torch_dtype(dtype) == torch.bfloat16
+                 else DEFAULT_CONFIGS_BF16X3)
     for floor, (bq, bkv) in table:
         if seq_kv >= floor:
             break
@@ -326,6 +388,58 @@ def _scale(d: int) -> float:
     return float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32))
 
 
+def split_bytes(n_q: int, n_kv: int) -> int:
+    """Bytes the split pass moves for q of ``n_q`` elements and k and v of
+    ``n_kv`` each: 4 read and 2 + 2 written per element."""
+    return 8 * (int(n_q) + 2 * int(n_kv))
+
+
+def plain_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the split pass: ``hi = bf16(x)`` and
+    ``lo = bf16(x - hi)``, both rounded to nearest even; ``hi + lo``
+    holds x to about 2^-16 relative."""
+    hi = x.bfloat16()
+    return hi, (x - hi.float()).bfloat16()
+
+
+def split_bf16x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
+    """The split pass of the ``"bf16x3"`` route: ``(hi, lo)`` bfloat16
+    halves of each of the float32, contiguous q, k and v, in their shape.
+    On the card one launch of ``csrc/flash_attention_bf16x3.cu``'s split
+    kernel writes all six into tensors this wrapper allocates; on the CPU
+    :func:`plain_split` runs.  ``split_bf16x3.launches`` counts the
+    launches."""
+    for t in (q, k, v):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("split_bf16x3 takes contiguous float32 tensors")
+        if t.device != q.device or t.numel() % 4:
+            raise ValueError("split_bf16x3 operands share a device and "
+                             "hold a multiple of 4 elements")
+    if k.numel() != v.numel():
+        raise ValueError("split_bf16x3: k and v must have one size")
+    if q.device.type == "cpu":
+        return tuple(plain_split(t) for t in (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("split_bf16x3 operands must start on a 16-byte "
+                         "boundary")
+    halves = [torch.empty(t.shape, dtype=torch.bfloat16, device=t.device)
+              for t in (q, q, k, k, v, v)]
+    fn = _build.entry(SOURCES["bf16x3"], [ctypes.c_void_p] * 9
+                      + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+                      symbol="flash_attention_bf16x3_split")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check_status("flash_attention_bf16x3_split", fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *[h.data_ptr() for h in halves], q.numel(), k.numel(), stream))
+    split_bf16x3.launches += 1
+    return tuple(zip(halves[::2], halves[1::2]))
+
+
+split_bf16x3.launches = 0
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_kv: int = 128,
@@ -346,9 +460,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sq // block_q > MAX_Q_BLOCKS:
         raise ValueError(f"flash_attention: {sq // block_q} q blocks exceed "
                          f"the launch's {MAX_Q_BLOCKS}")
-    if lim.route == "wgmma" and b * h * max(sq, skv) >= 2 ** 31:
+    if lim.route != "simt" and b * h * max(sq, skv) >= 2 ** 31:
         raise ValueError("flash_attention: b*h*s rows exceed the 32-bit "
-                         "TMA coordinates of the wgmma route")
+                         f"TMA coordinates of the {lim.route} route")
     for t in (q, k, v):
         if not t.is_contiguous():
             raise ValueError("flash_attention operands must be contiguous")
@@ -359,10 +473,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError("flash_attention operands must start on a "
                              "16-byte boundary")
     out = torch.empty_like(q)
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * h, sq, skv, d, int(block_q), int(block_kv), int(causal),
-            int(q_offset), _scale(d)]
-    argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+    operands = (q, k, v)
+    if lim.route == "bf16x3":   # hi, lo of q, k and v; freed after the launch
+        operands = sum(split_bf16x3(q, k, v), ())
+    args = [t.data_ptr() for t in operands] + [
+        out.data_ptr(), b * h, sq, skv, d, int(block_q), int(block_kv),
+        int(causal), int(q_offset), _scale(d)]
+    argtypes = ([ctypes.c_void_p] * (len(operands) + 1) + [ctypes.c_longlong]
                 + [ctypes.c_int] * 7 + [ctypes.c_float])
     if lim.route == "simt":
         args.append(DTYPES[q.dtype])
@@ -381,17 +498,30 @@ flash_attention.launches = 0
 flash_attention.launches_by_route = {r: 0 for r in SOURCES}
 
 
-def compiled_wgmma_limits(block_q: int, block_kv: int, head_dim: int
-                          ) -> tuple[int, int]:
-    """(shared memory bytes, threads) of one tensor-core CTA as the built
-    library states them (``repro_flash_attention_wgmma_limits``), to hold
-    :func:`launch_limits` to the source; builds the library if needed."""
-    fn = getattr(_build.library(SOURCES["wgmma"]),
-                 "repro_flash_attention_wgmma_limits")
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
+def _compiled_limits(route_name: str, block_q: int, block_kv: int,
+                     head_dim: int) -> tuple[int, int]:
+    name = SOURCES[route_name]
+    fn = _build.entry(name, [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+                      symbol=f"{name}_limits")
     smem, threads = ctypes.c_longlong(), ctypes.c_int()
-    _build.check_status("flash_attention_wgmma_limits", fn(
+    _build.check_status(f"{name}_limits", fn(
         int(head_dim), int(block_kv), int(block_q), ctypes.byref(smem),
         ctypes.byref(threads)))
     return smem.value, threads.value
+
+
+def compiled_wgmma_limits(block_q: int, block_kv: int, head_dim: int
+                          ) -> tuple[int, int]:
+    """(shared memory bytes, threads) of one bf16 tensor-core CTA as the
+    built library states them (``repro_flash_attention_wgmma_limits``), to
+    hold :func:`launch_limits` to the source; builds the library if
+    needed."""
+    return _compiled_limits("wgmma", block_q, block_kv, head_dim)
+
+
+def compiled_bf16x3_limits(block_q: int, block_kv: int, head_dim: int
+                           ) -> tuple[int, int]:
+    """The same for the f32 tensor-core CTA
+    (``repro_flash_attention_bf16x3_limits``); raises outside
+    :data:`BF16X3_SET`, as the library refuses such a triple."""
+    return _compiled_limits("bf16x3", block_q, block_kv, head_dim)

@@ -36,7 +36,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     q_offset: int | None = None) -> torch.Tensor:
     """Attention with blocks from the shared-memory advisor, fitted to the
-    lengths (a wgmma pair for bf16 wherever one divides them); kv heads
+    lengths (a tensor-core pair wherever one divides them); kv heads
     broadcast by GQA callers."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention takes (b, h, s, d) tensors")

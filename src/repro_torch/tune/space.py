@@ -145,16 +145,19 @@ class FlashAttentionSpace(CandidateSpace):
     (batch·head, q block) walks its kv blocks, skipping those wholly above
     the causal diagonal, so the exact visited-step count enters the
     model.  Per visited step the CTA does the two products (4·rows·bkv·d
-    flops, rows = bq, or the 64-row tile a short wgmma q block is padded
-    to) on the unit its route names (``fa.MATMUL_UNIT``), ~8 fp32 flops
-    per score for the online softmax, and the route's fixed
+    flops, rows = bq, or the 64-row tile a short tensor-core q block is
+    padded to) on the unit its route names (``fa.MATMUL_UNIT``), once per
+    pass (``fa.MATMUL_PASSES``: three for bf16x3), ~8 fp32 flops per
+    score for the online softmax, and the route's fixed
     ``fa.STEP_OVERHEAD_CY``.  The card's peak is scaled by the share of
     its SMs that the ``b·h·(seq_q/block_q)`` CTAs keep busy.  The per-step
     overhead is latency, hidden across the CTAs resident at once: it is
     spread over ``min(ctas, SMs × CTAs per SM)``, CTAs per SM from the
     route's shared memory and threads (``LaunchLimits.ctas_per_sm``).  HBM
-    traffic streams q/out once and re-fetches k/v per visited step.  The
-    predicted seconds are ``max(compute, hbm)``; HBM-bound candidates are
+    traffic streams q/out once and re-fetches k/v per visited step, at
+    4 bytes per element on bf16x3 (a hi and a lo bf16).  The predicted
+    seconds are ``max(compute, hbm)``, plus, on bf16x3, the split pass's
+    bytes at the HBM rate (``fa.split_bytes``); HBM-bound candidates are
     attributed to the last cache level (the L2 → memory transfer).  A
     candidate is feasible when its blocks divide the lengths and
     :func:`~repro_torch.kernels.flash_attention.launch_limits` accept them
@@ -190,8 +193,9 @@ class FlashAttentionSpace(CandidateSpace):
         ``n``: the granule's powers of two below a warp, then multiples of
         the warp size, up to ``n`` and to the largest block that launches
         with the other block at its smallest (:func:`launch_limits`, on
-        the CUDA-core route that a granule-wide block takes); in bfloat16
-        at a tensor-core head_dim, also the wgmma blocks up to ``n``."""
+        the CUDA-core route that a granule-wide block takes); at a
+        tensor-core head_dim, also the blocks of the dtype's tensor-core
+        set (wgmma in bfloat16, bf16x3 in float32) up to ``n``."""
         warp = int(self.machine.extra.get("warp size", 32))
         d = int(self.config["head_dim"])
         small = [fa.GRANULE << k for k in range(8)
@@ -202,10 +206,8 @@ class FlashAttentionSpace(CandidateSpace):
             if b > n or not fa.launch_limits(*pair, d, self.dtype).ok:
                 break
             out.append(b)
-        if self.dtype == torch.bfloat16 and d in fa.WGMMA_HEAD_DIMS:
-            wg = fa.WGMMA_BLOCK_Q if axis == 0 else fa.WGMMA_BLOCK_KV
-            out = sorted(set(out) | {b for b in wg if b <= n})
-        return out
+        tc = {t[axis] for t in fa.tc_set(self.dtype) if t[2] == d}
+        return sorted(set(out) | {b for b in tc if b <= n})
 
     def candidates(self) -> list[Candidate]:
         sq, skv = int(self.config["seq_q"]), int(self.config["seq_kv"])
@@ -266,7 +268,7 @@ class FlashAttentionSpace(CandidateSpace):
         m = self.machine
         c = self.config
         sq, skv = int(c["seq_q"]), int(c["seq_kv"])
-        d, e = int(c["head_dim"]), self._elem_bytes()
+        d = int(c["head_dim"])
         B = int(c["batch"]) * int(c["heads"])
         sms = int(m.extra["SM count"])
         peak_vec = m.peak_flops["FP32"]
@@ -288,20 +290,27 @@ class FlashAttentionSpace(CandidateSpace):
                 continue
             steps = self._steps(bq, bkv)
             share = min(B * (sq // bq), sms) / sms
-            rows = bq
-            if lim.route == "wgmma":
-                rows = max(bq, fa.WGMMA_TILE_M)
-            peak_mm = m.peak_flops[fa.MATMUL_UNIT[lim.route]]
+            r = lim.route
+            rows = bq if r == "simt" else max(bq, fa.WGMMA_TILE_M)
+            peak_mm = m.peak_flops[fa.MATMUL_UNIT[r]] / fa.MATMUL_PASSES[r]
             t_mm = 4.0 * B * steps * rows * bkv * d / (peak_mm * share)
             t_vec = 8.0 * B * steps * rows * bkv / (peak_vec * share)
-            t_step = (B * steps * fa.STEP_OVERHEAD_CY[lim.route]
+            t_step = (B * steps * fa.STEP_OVERHEAD_CY[r]
                       / (m.clock_hz * self.concurrency(bq, bkv)))
             t_compute = t_mm + t_vec + t_step
+            # bytes per element streamed: the input type's; on bf16x3 a
+            # hi and a lo bf16, 4 as in f32
+            e = self._elem_bytes()
             bytes_hbm = (2.0 * B * sq * d * e            # q in, out
                          + 2.0 * B * steps * bkv * d * e)  # k, v re-fetch
             t_hbm = bytes_hbm / m.hbm_bandwidth
+            t_split = 0.0
+            if r == "bf16x3":
+                t_split = fa.split_bytes(B * sq * d, B * skv * d) \
+                    / m.hbm_bandwidth
             bound = "compute" if t_compute >= t_hbm else m.level_names[-1]
-            out.append(Prediction(max(t_compute, t_hbm), bound=bound))
+            out.append(Prediction(max(t_compute, t_hbm) + t_split,
+                                  bound=bound))
         return out
 
     def inputs(self, device, seed: int = 0) -> tuple[torch.Tensor, ...]:
@@ -327,13 +336,23 @@ class FlashAttentionSpace(CandidateSpace):
         return run
 
 
+#: the arithmetic an attention bound is taken at: the machine file's
+#: peak-rate key and the passes each product takes
+BOUND_UNITS = {"BF16": ("BF16", 1), "BF16x3": ("BF16", 3),
+               "FP32": ("FP32", 1)}
+
+
 def attention_bound(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
                     q_offset: int | None = None,
-                    machine: Machine | str = "H100") -> Bound:
+                    machine: Machine | str = "H100",
+                    unit: str | None = None) -> Bound:
     """The least time for one attention call on ``machine``: q, k, v read
     once and the output written once at the HBM rate; ``4·d`` flops per
-    visible (query, key) pair at the peak for the inputs' type (BF16 or
-    FP32 in the machine file)."""
+    visible (query, key) pair at the arithmetic ``unit`` names
+    (:data:`BOUND_UNITS`).  By default bfloat16 takes one bf16 pass, and
+    float32 three (``"BF16x3"``): the least arithmetic that meets the
+    reference's f32 tolerance on this card.  ``unit="FP32"`` gives the
+    floor of the fp32 CUDA cores."""
     mach = api.resolve_machine(machine)
     b, h, sq, d = q.shape
     skv = k.shape[2]
@@ -344,7 +363,9 @@ def attention_bound(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
     else:
         pairs = sq * skv
     flops = 4.0 * d * pairs * b * h
-    peak = mach.peak_flops["BF16" if q.dtype == torch.bfloat16 else "FP32"]
+    if unit is None:
+        unit = "BF16" if q.dtype == torch.bfloat16 else "BF16x3"
+    key, passes = BOUND_UNITS[unit]
     moved = 2 * q.nbytes + 2 * k.nbytes
     return Bound(bytes=moved, bytes_s=moved / mach.hbm_bandwidth,
-                 ops_s=flops / peak)
+                 ops_s=passes * flops / mach.peak_flops[key])

@@ -168,18 +168,23 @@ def test_launch_limits_shared_memory():
     """Per route.  wgmma (csrc/flash_attention_wgmma.cu): the bf16 q tiles
     (64 rows per warpgroup), two stages of bf16 k and v tiles, 1024 bytes
     of alignment slack and 64 of mbarriers; 128 threads per warpgroup and
-    a producer warp.  simt (csrc/flash_attention.cu): q and k transposed,
-    v, the score tile and the accumulator in fp32, plus m, l, alpha; 256
-    threads."""
+    a producer warp.  bf16x3 (csrc/flash_attention_bf16x3.cu): the same
+    layout with a hi and a lo tile for each.  simt
+    (csrc/flash_attention.cu): q and k transposed, v, the score tile and
+    the accumulator in fp32, plus m, l, alpha; 256 threads."""
     lim = t_fa.launch_limits(64, 64, 128, "bfloat16")
     assert lim.ok and lim.route == "wgmma" and lim.threads == 160
     assert lim.smem_bytes == 1024 + 64 + 2 * 128 * (64 + 2 * 2 * 64)
     big = t_fa.launch_limits(128, 128, 128, torch.bfloat16)
     assert big.ok and big.route == "wgmma" and big.threads == 288
     assert big.smem_bytes == 1024 + 64 + 2 * 128 * (128 + 2 * 2 * 128)
-    f32 = t_fa.launch_limits(64, 64, 128, torch.float32)
+    x3 = t_fa.launch_limits(64, 64, 128, torch.float32)
+    assert x3.ok and x3.route == "bf16x3" and x3.threads == 160
+    assert x3.smem_bytes == 1024 + 64 + 4 * 128 * (64 + 2 * 2 * 64)
+    f32 = t_fa.launch_limits(64, 32, 128, torch.float32)
     assert f32.ok and f32.route == "simt" and f32.threads == 256
-    assert f32.smem_bytes == 4 * (2 * 128 * 64 * 2 + 64 * 64 + 3 * 64)
+    assert f32.smem_bytes == 4 * (2 * 128 * 64 + 2 * 128 * 32 + 64 * 32
+                                  + 3 * 64)
     assert not t_fa.launch_limits(128, 128, 128).ok
     # bf16 outside the instantiated set takes the simt formula
     assert t_fa.launch_limits(64, 32, 128, "bfloat16") == \
@@ -193,8 +198,16 @@ def test_launch_limits_shared_memory():
     ((128, 128), 32, "bfloat16", "wgmma"),
     ((16, 64), 96, "bfloat16", "wgmma"),
     ((4, 128), 64, "bfloat16", "wgmma"),
-    ((64, 64), 128, "float32", "simt"),
-    ((128, 128), 64, "float32", "simt"),
+    ((64, 64), 128, "float32", "bf16x3"),
+    ((128, 128), 64, "float32", "bf16x3"),
+    ((128, 64), 128, "float32", "bf16x3"),
+    ((4, 128), 96, "float32", "bf16x3"),
+    ((128, 128), 128, "float32", "simt"),
+    ((64, 128), 128, "float32", "simt"),
+    ((128, 128), 96, "float32", "simt"),
+    ((64, 32), 128, "float32", "simt"),
+    ((64, 64), 160, "float32", "simt"),
+    ((48, 64), 64, "float32", "simt"),
     ((64, 64), 4, "bfloat16", "simt"),
     ((64, 64), 160, "bfloat16", "simt"),
     ((64, 64), 256, "bfloat16", "simt"),
@@ -205,7 +218,8 @@ def test_launch_limits_shared_memory():
     ((256, 64), 64, "bfloat16", "simt")])
 def test_route(blocks, d, dtype, want):
     """bf16 at an instantiated (head_dim, block_kv) and a block_q that
-    divides or fills the 64-row tiles takes the tensor cores; all else
+    divides or fills the 64-row tiles takes the wgmma kernel, f32 at such
+    a triple whose hi and lo tiles fit a CTA the bf16x3 kernel; all else
     takes the CUDA-core kernel."""
     assert t_fa.route(*blocks, d, dtype) == want
     assert t_fa.launch_limits(*blocks, d, dtype).route == want
@@ -243,7 +257,8 @@ def test_default_configs_launch_at_head_dim_128():
 def test_advisor_shrinks_kv_first():
     """The JAX advisor's order on the simt route: bkv halves before bq
     does.  In bf16 at a tensor-core head_dim the first pair is a wgmma
-    pair and fits as it is."""
+    pair and fits as it is; in f32 the blocks shrink to a bf16x3 pair
+    first."""
     t = blocking.attention_cta_tiles(4096, 4096, 128, "float32")
     assert (t.bq, t.bkv) == (128, 64)
     assert t.smem_bytes == t_fa.launch_limits(128, 64, 128).smem_bytes
@@ -256,6 +271,10 @@ def test_advisor_shrinks_kv_first():
     assert t.smem_bytes == t_fa.wgmma_smem_bytes(128, 128, 128)
     t = blocking.attention_cta_tiles(4096, 4096, 256, "bfloat16")
     assert (t.bq, t.bkv) == (64, 4)
+    # f32 reaches the bf16x3 pair before a simt pair that would fit
+    t = blocking.attention_cta_tiles(8, 4096, 128, "float32")
+    assert (t.bq, t.bkv) == (8, 64)
+    assert t_fa.launch_limits(8, 128, 128, "float32").ok
     with pytest.raises(ValueError, match="no flash-attention CTA tile"):
         blocking.attention_cta_tiles(64, 64, 4096, "float32")
 
@@ -281,20 +300,21 @@ def test_default_and_advisor_blocks_launch(sq, skv, d):
        dtype=st.sampled_from(["float32", "bfloat16"]))
 def test_blocks_launch_on_their_route(sq, skv, d, dtype):
     """default_config, fit_blocks and the advisor (as ops uses it) give a
-    pair that divides the lengths and launches; in bf16 at a tensor-core
-    head_dim it is a wgmma pair wherever one divides the lengths."""
+    pair that divides the lengths and launches; at a tensor-core head_dim
+    it is a pair of the dtype's tensor-core route (wgmma in bf16, bf16x3
+    in f32) wherever one divides the lengths."""
     sq, skv = 4 * sq, 4 * skv
     t = blocking.attention_cta_tiles(sq, skv, d, dtype)
-    wgmma_divides = (
-        dtype == "bfloat16" and d in t_fa.WGMMA_HEAD_DIMS
-        and any(sq % b == 0 for b in t_fa.WGMMA_BLOCK_Q)
-        and any(skv % b == 0 for b in t_fa.WGMMA_BLOCK_KV))
+    tc_divides = any(sq % bq == 0 and skv % bkv == 0
+                     for bq, bkv, dd in t_fa.tc_set(dtype) if dd == d)
+    tc_route = "wgmma" if dtype == "bfloat16" else "bf16x3"
     for bq, bkv in (t_fa.default_config(sq, skv, d, dtype),
                     t_fa.fit_blocks(sq, skv, t.bq, t.bkv, d, dtype)):
         assert sq % bq == 0 and skv % bkv == 0
         lim = t_fa.launch_limits(bq, bkv, d, dtype)
         assert lim.ok, lim.reason
-        assert (lim.route == "wgmma") == wgmma_divides, (bq, bkv)
+        assert lim.route in ("simt", tc_route)
+        assert (lim.route == tc_route) == tc_divides, (bq, bkv)
 
 
 LOG2E = 1.4426950408889634
@@ -369,3 +389,150 @@ def test_bfloat16_inputs_are_bit_identical():
     j = np.asarray(jnp.asarray(x, jnp.bfloat16)).view(np.uint16)
     t = convert.to_tensor(x, "cpu", torch.bfloat16).view(torch.int16)
     np.testing.assert_array_equal(j, t.numpy().view(np.uint16))
+
+
+def test_launch_limits_bf16x3_shared_memory():
+    """The f32 tensor-core CTA takes 1024 + 64 + 4·d·(64·warpgroups +
+    2·stages·block_kv) bytes: at d = 128 (64, 64) and (128, 64) fit, while
+    (64, 128) and (128, 128) exceed the 232,448 bytes a CTA can use and
+    are off the set: they take the simt route, where (64, 128) fits and
+    (128, 128) does not.  At d = 128 one CTA fills an SM."""
+    want = {(64, 64): 164928, (128, 64): 197696, (128, 128): 328768,
+            (64, 128): 296000}
+    for (bq, bkv), smem in want.items():
+        assert t_fa.bf16x3_smem_bytes(bq, bkv, 128) == smem
+        fits = smem <= t_fa.SMEM_PER_CTA
+        assert ((bq, bkv, 128) in t_fa.BF16X3_SET) == fits
+        lim = t_fa.launch_limits(bq, bkv, 128, torch.float32)
+        assert lim.route == ("bf16x3" if fits else "simt")
+        assert lim.ok == ((bq, bkv) != (128, 128))
+        if fits:
+            assert lim.smem_bytes == smem and lim.ctas_per_sm == 1
+            assert lim.threads == (288 if bq == 128 else 160)
+    # the set is every instantiated triple that fits, and nothing else
+    for d in t_fa.WGMMA_HEAD_DIMS:
+        for bkv in t_fa.WGMMA_BLOCK_KV:
+            for bq in t_fa.WGMMA_BLOCK_Q:
+                fits = t_fa.bf16x3_smem_bytes(bq, bkv, d) <= t_fa.SMEM_PER_CTA
+                assert ((bq, bkv, d) in t_fa.BF16X3_SET) == fits
+    assert (64, 128, 96) in t_fa.BF16X3_SET
+    assert (128, 128, 96) not in t_fa.BF16X3_SET
+    assert len(t_fa.BF16X3_SET) == 41
+
+
+def _split(x):
+    """hi and lo of the split pass, as fp32 values."""
+    hi, lo = t_fa.plain_split(x)
+    return hi.float(), lo.float()
+
+
+def _mm3(a, b):
+    """a @ b as the bf16x3 kernel takes it: three products of bf16 halves,
+    each exact in fp32, summed in fp32 (lo · lo dropped)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _emulate_bf16x3(q, k, v, causal, block_q, block_kv):
+    """The f32 tensor-core kernel's arithmetic, written out in torch on the
+    CPU: q, k and v split into bf16 hi and lo; per q block, scores as
+    three products in the base-2 domain, the causal mask, the online
+    softmax over the visited kv blocks, l summing the unrounded fp32 p,
+    p split the same way for p·v, and an fp32 output."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    q_offset = skv - sq
+    scale = np.float32(np.float32(1.0 / np.sqrt(d)) * np.float32(LOG2E))
+    nk = skv // block_kv
+    out = torch.empty(b, h, sq, d)
+    for qi in range(sq // block_q):
+        r0 = qi * block_q
+        qt = q[:, :, r0:r0 + block_q]
+        m = torch.full((b, h, block_q), t_fa.NEG_INF)
+        l = torch.zeros(b, h, block_q)
+        acc = torch.zeros(b, h, block_q, d)
+        visit = (min(nk, (r0 + q_offset + block_q - 1) // block_kv + 1)
+                 if causal else nk)
+        for ki in range(visit):
+            k0 = ki * block_kv
+            s = _mm3(qt, k[:, :, k0:k0 + block_kv].transpose(-1, -2)) \
+                * float(scale)
+            if causal:
+                qpos = torch.arange(block_q)[:, None] + r0 + q_offset
+                kpos = torch.arange(block_kv)[None] + k0
+                s = torch.where(qpos >= kpos, s, t_fa.NEG_INF)
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - mx)
+            p = torch.exp2(s - mx[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + _mm3(p, v[:, :, k0:k0 + block_kv])
+            m = mx
+        out[:, :, r0:r0 + block_q] = acc / l.clamp_min(1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,gain", [
+    (2, 4, 256, 256, 64, 1.0), (1, 2, 128, 512, 64, 1.0),
+    (1, 1, 512, 512, 128, 1.0), (2, 2, 256, 256, 32, 1.0),
+    (1, 1, 512, 512, 128, 4.0)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16x3_numerics_within_the_reference_tolerance(b, h, sq, skv, d,
+                                                        gain, causal):
+    """The f32 tensor-core kernel's arithmetic — operands and p split into
+    bf16 hi and lo, three products each — stays within the reference's
+    f32 tolerance (2e-3) of the JAX kernel (interpret mode) and its
+    oracle, at the shapes of test_flash_matches_jax and the route's
+    default blocks, and with inputs scaled ×4 (logits ×16), where one
+    TF32 pass would not."""
+    arrs = [a * np.float32(gain)
+            for a in _inputs(b, h, sq, skv, d, seed=sq + skv + d)]
+    jq, tq, tol = _both(arrs, "float32")
+    bq, bkv = t_fa.default_config(sq, skv, d, torch.float32)
+    assert t_fa.route(bq, bkv, d, torch.float32) == "bf16x3"
+    got = _emulate_bf16x3(*tq, causal, bq, bkv)
+    assert got.dtype == torch.float32
+    want = j_fa.flash_attention(*jq, causal=causal, block_q=bq,
+                                block_kv=bkv)
+    oracle = j_ref.attention(*jq, causal=causal)
+    for ref in (want, oracle):
+        np.testing.assert_allclose(_np(got), _np(ref), rtol=tol, atol=tol)
+    # the split is a real departure from the fp32 products, not a no-op
+    assert not torch.equal(got, t_fa.plain(*tq, causal=causal))
+
+
+def test_plain_split_matches_jax_rounding():
+    """hi is JAX's bf16 rounding of x bit for bit, lo JAX's rounding of
+    x - hi, and hi + lo holds x to within 2^-16 relative (over normals
+    spread across many binades)."""
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal(8192)
+         * np.exp2(rng.integers(-30, 30, 8192))).astype(np.float32)
+    hi, lo = t_fa.plain_split(torch.from_numpy(x))
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    j_hi = jnp.asarray(x, jnp.bfloat16)
+    j_lo = jnp.asarray(jnp.asarray(x) - j_hi.astype(jnp.float32),
+                       jnp.bfloat16)
+    for t, j in ((hi, j_hi), (lo, j_lo)):
+        np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                      np.asarray(j).view(np.int16))
+    back = hi.double() + lo.double()
+    err = (back - torch.from_numpy(x).double()).abs()
+    assert (err.numpy() <= 2.0 ** -16 * np.abs(x)).all()
+    assert (lo != 0).any()
+
+
+def test_split_on_the_cpu_is_the_plain_split():
+    """On the CPU the split wrapper runs plain_split and counts no
+    launch; it takes only contiguous f32 of sizes the kernel takes."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 16, 32, 8, 1))
+    n0 = t_fa.split_bf16x3.launches
+    got = t_fa.split_bf16x3(q, k, v)
+    assert t_fa.split_bf16x3.launches == n0
+    for (hi, lo), x in zip(got, (q, k, v)):
+        want = t_fa.plain_split(x)
+        assert torch.equal(hi, want[0]) and torch.equal(lo, want[1])
+    with pytest.raises(ValueError, match="float32"):
+        t_fa.split_bf16x3(q.bfloat16(), k, v)
+    with pytest.raises(ValueError, match="one size"):
+        t_fa.split_bf16x3(q, k, v[:, :, :8].contiguous())

@@ -332,7 +332,7 @@ def test_cuda_flash_every_feasible_candidate(cuda, dtype):
                 t_fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
     assert n_ok >= 20
     assert routes == ({"simt", "wgmma"} if dtype == "bfloat16"
-                      else {"simt"})
+                      else {"simt", "bf16x3"})
 
 
 @pytest.mark.gpu
@@ -423,17 +423,22 @@ def test_cuda_flash_wgmma_padded_q_blocks(cuda, bq, causal):
 
 @pytest.mark.gpu
 def test_cuda_flash_counts_launches_per_route(cuda):
-    """launches counts every launch; launches_by_route the route's."""
+    """launches counts every launch; launches_by_route the route's; the
+    bf16x3 route also launches its split pass once."""
     n0 = dict(t_fa.flash_attention.launches_by_route)
     total = t_fa.flash_attention.launches
+    splits = t_fa.split_bf16x3.launches
     qb = _qkv((1, 2, 128, 64), 128, torch.bfloat16, cuda)
     qf = _qkv((1, 2, 128, 64), 128, torch.float32, cuda)
     t_fa.flash_attention(*qb, block_q=64, block_kv=64)
     t_fa.flash_attention(*qb, block_q=64, block_kv=32)
     t_fa.flash_attention(*qf, block_q=64, block_kv=64)
-    assert t_fa.flash_attention.launches == total + 3
+    t_fa.flash_attention(*qf, block_q=64, block_kv=32)
+    assert t_fa.flash_attention.launches == total + 4
     assert t_fa.flash_attention.launches_by_route == {
-        "wgmma": n0["wgmma"] + 1, "simt": n0["simt"] + 2}
+        "wgmma": n0["wgmma"] + 1, "simt": n0["simt"] + 2,
+        "bf16x3": n0["bf16x3"] + 1}
+    assert t_fa.split_bf16x3.launches == splits + 1
 
 
 @pytest.mark.gpu
@@ -445,4 +450,112 @@ def test_cuda_wgmma_limits_match_the_source(cuda):
             for bq in t_fa.WGMMA_BLOCK_Q:
                 lim = t_fa.launch_limits(bq, bkv, d, torch.bfloat16)
                 assert t_fa.compiled_wgmma_limits(bq, bkv, d) == \
+                    (lim.smem_bytes, lim.threads)
+
+
+# ----------------------------------------------------------------------
+# on the card: float32 on the tensor cores as three bf16 passes
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq, skv", [(256, 256), (128, 512)])
+def test_cuda_flash_bf16x3_matches_plain(cuda, d, causal, sq, skv):
+    """f32 through ops takes the bf16x3 route at every head_dim of its
+    set and matches the plain version at the reference's 2e-3."""
+    q, k, v = _qkv((2, 2, sq, d), skv, torch.float32, cuda, seed=d + sq)
+    n0 = dict(t_fa.flash_attention.launches_by_route)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert t_fa.flash_attention.launches_by_route == {
+        **n0, "bf16x3": n0["bf16x3"] + 1}
+    _close(got, t_fa.plain(q, k, v, causal=causal), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [(128, 64), (64, 64), (32, 64),
+                                    (16, 64)])
+def test_cuda_flash_bf16x3_decode_shape(cuda, blocks):
+    """128 f32 queries at the end of 4096 keys (q_offset 3968) on the
+    bf16x3 route, padded q blocks included."""
+    q, k, v = _qkv((1, 32, 128, 128), 4096, torch.float32, cuda, seed=7)
+    assert t_fa.route(*blocks, 128, torch.float32) == "bf16x3"
+    got = t_fa.flash_attention(q, k, v, causal=True, block_q=blocks[0],
+                               block_kv=blocks[1])
+    _close(got, t_fa.plain(q, k, v, causal=True), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bq, bkv, d", [(4, 64, 64), (32, 128, 96),
+                                        (128, 128, 64), (16, 128, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_bf16x3_blocks(cuda, bq, bkv, d, causal):
+    """Padded q blocks, block_kv 128 with one warpgroup at d = 96 (the
+    largest CTA of the set) and two warpgroups at d = 64."""
+    q, k, v = _qkv((2, 2, 128, d), 256, torch.float32, cuda, seed=bq + d)
+    assert t_fa.route(bq, bkv, d, torch.float32) == "bf16x3"
+    got = t_fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                               block_kv=bkv)
+    _close(got, t_fa.plain(q, k, v, causal=causal), torch.float32)
+
+
+@pytest.mark.gpu
+def test_cuda_split_is_the_plain_split(cuda):
+    """The split kernel's hi and lo are bit-identical to plain_split's,
+    for q and k/v of different sizes and values across many binades."""
+    rng = np.random.default_rng(8)
+    arrs = [(rng.standard_normal(s) * np.exp2(rng.integers(-20, 20, s))
+             ).astype(np.float32)
+            for s in ((1, 4, 96, 64), (1, 4, 320, 64), (1, 4, 320, 64))]
+    q, k, v = (convert.to_tensor(a, cuda) for a in arrs)
+    n0 = t_fa.split_bf16x3.launches
+    got = t_fa.split_bf16x3(q, k, v)
+    assert t_fa.split_bf16x3.launches == n0 + 1
+    for (hi, lo), x in zip(got, (q, k, v)):
+        want_hi, want_lo = t_fa.plain_split(x)
+        assert hi.dtype == lo.dtype == torch.bfloat16
+        assert torch.equal(hi.view(torch.int16), want_hi.view(torch.int16))
+        assert torch.equal(lo.view(torch.int16), want_lo.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fail", ["build", "launch"])
+def test_cuda_flash_bf16x3_never_falls_back(cuda, monkeypatch, fail):
+    """A bf16x3 build or launch that fails raises; neither the CUDA-core
+    kernel nor plain runs in its place."""
+    def boom(*a, **kw):
+        raise AssertionError("plain called for a CUDA tensor")
+    monkeypatch.setattr(t_fa, "plain", boom)
+    real = t_fa._build.entry
+
+    def entry(name, argtypes, symbol=""):
+        if name != "flash_attention_bf16x3":
+            return real(name, argtypes, symbol)
+        if fail == "build":
+            raise RuntimeError("nvcc failed for csrc/flash_attention_bf16x3"
+                               ".cu")
+        return lambda *args: 98     # cudaErrorInvalidDeviceFunction
+    monkeypatch.setattr(t_fa._build, "entry", entry)
+    q, k, v = _qkv((1, 2, 128, 64), 128, torch.float32, cuda)
+    n0 = dict(t_fa.flash_attention.launches_by_route)
+    with pytest.raises(RuntimeError):
+        t_fa.flash_attention(q, k, v, block_q=64, block_kv=64)
+    with pytest.raises(RuntimeError):
+        ops.flash_attention(q, k, v)
+    assert t_fa.flash_attention.launches_by_route == n0
+
+
+@pytest.mark.gpu
+def test_cuda_bf16x3_limits_match_the_source(cuda):
+    """launch_limits states what the built library reports for every
+    triple of the set, and the library refuses the triples off it."""
+    for d in t_fa.WGMMA_HEAD_DIMS:
+        for bkv in t_fa.WGMMA_BLOCK_KV:
+            for bq in t_fa.WGMMA_BLOCK_Q:
+                if (bq, bkv, d) not in t_fa.BF16X3_SET:
+                    with pytest.raises(RuntimeError):
+                        t_fa.compiled_bf16x3_limits(bq, bkv, d)
+                    continue
+                lim = t_fa.launch_limits(bq, bkv, d, torch.float32)
+                assert t_fa.compiled_bf16x3_limits(bq, bkv, d) == \
                     (lim.smem_bytes, lim.threads)

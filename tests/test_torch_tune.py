@@ -104,8 +104,8 @@ def test_space_refuses_what_the_kernel_refuses():
 def test_feasibility_is_the_launch_limit():
     """Every candidate is feasible exactly when the wrapper would launch
     it: blocks divide the lengths and launch_limits accept them on the
-    route the wrapper takes; in bf16 the tensor-core pairs are among
-    them."""
+    route the wrapper takes; the tensor-core pairs of each dtype (wgmma
+    in bf16, bf16x3 in f32) are among them."""
     for dtype in ("bfloat16", "float32"):
         sp = t_space.resolve_space("flash_attention", H100, seq_q=512,
                                    seq_kv=1024, head_dim=128, dtype=dtype)
@@ -122,26 +122,30 @@ def test_feasibility_is_the_launch_limit():
             routes.add(lim.route)
         assert n > 10
         assert routes == ({"simt", "wgmma"} if dtype == "bfloat16"
-                          else {"simt"})
-    assert {(b, k) for b in t_fa.WGMMA_BLOCK_Q
-            for k in t_fa.WGMMA_BLOCK_KV} <= \
-        {(c.config["block_q"], c.config["block_kv"])
-         for c in t_space.resolve_space(
-             "flash_attention", H100, seq_q=512, seq_kv=1024,
-             head_dim=128, dtype="bfloat16").candidates()}
+                          else {"simt", "bf16x3"})
+    for dtype in ("bfloat16", "float32"):
+        assert {(b, k) for b, k, d in t_fa.tc_set(dtype) if d == 128} <= \
+            {(c.config["block_q"], c.config["block_kv"])
+             for c in t_space.resolve_space(
+                 "flash_attention", H100, seq_q=512, seq_kv=1024,
+                 head_dim=128, dtype=dtype).candidates()}
 
 
 def test_model_follows_the_kernel():
     """The matmul term runs at the unit of the candidate's route (the
-    tensor cores in bf16 for wgmma, fp32 CUDA cores for simt), and the
-    peak is shared over the SMs the CTAs keep busy: with fewer CTAs than
-    SMs a pair of halved q blocks runs about twice as fast."""
-    assert t_fa.MATMUL_UNIT == {"wgmma": "BF16", "simt": "FP32"}
-    assert set(t_fa.STEP_OVERHEAD_CY) == {"wgmma", "simt"}
-    sp = t_space.resolve_space("flash_attention", H100, batch=1, heads=1,
-                               seq_q=1024, seq_kv=1024, causal=False,
-                               dtype="float32")
-    big, small = sp.predict([
+    tensor cores in bf16 for wgmma, three bf16 passes for bf16x3, fp32
+    CUDA cores for simt), and the peak is shared over the SMs the CTAs
+    keep busy: with fewer CTAs than SMs a pair of halved q blocks runs
+    about twice as fast on simt (at head_dim 160, off the tensor-core
+    sets).  bf16x3 also pays its split pass."""
+    assert t_fa.MATMUL_UNIT == {"wgmma": "BF16", "simt": "FP32",
+                                "bf16x3": "BF16"}
+    assert t_fa.MATMUL_PASSES == {"wgmma": 1, "simt": 1, "bf16x3": 3}
+    assert set(t_fa.STEP_OVERHEAD_CY) == {"wgmma", "simt", "bf16x3"}
+    wide = t_space.resolve_space("flash_attention", H100, batch=1, heads=1,
+                                 seq_q=1024, seq_kv=1024, head_dim=160,
+                                 causal=False, dtype="float32")
+    big, small = wide.predict([
         t_space.Candidate.make("flash_attention", block_q=64, block_kv=64),
         t_space.Candidate.make("flash_attention", block_q=32, block_kv=64)])
     assert big.bound == small.bound == "compute"
@@ -149,6 +153,14 @@ def test_model_follows_the_kernel():
     # 16 CTAs keep 16 of the 132 SMs busy: the products alone take the
     # flops over 16 SMs' share of the fp32 peak
     assert big.seconds >= \
+        4 * 1024 * 1024 * 160 / (H100.peak_flops["FP32"] * 16 / 132)
+    sp = t_space.resolve_space("flash_attention", H100, batch=1, heads=1,
+                               seq_q=1024, seq_kv=1024, causal=False,
+                               dtype="float32")
+    off = t_space.Candidate.make("flash_attention", block_q=64, block_kv=32)
+    assert sp.route(off) == "simt"
+    (simt,) = sp.predict([off])
+    assert simt.seconds >= \
         4 * 1024 * 1024 * 128 / (H100.peak_flops["FP32"] * 16 / 132)
     bf = t_space.resolve_space("flash_attention", H100, batch=1, heads=1,
                                seq_q=1024, seq_kv=1024, causal=False,
@@ -158,7 +170,13 @@ def test_model_follows_the_kernel():
     assert bf.route(cand) == "wgmma"
     (wg,) = bf.predict([cand])
     floor = 4 * 1024 * 1024 * 128 / (H100.peak_flops["BF16"] * 16 / 132)
-    assert floor <= wg.seconds < big.seconds / 5
+    assert floor <= wg.seconds < simt.seconds / 5
+    # the same pair in f32: three passes at the bf16 rate plus the split
+    assert sp.route(cand) == "bf16x3"
+    (x3,) = sp.predict([cand])
+    split = t_fa.split_bytes(1024 * 128, 1024 * 128) / H100.hbm_bandwidth
+    assert split == 8 * 3 * 1024 * 128 / 3.35e12
+    assert 3 * floor + split <= x3.seconds < simt.seconds / 2
 
 
 def test_model_counts_occupancy_and_padding():
@@ -187,16 +205,27 @@ def test_model_counts_occupancy_and_padding():
 
 
 def test_attention_bound_at_the_granite_shape():
-    """4·d flops per visible pair at the BF16 peak, 4 × 32 MiB moved."""
+    """4·d flops per visible pair at the BF16 peak, 4 × 32 MiB moved; in
+    f32 three bf16 passes by default (0.4170 ms at the granite shape),
+    and the fp32 cores' floor when asked for."""
     q = torch.empty(1, 32, 4096, 128, dtype=torch.bfloat16, device="meta")
     b = t_space.attention_bound(q, q, causal=True, machine=H100)
     assert b.bytes == 4 * 32 * 2 ** 20
     flops = 4 * 128 * 32 * 4096 * 4097 // 2
     assert b.ops_s == flops / 9.89e14 and b.by == "operations"
     assert abs(b.seconds * 1e3 - 0.139) < 5e-4
-    assert t_space.attention_bound(q.float(), q.float(), causal=False,
-                                   machine=H100).ops_s == \
+    f = q.float()
+    assert t_space.attention_bound(f, f, causal=False, machine=H100,
+                                   unit="FP32").ops_s == \
         4 * 128 * 32 * 4096 * 4096 / 6.7e13
+    x3 = t_space.attention_bound(f, f, causal=False, machine=H100)
+    assert x3.ops_s == 3 * 4 * 128 * 32 * 4096 * 4096 / 9.89e14
+    assert x3.bytes == 4 * 64 * 2 ** 20
+    causal = t_space.attention_bound(f, f, causal=True, machine=H100)
+    assert abs(causal.seconds * 1e3 - 0.4170) < 5e-5
+    assert causal.ops_s == 3 * b.ops_s
+    floor = t_space.attention_bound(f, f, machine=H100, unit="FP32")
+    assert abs(floor.seconds * 1e3 - 2.0518) < 5e-5
 
 
 @pytest.mark.parametrize("samples", [
