@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Phases, each fatal on failure (non-zero exit, no result line):
+Phases, each fatal on failure (non-zero exit, no result line), each
+followed by its seconds:
   1. device  — name, count, torch/CUDA versions, ``nvidia-smi`` name and
                power limit, SM count and L2 size against the machine file;
   2. build   — the five CUDA sources from ``src/repro_torch/csrc`` with
                nvcc for sm_90a, in parallel; build seconds, the ptxas
-               report (registers, spills) of every kernel instantiation,
-               the count of HGMMA (tensor-core) instructions in each flash
-               library's SASS (``cuobjdump -sass``, positive for both
-               tensor-core libraries), and the launch limits of every
-               wgmma and bf16x3 instantiation as the library states them
-               against ``launch_limits``;
+               report (registers, spills) of every kernel instantiation
+               (the head-dim-256 ones must not spill), the count of HGMMA
+               (tensor-core) instructions in each flash library's SASS
+               (``cuobjdump -sass``, positive for both tensor-core
+               libraries), and the launch limits of every wgmma and bf16x3
+               instantiation as the library states them against
+               ``launch_limits``, at the instantiated head dims and at 112
+               (padded to 128);
   3. check   — each kernel against its plain PyTorch version on the card,
                at the reference tolerances: the stencils at ragged shapes
                and at the main-path shape (boundaries bit-exact); the
@@ -21,12 +24,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
                attention on all three routes — bf16 on the tensor cores
                ("wgmma"), f32 on the tensor cores as three bf16 passes
                ("bf16x3"), and both types off those sets on the CUDA cores
-               ("simt": blocks (64, 32), head_dim 160) — at head_dim
-               32/64/96/128, causal and full, the decode shape
-               (1, 32, 128, 4096), padded q blocks (16, 32), and every
-               feasible candidate of the seq-256 tune spaces, in both
-               types; each case prints the route whose launch counter
-               moved, and the worst error is kept per (route, dtype);
+               ("simt": blocks (64, 32), head_dim 100) — at head_dim
+               32/64/96/128/256 and 40/112/136 (padded), causal and full,
+               the decode shape (1, 32, 128, 4096), padded q blocks
+               (16, 32), and every feasible candidate of the seq-256 tune
+               spaces, in both types; each case prints the route whose
+               launch counter moved, and the worst error is kept per
+               (route, dtype);
   4. main    — the stencil case study at full size: the 7-point stencil at
                (512, 512, 512) and the long-range stencil at the paper's §3
                size (130, 1015, 1015), fp32.  Per stencil: ECM and Roofline
@@ -49,12 +53,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
                timed with its split pass (the split also alone), beside
                the plain version, SDPA in f32, the three-pass bound and
                the FP32 floor; then the CUDA-core route at the same shape
-               at (64, 32), a pair off the bf16x3 set, held and timed.
-     Launch counters are zeroed just before each main path (4, 5, 6) and
-     must be positive just after it (in 6: bf16x3, its split, simt);
-  7. a JSON line naming each ported kernel (flash attention once per
-     route), then the card's line, then
-     ``{"ok": true, "device": {...}}`` as the last line.
+               at (64, 32), a pair off the bf16x3 set, held and timed;
+  7. models  — gemma-7b's attention (16 heads of 256) and zamba2-7b's (32
+               heads of 112, run at 128 with zero columns) at the same
+               length, in bf16 and f32: one launch at ``default_config``,
+               which must take the dtype's tensor-core route, held against
+               the plain version and timed beside the CUDA-core kernel at
+               the pair it took before (``force_simt=True``, held too),
+               the plain version, SDPA (the yardstick only) and the bound
+               at the real head dim (and at the padded one); then ``tune
+               flash_attention`` at gemma-7b's attention in bf16 (top 4 and
+               the default measured in spawned children), whose choice
+               must take the wgmma route.
+     Launch counters are zeroed just before each main path (4, 5, 6, and
+     each model and type of 7) and must be positive just after it (in 6:
+     bf16x3, its split, simt);
+  8. a JSON line naming each ported kernel (flash attention once per
+     route, and once per route, model and type of 7), then the card's
+     line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX or of the JAX package ``repro``; it needs the
 repository's ``src/repro_torch`` beside it and a CUDA card.
@@ -100,15 +116,34 @@ GRANITE_F32 = {**GRANITE, "dtype": "float32"}
 # the CUDA-core route's pair at the granite shape in f32: off the bf16x3
 # set (block_kv 32), the fastest simt pair measured at this shape
 SIMT_BLOCKS = (64, 32)
+# gemma-7b (src/repro/configs/gemma_7b.py: 16 heads of 256, kv 16) and
+# zamba2-7b (src/repro/configs/zamba2_7b.py: 32 heads of 112, kv 32) at
+# the same length; the tensor-core routes pad 112 to 128
+REAL_MODELS = {"gemma-7b": {**GRANITE, "heads": 16, "head_dim": 256},
+               "zamba2-7b": {**GRANITE, "heads": 32, "head_dim": 112}}
+# the pair each took on the CUDA cores before their head dims had a
+# tensor-core route: default_config's (64, 64) row, its block_kv halved
+# at 256 until the fp32-staged tiles fit a CTA
+SIMT_BEFORE = {"gemma-7b": (64, 32), "zamba2-7b": (64, 64)}
 TC_KERNEL = re.compile(r"_ZN\w*?(flash_attention_(?:wgmma|bf16x3)_kernel)"
                        r"ILi(\d+)ELi(\d+)ELi(\d+)E\w*")
+SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+USED = re.compile(r"Used (\d+) registers")
 
 
 class SmokeError(RuntimeError):
     pass
 
 
+_PHASE = {"name": "", "t0": 0.0, "start": time.perf_counter()}
+
+
 def phase(name: str) -> None:
+    """Print the last phase's seconds, then the next phase's heading."""
+    now = time.perf_counter()
+    if _PHASE["name"]:
+        print(f"  [{_PHASE['name']}: {now - _PHASE['t0']:.1f} s]")
+    _PHASE.update(name=name, t0=now)
     print(f"\n=== {name} ===", flush=True)
 
 
@@ -318,7 +353,7 @@ def check_flash(fa, ops, space) -> dict[tuple[str, str], float]:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         expect = TC_ROUTE[dtype]
-        for d in (32, 64, 96, 128):
+        for d in (32, 40, 64, 96, 112, 128, 136, 256):
             for causal in (True, False):
                 q, k, v = qkv((2, 4, 256, d), 512, dtype, seed=d)
                 what = f"{name} d={d} causal={causal}"
@@ -345,10 +380,11 @@ def check_flash(fa, ops, space) -> dict[tuple[str, str], float]:
             fa.plain(q, k, v), dtype, "simt")
         print(f"  flash (2, 4, 256, 128) kv 512 {name} blocks {SIMT_BLOCKS}: "
               f"{res}")
-        q, k, v = qkv((2, 4, 256, 160), 512, dtype, seed=5)
-        res = case(f"{name} d=160", lambda: ops.flash_attention(q, k, v),
+        # a head dim off tc_head_dim (not a multiple of 8)
+        q, k, v = qkv((2, 4, 256, 100), 512, dtype, seed=5)
+        res = case(f"{name} d=100", lambda: ops.flash_attention(q, k, v),
                    fa.plain(q, k, v), dtype, "simt")
-        print(f"  flash (2, 4, 256, 160) kv 512 {name} through ops: {res}")
+        print(f"  flash (2, 4, 256, 100) kv 512 {name} through ops: {res}")
     for dtype in ("float32", "bfloat16"):
         sp = space.resolve_space("flash_attention", "H100", batch=1,
                                  heads=4, seq_q=256, seq_kv=256,
@@ -524,6 +560,80 @@ def flash_report(run: dict, fa, space, measure, h100, card: str,
     return entry
 
 
+def model_path(model: str, dtype: str, fa, space, measure, h100,
+               card: str) -> dict:
+    """One model's attention in ``dtype`` at ``default_config``, which must
+    launch on the dtype's tensor-core route; held against the plain
+    version and timed beside the CUDA-core kernel at the pair it took
+    before, the plain version, SDPA and the bound.  Returns the
+    kernels-line entry (launches filled in by the caller)."""
+    config = {**REAL_MODELS[model], "dtype": dtype}
+    sp = space.resolve_space("flash_attention", "H100", **config)
+    q, k, v = sp.inputs("cuda")
+    d = config["head_dim"]
+    expect = TC_ROUTE[q.dtype]
+    bq, bkv = fa.default_config(config["seq_q"], config["seq_kv"], d,
+                                q.dtype)
+    if fa.route(bq, bkv, d, q.dtype) != expect:
+        raise SmokeError(f"{model} {dtype}: default_config ({bq}, {bkv}) "
+                         f"takes {fa.route(bq, bkv, d, q.dtype)}, not "
+                         f"{expect}")
+
+    def call():
+        return fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+    sb = SIMT_BEFORE[model]
+
+    def simt():
+        return fa.flash_attention(q, k, v, block_q=sb[0], block_kv=sb[1],
+                                  force_simt=True)
+    out, ran = routed(fa, call)
+    if ran != expect:
+        raise SmokeError(f"{model} {dtype} at ({bq}, {bkv}) launched on "
+                         f"{ran}, where route() says {expect}")
+    want = fa.plain(q, k, v)
+    err = fa_compare(f"{model} {dtype} {ran}", out, want, q.dtype)
+    got_simt, ran_simt = routed(fa, simt)
+    if ran_simt != "simt":
+        raise SmokeError(f"force_simt=True launched on {ran_simt}")
+    simt_err = fa_compare(f"{model} {dtype} simt", got_simt, want, q.dtype)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+    fa_compare(f"SDPA yardstick {model} {dtype}", sdpa(), out, q.dtype)
+    del want, got_simt
+    t_tc = measure.time_cuda(call, warmup=1, iters=3, reps=5).wall_s * 1e3
+    t_simt = measure.time_cuda(simt, warmup=0, iters=1,
+                               reps=3).wall_s * 1e3
+    t_plain = measure.time_cuda(lambda: fa.plain(q, k, v), warmup=1,
+                                iters=1, reps=3).wall_s * 1e3
+    t_sdpa = measure.time_cuda(sdpa, warmup=1, iters=3, reps=5).wall_s * 1e3
+    torch.cuda.synchronize()
+    bound = space.attention_bound(q, k, causal=True, machine=h100)
+    b_ms = bound.seconds * 1e3
+    D = fa.tc_head_dim(d)
+    print(f"  {model} {tuple(q.shape)} {dtype} causal on {card}:")
+    print(f"    {ran:6s}   {t_tc:.4f} ms at default_config ({bq}, {bkv}), "
+          f"{b_ms / t_tc:.1%} of the bound"
+          + (f" ({b_ms * D / d / t_tc:.1%} of the head-dim-{D} work it "
+             "does)" if D != d else ""))
+    print(f"    simt     {t_simt:.4f} ms at {sb}, the pair it ran at before "
+          f"({t_simt / t_tc:.1f}x the {ran} time)")
+    print(f"    bound    {b_ms:.4f} ms by {bound.by} at head dim {d}")
+    print(f"    plain    {t_plain:.4f} ms")
+    print(f"    library  {t_sdpa:.4f} ms (scaled_dot_product_attention, "
+          "yardstick only)")
+    print(f"    max abs err vs plain: {ran} {err:.3e}, simt {simt_err:.3e}")
+    return {"name": f"{FA_ENTRY[ran]}[{model}]", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{fa.SOURCES[ran]}.cu",
+            "replaces": REPLACES["flash_attention"], "launches": 0,
+            "max_abs_err": err, "ms": t_tc, "plain_ms": t_plain,
+            "bound_ms": b_ms, "bound_by": bound.by, "library_ms": t_sdpa,
+            "head_dim": d, "dtype": dtype, "blocks": [bq, bkv],
+            "padded_bound_ms": b_ms * D / d, "simt_ms": t_simt,
+            "simt_blocks": list(sb), "simt_max_abs_err": simt_err}
+
+
 def sass_hgmma(_build, name: str) -> int:
     """HGMMA (wgmma) instructions in the SASS of a built library."""
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -535,15 +645,43 @@ def sass_hgmma(_build, name: str) -> int:
     return sum("HGMMA" in ln for ln in proc.stdout.splitlines())
 
 
+def tc_ptxas(info: dict) -> dict[tuple, tuple[int, int]]:
+    """(registers, spill bytes stored) of every tensor-core kernel
+    instantiation, keyed (kernel, D, BKV, NWG), from the ptxas report:
+    a "Compiling entry function" line, then its spill line, then its
+    register line."""
+    out, key = {}, None
+    for d in info.values():
+        for ln in d["ptxas"]:
+            m = TC_KERNEL.search(ln)
+            if "Compiling" in ln:
+                key = (m[1], *map(int, m.groups()[1:])) if m else None
+            elif key and SPILL.search(ln):
+                out[key] = (0, int(SPILL.search(ln)[1]))
+            elif key and USED.search(ln):
+                out[key] = (int(USED.search(ln)[1]), out[key][1])
+    return out
+
+
 def check_build(_build, fa, info: dict) -> dict[str, int]:
-    """The ptxas report, the HGMMA counts, and the wgmma library's launch
-    limits against ``launch_limits``; returns the HGMMA count per flash
-    library."""
+    """The ptxas report (no spill at head dim 256), the HGMMA counts, and
+    the tensor-core libraries' launch limits against ``launch_limits``;
+    returns the HGMMA count per flash library."""
     for name, d in info.items():
         print(f"  {name}: {d['seconds']:.1f} s")
         for ln in d["ptxas"]:
             print("    " + TC_KERNEL.sub(
                 lambda m: f"{m[1]}<D={m[2]}, BKV={m[3]}, NWG={m[4]}>", ln))
+    regs = tc_ptxas(info)
+    new = {k: v for k, v in regs.items() if k[1] == 256}
+    if not new:
+        raise SmokeError("the ptxas report names no head-dim-256 kernel")
+    for (kern, D, bkv, nwg), (n, spill) in sorted(new.items()):
+        print(f"  {kern}<D={D}, BKV={bkv}, NWG={nwg}>: {n} registers, "
+              f"{spill} bytes spilled")
+        if spill:
+            raise SmokeError(f"{kern}<D={D}, BKV={bkv}, NWG={nwg}> spills "
+                             f"{spill} bytes")
     hgmma = {src: sass_hgmma(_build, src) for src in fa.SOURCES.values()}
     print(f"  HGMMA instructions in the SASS: {hgmma}")
     for route in TC_ROUTE.values():
@@ -554,10 +692,10 @@ def check_build(_build, fa, info: dict) -> dict[str, int]:
             ("wgmma", torch.bfloat16, fa.compiled_wgmma_limits),
             ("bf16x3", torch.float32, fa.compiled_bf16x3_limits)):
         n = refused = 0
-        for d in fa.WGMMA_HEAD_DIMS:
+        for d in fa.WGMMA_HEAD_DIMS + (112,):
             for bkv in fa.WGMMA_BLOCK_KV:
                 for bq in fa.WGMMA_BLOCK_Q:
-                    if (bq, bkv, d) not in fa.tc_set(dtype):
+                    if fa.route(bq, bkv, d, dtype) != route:
                         try:        # the library must refuse it too
                             compiled(bq, bkv, d)
                         except RuntimeError:
@@ -577,8 +715,9 @@ def check_build(_build, fa, info: dict) -> dict[str, int]:
                             f"{lim.route}")
                     n += 1
         print(f"  {route} launch limits: the library and launch_limits "
-              f"agree on all {n} instantiated (block_q, block_kv, "
-              f"head_dim); {refused} off the set refused by both")
+              f"agree on all {n} (block_q, block_kv, head_dim) of the set, "
+              f"at the instantiated head dims and at 112; {refused} off "
+              "the set refused by both")
     return hgmma
 
 
@@ -716,7 +855,46 @@ def smoke(out_path: str | None) -> int:
         torch.cuda.empty_cache()
     predicted["hgmma_in_sass"] = hgmma
 
-    phase("7 result")
+    phase("7 gemma-7b's and zamba2-7b's attention on the tensor cores")
+    for model in REAL_MODELS:
+        for dtype in ("bfloat16", "float32"):
+            for r in counts:
+                counts[r] = 0
+            fa.split_bf16x3.launches = 0
+            e = model_path(model, dtype, fa, space, measure, h100, card)
+            by_route = dict(counts)
+            print(f"    launches: {by_route}, split "
+                  f"{fa.split_bf16x3.launches}")
+            route = TC_ROUTE[fa.torch_dtype(dtype)]
+            split = fa.split_bf16x3.launches
+            if by_route[route] <= 0 or by_route["simt"] <= 0 or \
+                    (route == "bf16x3") != (split > 0):
+                raise SmokeError(f"{model} {dtype} never launched {route} "
+                                 "or simt, or its split pass is amiss")
+            e["launches"] = by_route[route]
+            e["simt_launches"] = by_route["simt"]
+            if split:
+                e["split_launches"] = split
+            entries.append(e)
+            torch.cuda.empty_cache()
+    for r in counts:
+        counts[r] = 0
+    gemma = {**REAL_MODELS["gemma-7b"], "dtype": "bfloat16"}
+    g_run = tune_path(fa, space, tune_mod, measure, machine_mod, gemma,
+                      "wgmma", calibrate=False)
+    print(f"  chosen {g_run['blocks']} in this process: "
+          f"{g_run['t_kernel'].wall_s * 1e3:.4f} ms; launches {dict(counts)}")
+    if counts["wgmma"] <= 0:
+        raise SmokeError("the gemma-7b tune never launched wgmma")
+    rep = g_run["report"]
+    predicted["flash_attention_gemma_7b"] = {
+        "tuner_predicted_ms": rep.predicted_chosen_s * 1e3,
+        "candidates": [c.to_dict() for c in rep.measured_outcomes],
+        "chosen": rep.chosen_params, "default": rep.default_params}
+    g_run.clear()
+    torch.cuda.empty_cache()
+
+    phase("8 result")
     result = {"kernels": entries}
     if out_path:
         pathlib.Path(out_path).parent.mkdir(parents=True, exist_ok=True)
@@ -724,6 +902,7 @@ def smoke(out_path: str | None) -> int:
             {**result, "predicted": predicted, "card": card, "device": kind,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "build": info}, indent=2))
+    print(f"  [total: {time.perf_counter() - _PHASE['start']:.1f} s]")
     print(json.dumps(result))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

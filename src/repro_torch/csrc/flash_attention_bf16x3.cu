@@ -48,14 +48,18 @@
 //
 // Launch limits (mirrored by repro_torch.kernels.flash_attention
 // .launch_limits, which every caller reads, and reported by
-// repro_flash_attention_bf16x3_limits below): d in {32, 64, 96, 128},
-// block_kv in {64, 128}, block_q in {4, 8, 16, 32, 64, 128}, where the
-// CTA's dynamic shared memory
-//   1024 (alignment) + 4 * d * (64 * warpgroups + 2 * STAGES * block_kv)
+// repro_flash_attention_bf16x3_limits below): D in {32, 64, 96, 128}
+// with block_kv in {64, 128}, and D = 256 with block_kv 32, block_q in
+// {4, 8, 16, 32, 64, 128}, where the CTA's dynamic shared memory
+//   1024 (alignment) + 4 * D * (64 * warpgroups + 2 * STAGES * block_kv)
 //   + 64 (barriers) bytes
-// fits the 232,448 bytes a CTA can use: at d = 128 only block_kv 64, at
-// d = 96 block_kv 128 only with one warpgroup.  Only triples that fit are
-// instantiated.  128 threads per consumer warpgroup plus a producer warp.
+// fits the 232,448 bytes a CTA can use: at D = 128 only block_kv 64, at
+// D = 96 block_kv 128 only with one warpgroup, at D = 256 only block_q up
+// to 64 (197,696 bytes; S of block_kv 32 is one m64n32k16 wgmma per
+// pass).  Only triples that fit are instantiated.  A head dim d between
+// the instantiated ones runs D = tc_head_dim(d) with zero columns, as in
+// flash_attention_wgmma.cu; the split pass is elementwise and writes hi
+// and lo at d.  128 threads per consumer warpgroup plus a producer warp.
 //
 // C interface (bound with ctypes): repro_flash_attention_bf16x3_split(...)
 // and repro_flash_attention_bf16x3(...) launch on the given stream, do not
@@ -73,8 +77,14 @@ __host__ __device__ constexpr size_t smem_bytes(int d, int bkv, int nwg) {
   return ALIGN + 4 * (size_t)d * (TILE_M * nwg + 2 * STAGES * bkv) + BAR_BYTES;
 }
 
-constexpr bool fits(int d, int bkv, int nwg) {
-  return smem_bytes(d, bkv, nwg) <= SMEM_MAX;
+// The instantiated (D, block_kv, warpgroups): those of the bf16 kernel
+// whose CTA fits the bytes a CTA can use, and at D = 256 block_kv 32 (64
+// does not fit), which fits with one warpgroup only.
+constexpr bool built(int D, int bkv, int nwg) {
+  return (D == 256 ? bkv == 32
+                   : (D == 32 || D == 64 || D == 96 || D == 128)
+                         && (bkv == 64 || bkv == 128))
+         && smem_bytes(D, bkv, nwg) <= SMEM_MAX;
 }
 
 // hi = bf16(a), lo = bf16(a - hi) for a pair (a, b), each packed as bf16x2
@@ -130,7 +140,7 @@ flash_attention_bf16x3_kernel(const __grid_constant__ CUtensorMap qh_map,
                               const __grid_constant__ CUtensorMap vh_map,
                               const __grid_constant__ CUtensorMap vl_map,
                               float* __restrict__ out, int sq, int skv,
-                              int bq, int causal, int q_offset,
+                              int d, int bq, int causal, int q_offset,
                               float scale_log2) {
   using P = Panel<D>;
   constexpr int THREADS = NWG * WG + 32;
@@ -303,12 +313,12 @@ flash_attention_bf16x3_kernel(const __grid_constant__ CUtensorMap qh_map,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     l[h] = fmaxf(l[h], 1e-30f);
   }
-  float* const og = out + ((int64_t)g * sq + first_q + wg * TILE_M) * D;
+  float* const og = out + ((int64_t)g * sq + first_q + wg * TILE_M) * d;
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
-    const int r = acc_row(t, i);
-    if (wg * TILE_M + r < bq)
-      *reinterpret_cast<float2*>(og + (int64_t)r * D + acc_col(t, i)) =
+    const int r = acc_row(t, i), c = acc_col(t, i);
+    if (wg * TILE_M + r < bq && c < d)    // c even, d a multiple of 8
+      *reinterpret_cast<float2*>(og + (int64_t)r * d + c) =
           make_float2(o[i] / l[(i >> 1) & 1], o[i + 1] / l[(i >> 1) & 1]);
   }
 }
@@ -318,9 +328,9 @@ flash_attention_bf16x3_kernel(const __grid_constant__ CUtensorMap qh_map,
 // ptr: qh, ql, kh, kl, vh, vl
 template <int D, int BKV, int NWG>
 int launch(const void* const* ptr, void* out, long long bh, int sq, int skv,
-           int bq, int causal, int q_offset, float scale,
+           int d, int bq, int causal, int q_offset, float scale,
            cudaStream_t stream) {
-  if constexpr (!fits(D, BKV, NWG)) {
+  if constexpr (!built(D, BKV, NWG)) {
     return (int)cudaErrorInvalidValue;
   } else {
     auto kernel = flash_attention_bf16x3_kernel<D, BKV, NWG>;
@@ -332,21 +342,19 @@ int launch(const void* const* ptr, void* out, long long bh, int sq, int skv,
     const int qbox = bq < TILE_M ? bq : TILE_M;
     for (int i = 0; i < 6; ++i)
       if (!tensor_map<D>(&m[i], ptr[i], bh * (i < 2 ? sq : skv),
-                         i < 2 ? qbox : BKV))
+                         i < 2 ? qbox : BKV, d))
         return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)bh, (unsigned)(sq / bq));
     kernel<<<grid, NWG * WG + 32, smem, stream>>>(
         m[0], m[1], m[2], m[3], m[4], m[5], static_cast<float*>(out), sq,
-        skv, bq, causal, q_offset, scale * LOG2E);
+        skv, d, bq, causal, q_offset, scale * LOG2E);
     return (int)cudaGetLastError();
   }
 }
 
-bool instantiated(int d, int bkv, int bq) {
-  const int nwg = bq > TILE_M ? 2 : 1;
-  return (d == 32 || d == 64 || d == 96 || d == 128)
-         && (bkv == 64 || bkv == 128) && block_q_ok(bq)
-         && smem_bytes(d, bkv, nwg) <= SMEM_MAX;
+// D: an instantiated head dim (tc_head_dim)
+bool instantiated(int D, int bkv, int bq) {
+  return block_q_ok(bq) && built(D, bkv, bq > TILE_M ? 2 : 1);
 }
 
 }  // namespace
@@ -356,9 +364,10 @@ bool instantiated(int d, int bkv, int bq) {
 extern "C" int repro_flash_attention_bf16x3_limits(int d, int bkv, int bq,
                                                    long long* smem,
                                                    int* threads) {
-  if (!instantiated(d, bkv, bq)) return (int)cudaErrorInvalidValue;
+  const int D = tc_head_dim(d);
+  if (!instantiated(D, bkv, bq)) return (int)cudaErrorInvalidValue;
   const int nwg = bq > TILE_M ? 2 : 1;
-  *smem = (long long)smem_bytes(d, bkv, nwg);
+  *smem = (long long)smem_bytes(D, bkv, nwg);
   *threads = nwg * WG + 32;
   return (int)cudaSuccess;
 }
@@ -408,16 +417,17 @@ extern "C" int repro_flash_attention_bf16x3(
   const void* ptr[6] = {qh, ql, kh, kl, vh, vl};
   uintptr_t align = (uintptr_t)out;
   for (int i = 0; i < 6; ++i) align |= (uintptr_t)ptr[i];
-  if (!instantiated(d, bkv, bq) || sq % bq || skv % bkv
+  const int D = tc_head_dim(d);
+  if (!instantiated(D, bkv, bq) || sq % bq || skv % bkv
       || (causal && q_offset < 0) || rows >= (1ll << 31) || align % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool two = bq > TILE_M;
 #define REPRO_CASE(D_, BKV_)                                                 \
-  if (d == D_ && bkv == BKV_)                                                \
-    return two ? launch<D_, BKV_, 2>(ptr, out, bh, sq, skv, bq, causal,      \
+  if (D == D_ && bkv == BKV_)                                                \
+    return two ? launch<D_, BKV_, 2>(ptr, out, bh, sq, skv, d, bq, causal,   \
                                      q_offset, scale, st)                    \
-               : launch<D_, BKV_, 1>(ptr, out, bh, sq, skv, bq, causal,      \
+               : launch<D_, BKV_, 1>(ptr, out, bh, sq, skv, d, bq, causal,   \
                                      q_offset, scale, st);
   REPRO_CASE(32, 64)
   REPRO_CASE(32, 128)
@@ -427,6 +437,7 @@ extern "C" int repro_flash_attention_bf16x3(
   REPRO_CASE(96, 128)
   REPRO_CASE(128, 64)
   REPRO_CASE(128, 128)
+  REPRO_CASE(256, 32)
 #undef REPRO_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,9 @@
 // three bf16 passes), sm_90a: the constants of the tile layout, the
 // panel layout and its wgmma shared-memory descriptors, the PTX wrappers
 // (mbarriers, TMA, wgmma), the m64nN accumulator's (row, col) map, and
-// the host-side TMA descriptor encoding.  Each source includes it into
-// its own anonymous namespace; the two libraries are built apart.
+// the host side: the TMA descriptor encoding and the padded head dim.
+// Each source includes it into its own anonymous namespace; the two
+// libraries are built apart.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -166,6 +167,21 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        int scale_d);
 
 template <>
+__device__ __forceinline__ void mma_ss<32>(float (&d)[16], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void mma_ss<64>(float (&d)[32], uint64_t da,
                                            uint64_t db, int scale_d) {
   asm volatile(
@@ -302,6 +318,54 @@ __device__ __forceinline__ void mma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+template <>
+__device__ __forceinline__ void mma_rs<256>(float (&d)[128],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "
+      "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "
+      "%119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, "
+      "%129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // ----------------------------------------------------------------- host
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -330,15 +394,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 2-D (rows x d) bf16 view, copied in boxes of box_rows x W elements.
+// A 2-D (rows x d) bf16 view, copied in boxes of box_rows x W elements
+// into the panels of a D-wide tile: at a padded head dim (d < D) the box
+// columns at and past d lie outside the view, and TMA fills them with
+// zeros, still counting them in the transaction bytes.
 template <int D>
 bool tensor_map(CUtensorMap* map, const void* ptr, long long rows,
-                int box_rows) {
+                int box_rows, int d) {
   using P = Panel<D>;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
   const cuuint32_t box[2] = {(cuuint32_t)P::W, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
@@ -349,6 +416,22 @@ bool tensor_map(CUtensorMap* map, const void* ptr, long long rows,
 
 bool block_q_ok(int bq) {
   return bq == 4 || bq == 8 || bq == 16 || bq == 32 || bq == 64 || bq == 128;
+}
+
+// The instantiated head dim a head dim d runs at: the smallest of
+// {32, 64, 96, 128, 256} at least d, for d a positive multiple of 8 (rows
+// of d bf16 on 16 bytes, as TMA needs); 0 for any other d.  Columns d..D-1
+// are zeros in the tiles and are never stored.
+int tc_head_dim(int d) {
+  if (d <= 0 || d % 8 || d > 256) return 0;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : d <= 128 ? 128 : 256;
+}
+
+// CTAs per SM a kernel's __launch_bounds__ asks registers for: two where
+// two CTAs' shared memory fits an SM (228 KiB, 1 KiB reserved per CTA),
+// else one, which leaves the CTA all 255 registers a thread can have.
+constexpr int min_ctas(size_t smem) {
+  return 2 * (smem + 1024) <= 233472 ? 2 : 1;
 }
 
 }  // namespace

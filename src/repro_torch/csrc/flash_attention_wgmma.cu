@@ -45,9 +45,25 @@
 //   producer warp (no register reallocation: that, persistent CTAs,
 //   ping-pong between warpgroups and fp8 are later work), so the next kv
 //   tile's copy runs under the current tile's wgmmas.  Tiles are stored in
-//   panels of 128-byte rows (64 elements, 128-byte swizzle) for d = 64 and
-//   128, or 64-byte rows (32 elements, 64-byte swizzle) for d = 32 and 96;
-//   the panel is the swizzle span, which sets the descriptors' strides.
+//   panels of 128-byte rows (64 elements, 128-byte swizzle) for d = 64,
+//   128 and 256, or 64-byte rows (32 elements, 64-byte swizzle) for d = 32
+//   and 96; the panel is the swizzle span, which sets the descriptors'
+//   strides.
+// - Head dims between the instantiated ones.  A head dim d, a multiple of
+//   8 up to 256, runs the instantiation D = tc_head_dim(d) (112 runs at
+//   128).  The TMA views are d wide with rows of 2d bytes, the boxes
+//   still W wide: TMA fills the columns d..D-1 of every tile with zeros,
+//   counted in the transaction bytes like the rest of the box, so the
+//   mbarrier byte counts do not change.  Zero columns add nothing to
+//   q . k^T and give output columns that are never stored; the scale is
+//   1/sqrt(d) of the real d, and the output rows are d wide.  The cost is
+//   the arithmetic of D (128/112 at zamba2-7b's head dim).
+// - d = 256 (gemma-7b): P . V is one m64n256k16 wgmma per k16 chunk into
+//   an O accumulator of 128 registers a thread.  Only one warpgroup per
+//   CTA is built there: with two (nine warps) ptxas holds a thread to 168
+//   registers, and O spills (224 bytes at block_kv 64).  One warpgroup at
+//   block_kv 64 takes 204 registers and 164,928 bytes of shared memory,
+//   one CTA per SM.
 // - Occupancy.  No fp32 staging: shared memory is the bf16 q tile plus
 //   the ring, so a (64, 64) CTA at d = 128 takes 81 KB and two fit an SM.
 // - q blocks below 64 rows (short and decode-like q) run in a 64-row tile
@@ -57,13 +73,16 @@
 // Launch limits (mirrored by repro_torch.kernels.flash_attention
 // .launch_limits, which every caller reads, and reported by
 // repro_flash_attention_wgmma_limits below): instantiated for
-// d in {32, 64, 96, 128}, block_kv in {64, 128}, block_q in
-// {4, 8, 16, 32, 64, 128}; 128 threads per consumer warpgroup plus a
+// D in {32, 64, 96, 128} with block_kv in {64, 128} and block_q in
+// {4, 8, 16, 32, 64, 128}, and for D = 256 with block_kv 64 and block_q
+// at most 64 (built() below); 128 threads per consumer warpgroup plus a
 // producer warp; dynamic shared memory
-//   1024 (alignment) + 2 * d * (64 * warpgroups + 2 * STAGES * block_kv)
+//   1024 (alignment) + 2 * D * (64 * warpgroups + 2 * STAGES * block_kv)
 //   + 64 (barriers) bytes,
-// opted in above 48 KB per instantiation.  Operands start on 16 bytes and
-// rows of d bf16 are a multiple of 16 bytes, as TMA needs.
+// opted in above 48 KB per instantiation.  __launch_bounds__ asks for
+// registers for two resident CTAs only where two fit an SM's shared
+// memory.  Operands start on 16 bytes and rows of d bf16 are a multiple
+// of 16 bytes (d % 8 == 0), as TMA needs.
 //
 // C interface (bound with ctypes): repro_flash_attention_wgmma(...)
 // encodes the three TMA descriptors on the host (cuTensorMapEncodeTiled,
@@ -81,19 +100,32 @@ __host__ __device__ constexpr size_t smem_bytes(int d, int bkv, int nwg) {
   return ALIGN + 2 * (size_t)d * (TILE_M * nwg + 2 * STAGES * bkv) + BAR_BYTES;
 }
 
+// The instantiated (D, block_kv, warpgroups): block_kv 64 and 128 at D up
+// to 128; at D = 256 block_kv 64 with one warpgroup only.  There block_kv
+// 128's CTA exceeds the 232,448 bytes a CTA can use, and two warpgroups
+// (nine warps) hold a thread to 168 registers, where the 128 of the O
+// accumulator spill (ptxas: 224 bytes).
+constexpr bool built(int D, int bkv, int nwg) {
+  return D == 256 ? bkv == 64 && nwg == 1
+                  : (D == 32 || D == 64 || D == 96 || D == 128)
+                        && (bkv == 64 || bkv == 128);
+}
+
 // --------------------------------------------------------------- kernel
 
 // One CTA per (batch*head, q block): NWG consumer warpgroups of 64 q rows
 // each, then one producer warp.  block_q is 128 with NWG = 2, and 64 or
 // fewer rows (padded to 64) with NWG = 1.
 template <int D, int BKV, int NWG>
-__global__ void __launch_bounds__(NWG * WG + 32, NWG == 1 ? 2 : 1)
+__global__ void __launch_bounds__(NWG * WG + 32,
+                                  NWG == 1 ? min_ctas(smem_bytes(D, BKV, 1))
+                                           : 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
                              __nv_bfloat16* __restrict__ out, int sq,
-                             int skv, int bq, int causal, int q_offset,
-                             float scale_log2) {
+                             int skv, int d, int bq, int causal,
+                             int q_offset, float scale_log2) {
   using P = Panel<D>;
   constexpr int THREADS = NWG * WG + 32;
   constexpr int Q_TILE = TILE_M * D * 2;      // bytes of one 64-row q tile
@@ -248,12 +280,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     l[h] = fmaxf(l[h], 1e-30f);
   }
   __nv_bfloat16* const og =
-      out + ((int64_t)g * sq + first_q + wg * TILE_M) * D;
+      out + ((int64_t)g * sq + first_q + wg * TILE_M) * d;
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
-    const int r = acc_row(t, i);
-    if (wg * TILE_M + r < bq)
-      *reinterpret_cast<__nv_bfloat162*>(og + (int64_t)r * D + acc_col(t, i)) =
+    const int r = acc_row(t, i), c = acc_col(t, i);
+    if (wg * TILE_M + r < bq && c < d)    // c even, d a multiple of 8
+      *reinterpret_cast<__nv_bfloat162*>(og + (int64_t)r * d + c) =
           __floats2bfloat162_rn(o[i] / l[(i >> 1) & 1],
                                 o[i + 1] / l[(i >> 1) & 1]);
   }
@@ -263,28 +295,32 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int D, int BKV, int NWG>
 int launch(const void* q, const void* k, const void* v, void* out,
-           long long bh, int sq, int skv, int bq, int causal, int q_offset,
-           float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_wgmma_kernel<D, BKV, NWG>;
-  const size_t smem = smem_bytes(D, BKV, NWG);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  CUtensorMap qm, km, vm;
-  if (!tensor_map<D>(&qm, q, bh * sq, bq < TILE_M ? bq : TILE_M)
-      || !tensor_map<D>(&km, k, bh * skv, BKV)
-      || !tensor_map<D>(&vm, v, bh * skv, BKV))
+           long long bh, int sq, int skv, int d, int bq, int causal,
+           int q_offset, float scale, cudaStream_t stream) {
+  if constexpr (!built(D, BKV, NWG)) {
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)bh, (unsigned)(sq / bq));
-  kernel<<<grid, NWG * WG + 32, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(out), sq, skv, bq, causal,
-      q_offset, scale * LOG2E);
-  return (int)cudaGetLastError();
+  } else {
+    auto kernel = flash_attention_wgmma_kernel<D, BKV, NWG>;
+    const size_t smem = smem_bytes(D, BKV, NWG);
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    CUtensorMap qm, km, vm;
+    if (!tensor_map<D>(&qm, q, bh * sq, bq < TILE_M ? bq : TILE_M, d)
+        || !tensor_map<D>(&km, k, bh * skv, BKV, d)
+        || !tensor_map<D>(&vm, v, bh * skv, BKV, d))
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)bh, (unsigned)(sq / bq));
+    kernel<<<grid, NWG * WG + 32, smem, stream>>>(
+        qm, km, vm, static_cast<__nv_bfloat16*>(out), sq, skv, d, bq,
+        causal, q_offset, scale * LOG2E);
+    return (int)cudaGetLastError();
+  }
 }
 
-bool instantiated(int d, int bkv) {
-  return (d == 32 || d == 64 || d == 96 || d == 128)
-         && (bkv == 64 || bkv == 128);
+// D: an instantiated head dim (tc_head_dim)
+bool instantiated(int D, int bkv, int bq) {
+  return block_q_ok(bq) && built(D, bkv, bq > TILE_M ? 2 : 1);
 }
 
 }  // namespace
@@ -294,10 +330,10 @@ bool instantiated(int d, int bkv) {
 extern "C" int repro_flash_attention_wgmma_limits(int d, int bkv, int bq,
                                                   long long* smem,
                                                   int* threads) {
-  if (!instantiated(d, bkv) || !block_q_ok(bq))
-    return (int)cudaErrorInvalidValue;
+  const int D = tc_head_dim(d);
+  if (!instantiated(D, bkv, bq)) return (int)cudaErrorInvalidValue;
   const int nwg = bq > TILE_M ? 2 : 1;
-  *smem = (long long)smem_bytes(d, bkv, nwg);
+  *smem = (long long)smem_bytes(D, bkv, nwg);
   *threads = nwg * WG + 32;
   return (int)cudaSuccess;
 }
@@ -313,18 +349,19 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            void* stream) {
   if (bh <= 0 || sq <= 0) return (int)cudaSuccess;
   const long long rows = bh * (sq > skv ? sq : skv);
-  if (!instantiated(d, bkv) || !block_q_ok(bq) || sq % bq || skv % bkv
+  const int D = tc_head_dim(d);
+  if (!instantiated(D, bkv, bq) || sq % bq || skv % bkv
       || (causal && q_offset < 0) || rows >= (1ll << 31)
       || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool two = bq > TILE_M;
 #define REPRO_CASE(D_, BKV_)                                               \
-  if (d == D_ && bkv == BKV_)                                              \
-    return two ? launch<D_, BKV_, 2>(q, k, v, out, bh, sq, skv, bq, causal, \
-                                     q_offset, scale, st)                  \
-               : launch<D_, BKV_, 1>(q, k, v, out, bh, sq, skv, bq, causal, \
-                                     q_offset, scale, st);
+  if (D == D_ && bkv == BKV_)                                              \
+    return two ? launch<D_, BKV_, 2>(q, k, v, out, bh, sq, skv, d, bq,      \
+                                     causal, q_offset, scale, st)          \
+               : launch<D_, BKV_, 1>(q, k, v, out, bh, sq, skv, d, bq,      \
+                                     causal, q_offset, scale, st);
   REPRO_CASE(32, 64)
   REPRO_CASE(32, 128)
   REPRO_CASE(64, 64)
@@ -333,6 +370,7 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
   REPRO_CASE(96, 128)
   REPRO_CASE(128, 64)
   REPRO_CASE(128, 128)
+  REPRO_CASE(256, 64)
 #undef REPRO_CASE
   return (int)cudaErrorInvalidValue;
 }

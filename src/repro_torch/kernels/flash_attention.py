@@ -13,18 +13,25 @@ launches:
 
 - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bfloat16 on the tensor
   cores, at the head dims, kv blocks and q blocks the kernel was
-  instantiated for (:data:`WGMMA_SET`).  It rounds p to bf16 for the p·v
+  instantiated for (:data:`WGMMA_SET`).  A head dim between the
+  instantiated ones (a multiple of 8 up to 256, e.g. 112) runs the next
+  larger instantiation, :func:`tc_head_dim`, with zero columns that add
+  nothing to q·kᵀ and are never stored.  It rounds p to bf16 for the p·v
   product, the one departure from the reference, within its 2e-2 bf16
   tolerance.
 - ``"bf16x3"`` (``csrc/flash_attention_bf16x3.cu``): float32 on the
   tensor cores as three bf16 passes, at the triples of
-  :data:`BF16X3_SET`.  A split pass (:func:`split_bf16x3`, plain version
-  :func:`plain_split`) writes ``hi = bf16(x)`` and ``lo = bf16(x - hi)``
-  of q, k and v; each product is ``hi·hi + hi·lo + lo·hi`` in fp32
-  (about 16 mantissa bits, within the 2e-3 f32 tolerance), p is split
-  the same way in registers, and the output is fp32.
-- ``"simt"`` (``csrc/flash_attention.cu``): everything else — float32
-  and bfloat16 outside those sets — on the CUDA cores in fp32.
+  :data:`BF16X3_SET` (head dims padded the same way).  A split pass
+  (:func:`split_bf16x3`, plain version :func:`plain_split`) writes
+  ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` of q, k and v; each product
+  is ``hi·hi + hi·lo + lo·hi`` in fp32 (about 16 mantissa bits, within
+  the 2e-3 f32 tolerance), p is split the same way in registers, and the
+  output is fp32.
+- ``"simt"`` (``csrc/flash_attention.cu``): everything else — head dims
+  off :func:`tc_head_dim` (not a multiple of 8, or above 256) and block
+  pairs off those sets — on the CUDA cores in fp32.  A caller may also
+  force it (``force_simt=True``) at a pair that a tensor-core route
+  takes, to time the CUDA cores there.
 
 A failed build or launch on a route raises; it never falls back to the
 other route or to :func:`plain`.  ``flash_attention.launches`` counts
@@ -41,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
 import math
 
 import torch
@@ -64,12 +72,16 @@ THREADS_PER_SM = 2048
 CTAS_PER_SM = 32
 #: the q-block grid axis is the launch's y dimension
 MAX_Q_BLOCKS = 65535
-#: the bf16 tensor-core kernel's instantiated set: head_dim and block_kv
-#: are its template parameters; block_q is 128 (two 64-row warpgroup
-#: tiles) or divides the 64-row tile, whose rows past block_q are padding
-WGMMA_HEAD_DIMS = (32, 64, 96, 128)
-WGMMA_BLOCK_KV = (64, 128)
+#: the grid the tensor-core kernels are instantiated on (:func:`_built`
+#: says which triples each was built for): head_dim and block_kv are
+#: template parameters; block_q is 128 (two 64-row warpgroup tiles) or
+#: divides the 64-row tile, whose rows past block_q are padding
+WGMMA_HEAD_DIMS = (32, 64, 96, 128, 256)
+WGMMA_BLOCK_KV = (32, 64, 128)
 WGMMA_BLOCK_Q = (4, 8, 16, 32, 64, 128)
+#: a tensor-core head dim is a multiple of this: TMA copies rows of a
+#: multiple of 16 bytes
+TC_HEAD_DIM_GRANULE = 8
 WGMMA_TILE_M = 64
 #: the K/V ring depth of both tensor-core kernels, and bytes for
 #: alignment and mbarriers
@@ -108,14 +120,14 @@ DEFAULT_CONFIGS: tuple[tuple[int, tuple[int, int]], ...] = (
     (256, (32, 64)),
     (0, (16, 32)),
 )
-#: the same for bfloat16 at a head_dim of :data:`WGMMA_HEAD_DIMS`: wgmma
+#: the same for bfloat16 at a head_dim of :func:`tc_head_dim`: wgmma
 #: pairs, smaller kv blocks and then one warpgroup for shorter sequences
 DEFAULT_CONFIGS_BF16: tuple[tuple[int, tuple[int, int]], ...] = (
     (1024, (128, 128)),
     (256, (128, 64)),
     (0, (64, 64)),
 )
-#: and for float32 at a head_dim of :data:`WGMMA_HEAD_DIMS`: bf16x3
+#: and for float32 at a head_dim of :func:`tc_head_dim`: bf16x3
 #: pairs; (128, 64) is the one two-warpgroup pair that fits at d = 128
 DEFAULT_CONFIGS_BF16X3: tuple[tuple[int, tuple[int, int]], ...] = (
     (256, (128, 64)),
@@ -176,24 +188,55 @@ def bf16x3_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
     return _tc_smem_bytes(4, block_q, block_kv, head_dim)
 
 
+def _built(route_name: str, block_q: int, block_kv: int,
+           head_dim: int) -> bool:
+    """Whether a tensor-core kernel was built for a triple of the grid
+    (its CTA must also fit :data:`SMEM_PER_CTA`): block_kv 64 and 128 at
+    head dims up to 128.  At 256 one warpgroup only (two hold a thread to
+    168 registers, where the output accumulator's 128 spill), with
+    block_kv 64 in bf16 (128 does not fit) and 32 in f32 (64 does not
+    fit)."""
+    if head_dim == 256:
+        return block_q <= WGMMA_TILE_M and \
+            block_kv == (64 if route_name == "wgmma" else 32)
+    return block_kv in (64, 128)
+
+
 #: ``(block_q, block_kv, head_dim)`` triples each tensor-core kernel was
-#: instantiated for.  The f32 kernel ("bf16x3") is written for the same
-#: head dims and blocks as the bf16 one, but its hi and lo tiles double
-#: the shared memory, so it keeps the triples whose CTA fits
-#: :data:`SMEM_PER_CTA`: at head_dim 128 only block_kv 64, at 96 block_kv
-#: 128 only with one warpgroup
-WGMMA_SET = frozenset((bq, bkv, d) for d in WGMMA_HEAD_DIMS
-                      for bkv in WGMMA_BLOCK_KV for bq in WGMMA_BLOCK_Q)
-BF16X3_SET = frozenset(t for t in WGMMA_SET
-                       if bf16x3_smem_bytes(*t) <= SMEM_PER_CTA)
+#: instantiated for, at the instantiated head dims: the triples it was
+#: built for whose CTA fits :data:`SMEM_PER_CTA`.  The f32 kernel
+#: ("bf16x3") has a hi and a lo tile for each tile of the bf16 one, so it
+#: keeps fewer at head dims up to 128: at 128 only block_kv 64, at 96
+#: block_kv 128 only with one warpgroup
+_GRID = tuple(itertools.product(WGMMA_BLOCK_Q, WGMMA_BLOCK_KV,
+                                WGMMA_HEAD_DIMS))
+WGMMA_SET = frozenset(t for t in _GRID if _built("wgmma", *t)
+                      and wgmma_smem_bytes(*t) <= SMEM_PER_CTA)
+BF16X3_SET = frozenset(t for t in _GRID if _built("bf16x3", *t)
+                       and bf16x3_smem_bytes(*t) <= SMEM_PER_CTA)
+
+
+def tc_head_dim(head_dim: int) -> int | None:
+    """The instantiated head dim that ``head_dim`` runs at on the tensor
+    cores: the smallest of :data:`WGMMA_HEAD_DIMS` at least ``head_dim``,
+    for a positive multiple of :data:`TC_HEAD_DIM_GRANULE` up to 256 (112
+    runs at 128, 256 at 256); None for any other head_dim, which only the
+    CUDA-core route takes.  TMA fills the columns past ``head_dim`` with
+    zeros, which add nothing to q·kᵀ, and the kernels store only the
+    first ``head_dim`` output columns."""
+    d = int(head_dim)
+    if d <= 0 or d % TC_HEAD_DIM_GRANULE:
+        return None
+    return next((D for D in WGMMA_HEAD_DIMS if D >= d), None)
 
 
 def route(block_q: int, block_kv: int, head_dim: int, dtype) -> str:
     """``"wgmma"`` for bfloat16 at a triple of :data:`WGMMA_SET`,
     ``"bf16x3"`` for float32 at a triple of :data:`BF16X3_SET` (every one
-    of which launches), ``"simt"`` for everything else."""
+    of which launches), with ``head_dim`` taken at :func:`tc_head_dim`;
+    ``"simt"`` for everything else."""
     t = torch_dtype(dtype)
-    key = (int(block_q), int(block_kv), int(head_dim))
+    key = (int(block_q), int(block_kv), tc_head_dim(head_dim))
     if t == torch.bfloat16 and key in WGMMA_SET:
         return "wgmma"
     if t == torch.float32 and key in BF16X3_SET:
@@ -214,20 +257,25 @@ def launch_limits(block_q: int, block_kv: int, head_dim: int,
     whether it can launch.
 
     wgmma and bf16x3: :func:`wgmma_smem_bytes` or
-    :func:`bf16x3_smem_bytes` (within the limit on every triple the route
+    :func:`bf16x3_smem_bytes` at the instantiated head dim
+    (:func:`tc_head_dim`; within the limit on every triple the route
     takes) and 128 threads per 64-row warpgroup tile plus a producer
-    warp.  simt: the three sizes positive multiples of
+    warp.  simt: :func:`_simt_limits`."""
+    bq, bkv, d = int(block_q), int(block_kv), int(head_dim)
+    r = route(bq, bkv, d, dtype)
+    if r == "simt":
+        return _simt_limits(bq, bkv, d)
+    nwg = 2 if bq > WGMMA_TILE_M else 1
+    smem = (wgmma_smem_bytes if r == "wgmma" else bf16x3_smem_bytes)(
+        bq, bkv, tc_head_dim(d))
+    return LaunchLimits(smem_bytes=smem, threads=128 * nwg + 32, route=r)
+
+
+def _simt_limits(bq: int, bkv: int, d: int) -> LaunchLimits:
+    """The CUDA-core CTA: the three sizes positive multiples of
     :data:`GRANULE` and the CTA's shared memory — q and k staged
     transposed, v, the score tile and the accumulator, all fp32, plus m, l
     and alpha — within :data:`SMEM_PER_CTA`, for 256 threads."""
-    bq, bkv, d = int(block_q), int(block_kv), int(head_dim)
-    r = route(bq, bkv, d, dtype)
-    if r != "simt":
-        nwg = 2 if bq > WGMMA_TILE_M else 1
-        smem = (wgmma_smem_bytes if r == "wgmma" else bf16x3_smem_bytes)(
-            bq, bkv, d)
-        return LaunchLimits(smem_bytes=smem, threads=128 * nwg + 32,
-                            route=r)
     smem = 4 * (2 * d * bq + 2 * d * bkv + bq * bkv + 3 * bq)
     reason = ""
     if min(bq, bkv, d) <= 0 or bq % GRANULE or bkv % GRANULE or d % GRANULE:
@@ -266,12 +314,13 @@ def validate_blocks(seq_q: int, seq_kv: int, block_q: int,
 def _tc_pair(seq_q: int, seq_kv: int, block_q: int, block_kv: int,
              head_dim: int, dtype) -> tuple[int, int] | None:
     """The tensor-core pair of ``dtype`` (:func:`tc_set`) at ``head_dim``
-    nearest ``(block_q, block_kv)`` among those that divide the lengths:
-    the largest block_q at most ``block_q`` (else the smallest), then for
-    it the largest block_kv at most ``block_kv`` (else the smallest);
-    None when none divides."""
+    (taken at :func:`tc_head_dim`) nearest ``(block_q, block_kv)`` among
+    those that divide the lengths: the largest block_q at most
+    ``block_q`` (else the smallest), then for it the largest block_kv at
+    most ``block_kv`` (else the smallest); None when none divides."""
+    dd = tc_head_dim(head_dim)
     pairs = [(bq, bkv) for bq, bkv, d in tc_set(dtype)
-             if d == head_dim and seq_q % bq == 0 and seq_kv % bkv == 0]
+             if d == dd and seq_q % bq == 0 and seq_kv % bkv == 0]
     if not pairs:
         return None
 
@@ -321,11 +370,12 @@ def default_config(seq_q: int, seq_kv: int, head_dim: int = 128,
                    dtype=torch.float32) -> tuple[int, int]:
     """The default ``(block_q, block_kv)`` for a problem shape: the row
     for ``seq_kv`` of :data:`DEFAULT_CONFIGS_BF16` (bfloat16) or
-    :data:`DEFAULT_CONFIGS_BF16X3` (float32) at a tensor-core head_dim,
-    or of :data:`DEFAULT_CONFIGS` (the rest), fitted to the lengths and
-    the launch limits (:func:`fit_blocks`)."""
+    :data:`DEFAULT_CONFIGS_BF16X3` (float32) at a head_dim the tensor
+    cores take (:func:`tc_head_dim`), or of :data:`DEFAULT_CONFIGS` (the
+    rest), fitted to the lengths and the launch limits
+    (:func:`fit_blocks`)."""
     table = DEFAULT_CONFIGS
-    if head_dim in WGMMA_HEAD_DIMS:
+    if tc_head_dim(head_dim) is not None:
         table = (DEFAULT_CONFIGS_BF16 if torch_dtype(dtype) == torch.bfloat16
                  else DEFAULT_CONFIGS_BF16X3)
     for floor, (bq, bkv) in table:
@@ -442,19 +492,22 @@ split_bf16x3.launches = 0
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
-                    block_kv: int = 128,
-                    q_offset: int | None = None) -> torch.Tensor:
+                    block_kv: int = 128, q_offset: int | None = None,
+                    force_simt: bool = False) -> torch.Tensor:
     """q: (b, h, sq, d); k, v: (b, h, skv, d), float32 or bfloat16,
     contiguous.  Grouped-head (GQA) callers broadcast kv heads before the
     call.  ``q_offset`` is the absolute position of q[0] in the kv
     sequence (default ``skv - sq``).  On the card the kernel of the pair's
-    :func:`route` runs on the current stream without synchronising."""
+    :func:`route` runs on the current stream without synchronising;
+    ``force_simt`` runs the CUDA-core kernel instead, within its own
+    limits (to time it where a tensor-core route is the rule)."""
     b, h, sq, skv, d = _check_operands(q, k, v)
     if q_offset is None:
         q_offset = skv - sq
     _check_offset(causal, q_offset)
     validate_blocks(sq, skv, block_q, block_kv)
-    lim = launch_limits(block_q, block_kv, d, q.dtype)
+    lim = (_simt_limits(int(block_q), int(block_kv), d) if force_simt
+           else launch_limits(block_q, block_kv, d, q.dtype))
     if not lim.ok:
         raise ValueError(f"flash_attention: {lim.reason}")
     if sq // block_q > MAX_Q_BLOCKS:
@@ -513,9 +566,11 @@ def _compiled_limits(route_name: str, block_q: int, block_kv: int,
 def compiled_wgmma_limits(block_q: int, block_kv: int, head_dim: int
                           ) -> tuple[int, int]:
     """(shared memory bytes, threads) of one bf16 tensor-core CTA as the
-    built library states them (``repro_flash_attention_wgmma_limits``), to
-    hold :func:`launch_limits` to the source; builds the library if
-    needed."""
+    built library states them (``repro_flash_attention_wgmma_limits``, at
+    the padded head dim for a head_dim between instantiations), to hold
+    :func:`launch_limits` to the source; raises outside
+    :data:`WGMMA_SET`, as the library refuses such a triple; builds the
+    library if needed."""
     return _compiled_limits("wgmma", block_q, block_kv, head_dim)
 
 

@@ -146,15 +146,18 @@ class FlashAttentionSpace(CandidateSpace):
     the causal diagonal, so the exact visited-step count enters the
     model.  Per visited step the CTA does the two products (4·rows·bkv·d
     flops, rows = bq, or the 64-row tile a short tensor-core q block is
-    padded to) on the unit its route names (``fa.MATMUL_UNIT``), once per
-    pass (``fa.MATMUL_PASSES``: three for bf16x3), ~8 fp32 flops per
-    score for the online softmax, and the route's fixed
-    ``fa.STEP_OVERHEAD_CY``.  The card's peak is scaled by the share of
-    its SMs that the ``b·h·(seq_q/block_q)`` CTAs keep busy.  The per-step
-    overhead is latency, hidden across the CTAs resident at once: it is
-    spread over ``min(ctas, SMs × CTAs per SM)``, CTAs per SM from the
-    route's shared memory and threads (``LaunchLimits.ctas_per_sm``).  HBM
+    padded to, and d the instantiated head dim a tensor-core route pads
+    to, ``fa.tc_head_dim``) on the unit its route names
+    (``fa.MATMUL_UNIT``), once per pass (``fa.MATMUL_PASSES``: three for
+    bf16x3), ~8 fp32 flops per score for the online softmax, and the
+    route's fixed ``fa.STEP_OVERHEAD_CY``.  The card's peak is scaled by
+    the share of its SMs that the ``b·h·(seq_q/block_q)`` CTAs keep
+    busy.  The per-step overhead is latency, hidden across the CTAs
+    resident at once: it is spread over ``min(ctas, SMs × CTAs per SM)``,
+    CTAs per SM from the route's shared memory and threads
+    (``LaunchLimits.ctas_per_sm``).  HBM
     traffic streams q/out once and re-fetches k/v per visited step, at
+    the real head dim (TMA fills the padding without reading it), at
     4 bytes per element on bf16x3 (a hi and a lo bf16).  The predicted
     seconds are ``max(compute, hbm)``, plus, on bf16x3, the split pass's
     bytes at the HBM rate (``fa.split_bytes``); HBM-bound candidates are
@@ -194,8 +197,9 @@ class FlashAttentionSpace(CandidateSpace):
         the warp size, up to ``n`` and to the largest block that launches
         with the other block at its smallest (:func:`launch_limits`, on
         the CUDA-core route that a granule-wide block takes); at a
-        tensor-core head_dim, also the blocks of the dtype's tensor-core
-        set (wgmma in bfloat16, bf16x3 in float32) up to ``n``."""
+        head_dim the tensor cores take (``fa.tc_head_dim``), also the
+        blocks of the dtype's tensor-core set (wgmma in bfloat16, bf16x3
+        in float32) at its instantiated head dim, up to ``n``."""
         warp = int(self.machine.extra.get("warp size", 32))
         d = int(self.config["head_dim"])
         small = [fa.GRANULE << k for k in range(8)
@@ -206,7 +210,8 @@ class FlashAttentionSpace(CandidateSpace):
             if b > n or not fa.launch_limits(*pair, d, self.dtype).ok:
                 break
             out.append(b)
-        tc = {t[axis] for t in fa.tc_set(self.dtype) if t[2] == d}
+        dd = fa.tc_head_dim(d)
+        tc = {t[axis] for t in fa.tc_set(self.dtype) if t[2] == dd}
         return sorted(set(out) | {b for b in tc if b <= n})
 
     def candidates(self) -> list[Candidate]:
@@ -291,9 +296,10 @@ class FlashAttentionSpace(CandidateSpace):
             steps = self._steps(bq, bkv)
             share = min(B * (sq // bq), sms) / sms
             r = lim.route
-            rows = bq if r == "simt" else max(bq, fa.WGMMA_TILE_M)
+            rows, dm = ((bq, d) if r == "simt"
+                        else (max(bq, fa.WGMMA_TILE_M), fa.tc_head_dim(d)))
             peak_mm = m.peak_flops[fa.MATMUL_UNIT[r]] / fa.MATMUL_PASSES[r]
-            t_mm = 4.0 * B * steps * rows * bkv * d / (peak_mm * share)
+            t_mm = 4.0 * B * steps * rows * bkv * dm / (peak_mm * share)
             t_vec = 8.0 * B * steps * rows * bkv / (peak_vec * share)
             t_step = (B * steps * fa.STEP_OVERHEAD_CY[r]
                       / (m.clock_hz * self.concurrency(bq, bkv)))

@@ -186,6 +186,16 @@ def test_launch_limits_shared_memory():
     assert f32.smem_bytes == 4 * (2 * 128 * 64 + 2 * 128 * 32 + 64 * 32
                                   + 3 * 64)
     assert not t_fa.launch_limits(128, 128, 128).ok
+    # a padded head dim takes the CTA of its instantiation: 112 runs at 128
+    assert t_fa.launch_limits(128, 64, 112, "float32") == t_fa.LaunchLimits(
+        smem_bytes=t_fa.bf16x3_smem_bytes(128, 64, 128), threads=288,
+        route="bf16x3")
+    assert t_fa.launch_limits(64, 64, 112, "bfloat16") == lim
+    # d 256, one warpgroup: block_kv 64 in bf16, 32 in f32
+    assert t_fa.launch_limits(64, 64, 256, "bfloat16").smem_bytes == \
+        1024 + 64 + 2 * 256 * (64 + 2 * 2 * 64) == 164928
+    assert t_fa.launch_limits(64, 32, 256, "float32").smem_bytes == \
+        1024 + 64 + 4 * 256 * (64 + 2 * 2 * 32) == 197696
     # bf16 outside the instantiated set takes the simt formula
     assert t_fa.launch_limits(64, 32, 128, "bfloat16") == \
         t_fa.launch_limits(64, 32, 128, "float32")
@@ -209,8 +219,29 @@ def test_launch_limits_shared_memory():
     ((64, 64), 160, "float32", "simt"),
     ((48, 64), 64, "float32", "simt"),
     ((64, 64), 4, "bfloat16", "simt"),
-    ((64, 64), 160, "bfloat16", "simt"),
-    ((64, 64), 256, "bfloat16", "simt"),
+    ((64, 64), 160, "bfloat16", "wgmma"),
+    ((64, 64), 256, "bfloat16", "wgmma"),
+    ((128, 128), 112, "bfloat16", "wgmma"),
+    ((16, 64), 112, "bfloat16", "wgmma"),
+    ((128, 64), 112, "float32", "bf16x3"),
+    ((4, 64), 112, "float32", "bf16x3"),
+    ((4, 128), 112, "float32", "simt"),
+    ((128, 128), 112, "float32", "simt"),
+    ((64, 32), 112, "bfloat16", "simt"),
+    ((4, 64), 256, "bfloat16", "wgmma"),
+    ((128, 64), 256, "bfloat16", "simt"),
+    ((64, 32), 256, "bfloat16", "simt"),
+    ((64, 128), 256, "bfloat16", "simt"),
+    ((64, 32), 256, "float32", "bf16x3"),
+    ((8, 32), 256, "float32", "bf16x3"),
+    ((128, 32), 256, "float32", "simt"),
+    ((64, 64), 256, "float32", "simt"),
+    ((64, 64), 8, "bfloat16", "wgmma"),
+    ((64, 64), 200, "float32", "simt"),
+    ((64, 32), 200, "float32", "bf16x3"),
+    ((64, 64), 100, "bfloat16", "simt"),
+    ((64, 64), 100, "float32", "simt"),
+    ((64, 32), 264, "bfloat16", "simt"),
     ((64, 32), 128, "bfloat16", "simt"),
     ((64, 256), 128, "bfloat16", "simt"),
     ((96, 64), 128, "bfloat16", "simt"),
@@ -219,7 +250,10 @@ def test_launch_limits_shared_memory():
 def test_route(blocks, d, dtype, want):
     """bf16 at an instantiated (head_dim, block_kv) and a block_q that
     divides or fills the 64-row tiles takes the wgmma kernel, f32 at such
-    a triple whose hi and lo tiles fit a CTA the bf16x3 kernel; all else
+    a triple whose hi and lo tiles fit a CTA the bf16x3 kernel; a head
+    dim between instantiations (a multiple of 8 up to 256: zamba2-7b's
+    112, gemma-7b's 256 itself) takes the triple of the next one; all
+    else — head dims off that rule (100, 264) and pairs off the sets —
     takes the CUDA-core kernel."""
     assert t_fa.route(*blocks, d, dtype) == want
     assert t_fa.launch_limits(*blocks, d, dtype).route == want
@@ -228,19 +262,29 @@ def test_route(blocks, d, dtype, want):
 
 
 def test_launch_limits_wgmma_instantiated_set():
-    """Every pair of the instantiated set launches, at the formula of the
-    source, with 160 or 288 threads; CTAs per SM follow from shared
+    """A triple of the instantiation grid is in the set when the kernel
+    was built for it — block_kv 64 and 128 up to head_dim 128, at 256
+    block_kv 64 with one warpgroup — and then launches, at the formula of
+    the source, with 160 or 288 threads; CTAs per SM follow from shared
     memory and threads."""
     for d in t_fa.WGMMA_HEAD_DIMS:
         for bkv in t_fa.WGMMA_BLOCK_KV:
             for bq in t_fa.WGMMA_BLOCK_Q:
-                lim = t_fa.launch_limits(bq, bkv, d, torch.bfloat16)
                 nwg = 2 if bq == 128 else 1
-                assert lim.ok and lim.route == "wgmma"
-                assert lim.threads == 128 * nwg + 32
-                assert lim.smem_bytes == t_fa.wgmma_smem_bytes(bq, bkv, d) \
-                    == 1088 + 2 * d * (64 * nwg + 4 * bkv)
-                assert lim.smem_bytes <= t_fa.SMEM_PER_CTA
+                smem = t_fa.wgmma_smem_bytes(bq, bkv, d)
+                assert smem == 1088 + 2 * d * (64 * nwg + 4 * bkv)
+                built = (bkv == 64 and nwg == 1 if d == 256
+                         else bkv in (64, 128))
+                assert not built or smem <= t_fa.SMEM_PER_CTA
+                assert ((bq, bkv, d) in t_fa.WGMMA_SET) == built
+                lim = t_fa.launch_limits(bq, bkv, d, torch.bfloat16)
+                assert (lim.route == "wgmma") == built
+                if built:
+                    assert lim.ok and lim.threads == 128 * nwg + 32
+                    assert lim.smem_bytes == smem
+    # block_kv 128 at d 256 does not fit: 296,000 bytes with one warpgroup
+    assert t_fa.wgmma_smem_bytes(64, 128, 256) == 296000
+    assert len(t_fa.WGMMA_SET) == 4 * 2 * 6 + 5
     ctas = {pair: t_fa.launch_limits(*pair, 128, "bfloat16").ctas_per_sm
             for pair in ((64, 64), (128, 64), (64, 128), (128, 128))}
     assert ctas == {(64, 64): 2, (128, 64): 2, (64, 128): 1,
@@ -271,6 +315,11 @@ def test_advisor_shrinks_kv_first():
     assert t.smem_bytes == t_fa.wgmma_smem_bytes(128, 128, 128)
     t = blocking.attention_cta_tiles(4096, 4096, 256, "bfloat16")
     assert (t.bq, t.bkv) == (64, 4)
+    # the tensor-core pairs at d 256, (64, 64) in bf16 and (64, 32) in
+    # f32, lie past the shrinking above; fit_blocks, which ops applies to
+    # the advisor's pair, reaches them
+    assert t_fa.fit_blocks(4096, 4096, 64, 4, 256, "bfloat16") == (64, 64)
+    assert t_fa.fit_blocks(4096, 4096, 64, 4, 256, "float32") == (64, 32)
     # f32 reaches the bf16x3 pair before a simt pair that would fit
     t = blocking.attention_cta_tiles(8, 4096, 128, "float32")
     assert (t.bq, t.bkv) == (8, 64)
@@ -281,32 +330,35 @@ def test_advisor_shrinks_kv_first():
 
 @settings(max_examples=40, deadline=None)
 @given(sq=st.integers(1, 512), skv=st.integers(1, 1024),
-       d=st.sampled_from([4, 32, 64, 96, 128, 160, 256]))
-def test_default_and_advisor_blocks_launch(sq, skv, d):
+       d=st.sampled_from([4, 32, 64, 96, 100, 112, 128, 160, 256]),
+       dtype=st.sampled_from(["float32", "bfloat16"]))
+def test_default_and_advisor_blocks_launch(sq, skv, d, dtype):
     """For every length that is a multiple of the granule, the default
     pair and the advisor's pair (clamped as ops does) divide the lengths
     and pass the launch limits."""
     sq, skv = 4 * sq, 4 * skv
-    t = blocking.attention_cta_tiles(sq, skv, d)
-    for bq, bkv in (t_fa.default_config(sq, skv, d),
-                    t_fa.fit_blocks(sq, skv, t.bq, t.bkv, d)):
+    t = blocking.attention_cta_tiles(sq, skv, d, dtype)
+    for bq, bkv in (t_fa.default_config(sq, skv, d, dtype),
+                    t_fa.fit_blocks(sq, skv, t.bq, t.bkv, d, dtype)):
         assert sq % bq == 0 and skv % bkv == 0
-        assert t_fa.launch_limits(bq, bkv, d).ok
+        assert t_fa.launch_limits(bq, bkv, d, dtype).ok
 
 
 @settings(max_examples=60, deadline=None)
 @given(sq=st.integers(1, 512), skv=st.integers(1, 1024),
-       d=st.sampled_from([4, 32, 64, 96, 128, 256]),
+       d=st.sampled_from([4, 32, 64, 96, 100, 112, 128, 256]),
        dtype=st.sampled_from(["float32", "bfloat16"]))
 def test_blocks_launch_on_their_route(sq, skv, d, dtype):
     """default_config, fit_blocks and the advisor (as ops uses it) give a
-    pair that divides the lengths and launches; at a tensor-core head_dim
-    it is a pair of the dtype's tensor-core route (wgmma in bf16, bf16x3
-    in f32) wherever one divides the lengths."""
+    pair that divides the lengths and launches; at a head_dim the tensor
+    cores take (112 at the triples of 128) it is a pair of the dtype's
+    tensor-core route (wgmma in bf16, bf16x3 in f32) wherever one divides
+    the lengths."""
     sq, skv = 4 * sq, 4 * skv
     t = blocking.attention_cta_tiles(sq, skv, d, dtype)
     tc_divides = any(sq % bq == 0 and skv % bkv == 0
-                     for bq, bkv, dd in t_fa.tc_set(dtype) if dd == d)
+                     for bq, bkv, dd in t_fa.tc_set(dtype)
+                     if dd == t_fa.tc_head_dim(d))
     tc_route = "wgmma" if dtype == "bfloat16" else "bf16x3"
     for bq, bkv in (t_fa.default_config(sq, skv, d, dtype),
                     t_fa.fit_blocks(sq, skv, t.bq, t.bkv, d, dtype)):
@@ -317,19 +369,57 @@ def test_blocks_launch_on_their_route(sq, skv, d, dtype):
         assert (lim.route == tc_route) == tc_divides, (bq, bkv)
 
 
+@pytest.mark.parametrize("d, want", [
+    (8, 32), (32, 32), (40, 64), (64, 64), (72, 96), (96, 96), (104, 128),
+    (112, 128), (128, 128), (136, 256), (160, 256), (256, 256), (0, None),
+    (4, None), (100, None), (252, None), (264, None)])
+def test_tc_head_dim(d, want):
+    """A multiple of 8 up to 256 runs at the smallest instantiated head
+    dim at least it; any other head dim has none (the simt route)."""
+    assert t_fa.tc_head_dim(d) == want
+
+
+def test_force_simt_runs_the_cuda_core_route_within_its_limits():
+    """force_simt takes the CUDA-core kernel at a pair a tensor-core route
+    takes, within the CUDA-core kernel's own launch limits; on the CPU
+    the plain version runs."""
+    tq = [torch.from_numpy(a).bfloat16()
+          for a in _inputs(1, 2, 64, 64, 256, seed=2)]
+    assert t_fa.route(64, 32, 256, "float32") == "bf16x3"
+    assert t_fa.route(64, 64, 256, "bfloat16") == "wgmma"
+    out = t_fa.flash_attention(*tq, block_q=64, block_kv=32,
+                               force_simt=True)
+    assert torch.equal(out, t_fa.plain(*tq))
+    # (64, 64) at d 256 launches on wgmma, but its fp32-staged CTA does not
+    # fit on the CUDA cores
+    assert t_fa.launch_limits(64, 64, 256, "bfloat16").ok
+    with pytest.raises(ValueError, match="shared memory"):
+        t_fa.flash_attention(*tq, block_q=64, block_kv=64, force_simt=True)
+
+
 LOG2E = 1.4426950408889634
+
+
+def _pad(x, D):
+    """x with zero columns up to the instantiated head dim D, as TMA fills
+    the kernels' tiles past the real head dim."""
+    return torch.nn.functional.pad(x, (0, D - x.shape[-1]))
 
 
 def _emulate_wgmma(q, k, v, causal, block_q, block_kv):
     """The tensor-core kernel's arithmetic, written out in torch on the
-    CPU: per q block, fp32 scores of the bf16 inputs in the base-2 domain,
-    the causal mask, the online softmax over the visited kv blocks, l
-    summing the fp32 p, and p rounded to bf16 for p·v (the one departure
-    from the reference, which multiplies p·v in fp32)."""
+    CPU: q, k and v padded with zero columns to the instantiated head dim
+    (the scale stays 1/sqrt(d) of the real d); per q block, fp32 scores of
+    the bf16 inputs in the base-2 domain, the causal mask, the online
+    softmax over the visited kv blocks, l summing the fp32 p, and p
+    rounded to bf16 for p·v (the one departure from the reference, which
+    multiplies p·v in fp32); the first d output columns stored."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     q_offset = skv - sq
     scale = np.float32(np.float32(1.0 / np.sqrt(d)) * np.float32(LOG2E))
+    d_real, d = d, t_fa.tc_head_dim(d)
+    q, k, v = (_pad(t, d) for t in (q, k, v))
     nk = skv // block_kv
     out = torch.empty(b, h, sq, d)
     kf, vf = k.float(), v.float()
@@ -357,19 +447,21 @@ def _emulate_wgmma(q, k, v, causal, block_q, block_kv):
                 p.bfloat16().float() @ vf[:, :, k0:k0 + block_kv]
             m = mx
         out[:, :, r0:r0 + block_q] = acc / l.clamp_min(1e-30)[..., None]
-    return out.bfloat16()
+    return out[..., :d_real].bfloat16()
 
 
 @pytest.mark.parametrize("b,h,sq,skv,d", [
     (2, 4, 256, 256, 64), (1, 2, 128, 512, 64),
-    (1, 1, 512, 512, 128), (2, 2, 256, 256, 32)])
+    (1, 1, 512, 512, 128), (2, 2, 256, 256, 32),
+    (1, 2, 128, 256, 112), (1, 1, 256, 256, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_wgmma_numerics_within_the_reference_tolerance(b, h, sq, skv, d,
                                                        causal):
     """The tensor-core kernel's one numerical departure — p rounded to
     bf16 before p·v — stays within the reference's bf16 tolerance (2e-2)
     of the JAX kernel (interpret mode) and its oracle, at the shapes of
-    test_flash_matches_jax and the route's default blocks."""
+    test_flash_matches_jax, zamba2-7b's head dim 112 (padded to 128) and
+    gemma-7b's 256, and the route's default blocks."""
     arrs = _inputs(b, h, sq, skv, d, seed=sq + skv + d)
     jq, tq, tol = _both(arrs, "bfloat16")
     bq, bkv = t_fa.default_config(sq, skv, d, torch.bfloat16)
@@ -409,15 +501,19 @@ def test_launch_limits_bf16x3_shared_memory():
         if fits:
             assert lim.smem_bytes == smem and lim.ctas_per_sm == 1
             assert lim.threads == (288 if bq == 128 else 160)
-    # the set is every instantiated triple that fits, and nothing else
-    for d in t_fa.WGMMA_HEAD_DIMS:
-        for bkv in t_fa.WGMMA_BLOCK_KV:
-            for bq in t_fa.WGMMA_BLOCK_Q:
-                fits = t_fa.bf16x3_smem_bytes(bq, bkv, d) <= t_fa.SMEM_PER_CTA
-                assert ((bq, bkv, d) in t_fa.BF16X3_SET) == fits
+    # up to head_dim 128 the set is every bf16 triple that fits, and
+    # nothing else
+    for bq, bkv, d in t_fa.WGMMA_SET:
+        if d <= 128:
+            fits = t_fa.bf16x3_smem_bytes(bq, bkv, d) <= t_fa.SMEM_PER_CTA
+            assert ((bq, bkv, d) in t_fa.BF16X3_SET) == fits
+    assert all(t in t_fa.WGMMA_SET for t in t_fa.BF16X3_SET if t[2] <= 128)
     assert (64, 128, 96) in t_fa.BF16X3_SET
     assert (128, 128, 96) not in t_fa.BF16X3_SET
-    assert len(t_fa.BF16X3_SET) == 41
+    # at d 256 only block_kv 32 with one warpgroup fits: 197,696 bytes
+    assert {t for t in t_fa.BF16X3_SET if t[2] == 256} == {
+        (bq, 32, 256) for bq in (4, 8, 16, 32, 64)}
+    assert len(t_fa.BF16X3_SET) == 41 + 5
 
 
 def _split(x):
@@ -439,11 +535,14 @@ def _emulate_bf16x3(q, k, v, causal, block_q, block_kv):
     CPU: q, k and v split into bf16 hi and lo; per q block, scores as
     three products in the base-2 domain, the causal mask, the online
     softmax over the visited kv blocks, l summing the unrounded fp32 p,
-    p split the same way for p·v, and an fp32 output."""
+    p split the same way for p·v, and an fp32 output.  Head dims are
+    padded with zero columns as in :func:`_emulate_wgmma`."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     q_offset = skv - sq
     scale = np.float32(np.float32(1.0 / np.sqrt(d)) * np.float32(LOG2E))
+    d_real, d = d, t_fa.tc_head_dim(d)
+    q, k, v = (_pad(t, d) for t in (q, k, v))
     nk = skv // block_kv
     out = torch.empty(b, h, sq, d)
     for qi in range(sq // block_q):
@@ -469,22 +568,25 @@ def _emulate_bf16x3(q, k, v, causal, block_q, block_kv):
             acc = acc * alpha[..., None] + _mm3(p, v[:, :, k0:k0 + block_kv])
             m = mx
         out[:, :, r0:r0 + block_q] = acc / l.clamp_min(1e-30)[..., None]
-    return out
+    return out[..., :d_real]
 
 
 @pytest.mark.parametrize("b,h,sq,skv,d,gain", [
     (2, 4, 256, 256, 64, 1.0), (1, 2, 128, 512, 64, 1.0),
     (1, 1, 512, 512, 128, 1.0), (2, 2, 256, 256, 32, 1.0),
-    (1, 1, 512, 512, 128, 4.0)])
+    (1, 1, 512, 512, 128, 4.0), (1, 2, 128, 256, 112, 1.0),
+    (1, 2, 128, 256, 112, 4.0), (1, 1, 256, 256, 256, 1.0),
+    (1, 1, 256, 256, 256, 4.0)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16x3_numerics_within_the_reference_tolerance(b, h, sq, skv, d,
                                                         gain, causal):
     """The f32 tensor-core kernel's arithmetic — operands and p split into
     bf16 hi and lo, three products each — stays within the reference's
     f32 tolerance (2e-3) of the JAX kernel (interpret mode) and its
-    oracle, at the shapes of test_flash_matches_jax and the route's
-    default blocks, and with inputs scaled ×4 (logits ×16), where one
-    TF32 pass would not."""
+    oracle, at the shapes of test_flash_matches_jax, zamba2-7b's head dim
+    112 (padded to 128) and gemma-7b's 256, and the route's default
+    blocks, and with inputs scaled ×4 (logits ×16), where one TF32 pass
+    would not."""
     arrs = [a * np.float32(gain)
             for a in _inputs(b, h, sq, skv, d, seed=sq + skv + d)]
     jq, tq, tol = _both(arrs, "float32")

@@ -283,7 +283,7 @@ def _close(got, want, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 112, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq, skv", [(256, 256), (128, 512)])
 def test_cuda_flash_matches_plain(cuda, dtype, d, causal, sq, skv):
@@ -378,13 +378,20 @@ def test_cuda_flash_never_reaches_plain(cuda, monkeypatch, fail):
     assert t_fa.flash_attention.launches_by_route == n0
 
 
+# the instantiated head dims and head dims padded to each: a partial
+# panel (40, 72, 112, 200), a wholly padded one (136: columns 192-255),
+# a box wider than the row (8)
+TC_HEAD_DIMS = [8, 32, 40, 64, 72, 96, 112, 128, 136, 160, 200, 256]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("d", TC_HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq, skv", [(256, 256), (128, 512)])
 def test_cuda_flash_wgmma_matches_plain(cuda, d, causal, sq, skv):
     """bf16 through ops takes the tensor-core route at every instantiated
-    head_dim and matches the plain version at the reference's 2e-2."""
+    head_dim and every multiple of 8 padded to one, and matches the plain
+    version at the reference's 2e-2."""
     q, k, v = _qkv((2, 2, sq, d), skv, torch.bfloat16, cuda, seed=d + skv)
     n0 = dict(t_fa.flash_attention.launches_by_route)
     got = ops.flash_attention(q, k, v, causal=causal)
@@ -444,11 +451,16 @@ def test_cuda_flash_counts_launches_per_route(cuda):
 @pytest.mark.gpu
 def test_cuda_wgmma_limits_match_the_source(cuda):
     """launch_limits states what the built library reports for every
-    instantiation."""
-    for d in t_fa.WGMMA_HEAD_DIMS:
+    triple of the set, at the instantiated head dims and at 112 (padded
+    to 128), and the library refuses the triples off it."""
+    for d in t_fa.WGMMA_HEAD_DIMS + (112,):
         for bkv in t_fa.WGMMA_BLOCK_KV:
             for bq in t_fa.WGMMA_BLOCK_Q:
                 lim = t_fa.launch_limits(bq, bkv, d, torch.bfloat16)
+                if lim.route != "wgmma":
+                    with pytest.raises(RuntimeError):
+                        t_fa.compiled_wgmma_limits(bq, bkv, d)
+                    continue
                 assert t_fa.compiled_wgmma_limits(bq, bkv, d) == \
                     (lim.smem_bytes, lim.threads)
 
@@ -458,12 +470,13 @@ def test_cuda_wgmma_limits_match_the_source(cuda):
 # ----------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("d", TC_HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq, skv", [(256, 256), (128, 512)])
 def test_cuda_flash_bf16x3_matches_plain(cuda, d, causal, sq, skv):
     """f32 through ops takes the bf16x3 route at every head_dim of its
-    set and matches the plain version at the reference's 2e-3."""
+    set and every multiple of 8 padded to one, and matches the plain
+    version at the reference's 2e-3."""
     q, k, v = _qkv((2, 2, sq, d), skv, torch.float32, cuda, seed=d + sq)
     n0 = dict(t_fa.flash_attention.launches_by_route)
     got = ops.flash_attention(q, k, v, causal=causal)
@@ -548,14 +561,62 @@ def test_cuda_flash_bf16x3_never_falls_back(cuda, monkeypatch, fail):
 @pytest.mark.gpu
 def test_cuda_bf16x3_limits_match_the_source(cuda):
     """launch_limits states what the built library reports for every
-    triple of the set, and the library refuses the triples off it."""
-    for d in t_fa.WGMMA_HEAD_DIMS:
+    triple of the set, at the instantiated head dims and at 112 (padded
+    to 128), and the library refuses the triples off it."""
+    for d in t_fa.WGMMA_HEAD_DIMS + (112,):
         for bkv in t_fa.WGMMA_BLOCK_KV:
             for bq in t_fa.WGMMA_BLOCK_Q:
-                if (bq, bkv, d) not in t_fa.BF16X3_SET:
+                if (bq, bkv, t_fa.tc_head_dim(d)) not in t_fa.BF16X3_SET:
                     with pytest.raises(RuntimeError):
                         t_fa.compiled_bf16x3_limits(bq, bkv, d)
                     continue
                 lim = t_fa.launch_limits(bq, bkv, d, torch.float32)
                 assert t_fa.compiled_bf16x3_limits(bq, bkv, d) == \
                     (lim.smem_bytes, lim.threads)
+
+
+# ----------------------------------------------------------------------
+# on the card: gemma-7b's head dim 256 and zamba2-7b's 112 on the tensor
+# cores
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [112, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_every_pair_at_the_real_model_head_dims(cuda, dtype, d,
+                                                           causal):
+    """Every pair of the dtype's tensor-core set at the head dim's
+    instantiation launches on that route and matches plain: at 256 the
+    instantiations added for it, at 112 the ones of 128 with zero
+    columns."""
+    q, k, v = _qkv((1, 2, 256, d), 512, dtype, cuda, seed=d)
+    want = t_fa.plain(q, k, v, causal=causal)
+    tc = "wgmma" if dtype == torch.bfloat16 else "bf16x3"
+    pairs = sorted((bq, bkv) for bq, bkv, dd in t_fa.tc_set(dtype)
+                   if dd == t_fa.tc_head_dim(d))
+    assert pairs
+    for bq, bkv in pairs:
+        n0 = dict(t_fa.flash_attention.launches_by_route)
+        got = t_fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                   block_kv=bkv)
+        assert t_fa.flash_attention.launches_by_route == {
+            **n0, tc: n0[tc] + 1}
+        _close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, d, blocks", [
+    (torch.float32, 256, (64, 32)), (torch.bfloat16, 112, (64, 64))])
+def test_cuda_flash_forced_simt_route(cuda, dtype, d, blocks):
+    """force_simt runs the CUDA-core kernel at a pair a tensor-core
+    route takes (the pairs gemma-7b and zamba2-7b ran at on the CUDA
+    cores before) and counts it there."""
+    assert t_fa.route(*blocks, d, dtype) != "simt"
+    q, k, v = _qkv((1, 2, 128, d), 256, dtype, cuda, seed=4)
+    n0 = dict(t_fa.flash_attention.launches_by_route)
+    got = t_fa.flash_attention(q, k, v, block_q=blocks[0],
+                               block_kv=blocks[1], force_simt=True)
+    assert t_fa.flash_attention.launches_by_route == {
+        **n0, "simt": n0["simt"] + 1}
+    _close(got, t_fa.plain(q, k, v), dtype)

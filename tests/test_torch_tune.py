@@ -7,6 +7,7 @@ on the same inputs; reports decode through either package's
 nothing falls back to it), in process and in a spawned child with an
 injected fault; and the command line exits 0 without touching a device.
 """
+import dataclasses
 import json
 import math
 import pathlib
@@ -70,7 +71,7 @@ def test_steps_equal_jax(sq, skv, causal):
 
 @settings(max_examples=30, deadline=None)
 @given(sq=st.integers(1, 256), extra=st.integers(0, 256),
-       d=st.sampled_from([4, 32, 64, 96, 128, 256]),
+       d=st.sampled_from([4, 32, 64, 96, 112, 128, 256]),
        causal=st.booleans(), dtype=st.sampled_from(["float32", "bfloat16"]))
 def test_default_and_advisor_are_feasible(sq, extra, d, causal, dtype):
     """default() and the advisor's pick are feasible — they divide the
@@ -136,8 +137,8 @@ def test_model_follows_the_kernel():
     tensor cores in bf16 for wgmma, three bf16 passes for bf16x3, fp32
     CUDA cores for simt), and the peak is shared over the SMs the CTAs
     keep busy: with fewer CTAs than SMs a pair of halved q blocks runs
-    about twice as fast on simt (at head_dim 160, off the tensor-core
-    sets).  bf16x3 also pays its split pass."""
+    about twice as fast on simt (at head_dim 160, pairs off the
+    tensor-core sets).  bf16x3 also pays its split pass."""
     assert t_fa.MATMUL_UNIT == {"wgmma": "BF16", "simt": "FP32",
                                 "bf16x3": "BF16"}
     assert t_fa.MATMUL_PASSES == {"wgmma": 1, "simt": 1, "bf16x3": 3}
@@ -202,6 +203,92 @@ def test_model_counts_occupancy_and_padding():
         t_space.Candidate.make("flash_attention", block_q=16, block_kv=64),
         t_space.Candidate.make("flash_attention", block_q=64, block_kv=64)])
     assert pad.seconds > 3 * full.seconds
+
+
+# gemma-7b (src/repro/configs/gemma_7b.py: 16 heads of 256) and zamba2-7b
+# (src/repro/configs/zamba2_7b.py: 32 heads of 112) at the train_4k length
+REAL_MODELS = {"gemma-7b": {"heads": 16, "head_dim": 256},
+               "zamba2-7b": {"heads": 32, "head_dim": 112}}
+TC_ROUTE = {"bfloat16": "wgmma", "float32": "bf16x3"}
+
+
+@pytest.mark.parametrize("model", sorted(REAL_MODELS))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_real_model_spaces_take_the_tensor_cores(model, dtype):
+    """At gemma-7b's and zamba2-7b's attention every pair of the dtype's
+    tensor-core set at the instantiated head dim is a feasible candidate
+    on that route, the default takes it, and every candidate is feasible
+    exactly when it launches, on the route it names."""
+    cfg = REAL_MODELS[model]
+    d = cfg["head_dim"]
+    sp = t_space.resolve_space("flash_attention", H100, batch=1,
+                               seq_q=4096, seq_kv=4096, causal=True,
+                               dtype=dtype, **cfg)
+    cands = sp.candidates()
+    preds = dict(zip(cands, sp.predict(cands)))
+    tc = TC_ROUTE[dtype]
+    for c, p in preds.items():
+        bq, bkv = c.config["block_q"], c.config["block_kv"]
+        lim = t_fa.launch_limits(bq, bkv, d, dtype)
+        assert p.feasible == (4096 % bq == 0 and 4096 % bkv == 0
+                              and lim.ok), (c, p)
+        assert sp.route(c) == lim.route == t_fa.route(bq, bkv, d, dtype)
+    pairs = {(bq, bkv) for bq, bkv, dd in t_fa.tc_set(dtype)
+             if dd == t_fa.tc_head_dim(d)}
+    assert len(pairs) == (6 if d == 112 and dtype == "float32" else
+                          12 if d == 112 else 5)
+    on_tc = {(c.config["block_q"], c.config["block_kv"])
+             for c, p in preds.items() if p.feasible and sp.route(c) == tc}
+    assert on_tc == pairs
+    assert sp.route(sp.default()) == tc
+    assert t_fa.route(*t_fa.default_config(4096, 4096, d, dtype), d,
+                      dtype) == tc
+    best = min((p.seconds, sp.route(c)) for c, p in preds.items())
+    assert best[1] == tc
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_model_charges_the_padded_head_dim(dtype):
+    """A tensor-core candidate at head_dim 112 does the arithmetic of
+    128, the instantiation it runs, and moves the bytes of 112; the
+    CUDA-core route computes at 112.  Seen with the HBM term taken away
+    (compute alone), and with it (the bytes shrink by 112/128)."""
+    fast = dataclasses.replace(H100, hbm_bandwidth=1e30)
+    cfg = dict(batch=1, heads=32, seq_q=4096, seq_kv=4096, causal=True,
+               dtype=dtype)
+    tc = t_space.Candidate.make("flash_attention", block_q=64, block_kv=64)
+    simt = t_space.Candidate.make("flash_attention", block_q=64,
+                                  block_kv=32)
+    by_d = {}
+    for d in (112, 128):
+        sp = t_space.resolve_space("flash_attention", fast, head_dim=d,
+                                   **cfg)
+        assert sp.route(tc) == TC_ROUTE[dtype] and sp.route(simt) == "simt"
+        by_d[d] = [p.seconds for p in sp.predict([tc, simt])]
+    assert by_d[112][0] == by_d[128][0]
+    assert by_d[112][1] < by_d[128][1]
+    hbm = {d: t_space.resolve_space("flash_attention", H100, head_dim=d,
+                                    **cfg).predict([tc])[0]
+           for d in (112, 128)}
+    assert hbm[112].bound == hbm[128].bound == "L2"
+    assert hbm[112].seconds == pytest.approx(hbm[128].seconds * 112 / 128)
+
+
+def test_attention_bound_at_the_real_model_shapes():
+    """The bound counts the real head dim: gemma-7b's attention has
+    granite-8b's flops (16 heads of 256 against 32 of 128), zamba2-7b's
+    112/128 of them; three bf16 passes in f32."""
+    want = {("gemma-7b", torch.bfloat16): 0.1390,
+            ("gemma-7b", torch.float32): 0.4170,
+            ("zamba2-7b", torch.bfloat16): 0.1216,
+            ("zamba2-7b", torch.float32): 0.3649}
+    for (model, dtype), ms in want.items():
+        cfg = REAL_MODELS[model]
+        q = torch.empty(1, cfg["heads"], 4096, cfg["head_dim"], dtype=dtype,
+                        device="meta")
+        b = t_space.attention_bound(q, q, causal=True, machine=H100)
+        assert b.by == "operations"
+        assert abs(b.seconds * 1e3 - ms) < 5e-5, (model, dtype)
 
 
 def test_attention_bound_at_the_granite_shape():
