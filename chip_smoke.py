@@ -10,7 +10,11 @@ followed by its seconds:
   2. build   — the five CUDA sources from ``src/repro_torch/csrc`` with
                nvcc for sm_90a, in parallel; build seconds, the ptxas
                report (registers, spills) of every kernel instantiation
-               (the head-dim-256 ones must not spill), the count of HGMMA
+               (the head-dim-256 ones and every stencil instantiation must
+               not spill), the advisor's stencil plans (shared bytes,
+               threads) against each stencil library's
+               ``repro_<kernel>_limits`` at the main-path and ragged
+               shapes, the count of HGMMA
                (tensor-core) instructions in each flash library's SASS
                (``cuobjdump -sass``, positive for both tensor-core
                libraries), and the launch limits of every wgmma and bf16x3
@@ -18,8 +22,10 @@ followed by its seconds:
                ``launch_limits``, at the instantiated head dims and at 112
                (padded to 128);
   3. check   — each kernel against its plain PyTorch version on the card,
-               at the reference tolerances: the stencils at ragged shapes
-               and at the main-path shape (boundaries bit-exact); the
+               at the reference tolerances: the stencils at ragged shapes,
+               at the ring's edges (N below one tile, M <= 2r, M below
+               the stages) and at the main-path shape, each printing its
+               launch plan (boundaries bit-exact); the
                bf16x3 split pass bit-exact against ``plain_split``; flash
                attention on all three routes — bf16 on the tensor cores
                ("wgmma"), f32 on the tensor cores as three bf16 passes
@@ -35,8 +41,10 @@ followed by its seconds:
                (512, 512, 512) and the long-range stencil at the paper's §3
                size (130, 1015, 1015), fp32.  Per stencil: ECM and Roofline
                prediction on the H100 machine file, a run through the
-               ``ops`` wrappers, CUDA-event timing, the plain version's and
-               (7-point) ``conv3d``'s times, and the HBM bound;
+               ``ops`` wrappers, the launch plan (tile, points per thread,
+               stages, CTAs and bytes in flight per SM), CUDA-event
+               timing, a ``copy_`` of the same bytes, the plain version's
+               and (7-point) ``conv3d``'s times, and the HBM bound;
   5. tune    — ``tune flash_attention`` at granite-8b's attention (32
                heads, head_dim 128, bf16, causal, batch 1, seq 4096):
                predict every candidate, measure the top 4 and the default
@@ -92,7 +100,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 SEED = 0
-RAGGED = [(12, 37, 37), (20, 45, 45), (3, 9, 9)]
+# ragged shapes and the ring's edges: N not a multiple of 4, N below one
+# tile, M <= 2r, M below the ring's stages
+RAGGED = [(12, 37, 37), (20, 45, 45), (3, 9, 9), (12, 5, 5), (2, 33, 33),
+          (8, 64, 64), (4, 40, 40)]
 MAIN = {"stencil3d7pt": (512, 512, 512), "longrange3d": (130, 1015, 1015)}
 # tolerances of the reference's own kernel tests (tests/test_kernels.py):
 # the kernel contracts a*b+c into FMAs and the plain version does not
@@ -127,6 +138,8 @@ REAL_MODELS = {"gemma-7b": {**GRANITE, "heads": 16, "head_dim": 256},
 SIMT_BEFORE = {"gemma-7b": (64, 32), "zamba2-7b": (64, 64)}
 TC_KERNEL = re.compile(r"_ZN\w*?(flash_attention_(?:wgmma|bf16x3)_kernel)"
                        r"ILi(\d+)ELi(\d+)ELi(\d+)E\w*")
+STENCIL_KERNEL = re.compile(r"_ZN\w*?(stencil3d7pt|longrange3d)_kernel"
+                            r"ILi(\d+)E\w*")
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 USED = re.compile(r"Used (\d+) registers")
 
@@ -181,7 +194,7 @@ def compare(name: str, got, want, halo: int) -> tuple[float, float]:
     return err.max().item(), rel.max().item()
 
 
-def check_kernel(name: str, shape, fam, stencil) -> float:
+def check_kernel(name: str, shape, fam, stencil, ops) -> float:
     """The kernel (through its ops wrapper) against its plain version on
     the same inputs on the card; returns the max abs error."""
     args = stencil.make_inputs(name, shape, "cuda", SEED)
@@ -189,8 +202,9 @@ def check_kernel(name: str, shape, fam, stencil) -> float:
     want = fam.module.plain(*args)
     torch.cuda.synchronize()
     err, rel = compare(name, got, want, fam.module.RADIUS)
-    print(f"  {name:13s} {str(shape):17s} max abs err {err:.3e}  "
-          f"max rel err {rel:.3e}  ok")
+    plan = ops.plan(fam.module, args[0])
+    print(f"  {name:13s} {str(shape):17s} plan {plan.launch} max abs err "
+          f"{err:.3e}  max rel err {rel:.3e}  ok")
     return err
 
 
@@ -226,10 +240,13 @@ def main_path(name: str, fam, stencil, measure) -> dict:
     return {"pred": pred, "args": args, "out": out, "t_kernel": t_kernel}
 
 
-def report(name: str, run: dict, stencil, measure, h100, card: str) -> dict:
-    """Plain-version and library timings, the bound, and the kernels-line
-    entry for one main-path run (launches are filled in by the caller)."""
+def report(name: str, run: dict, stencil, measure, h100, card: str, ops,
+           sweep) -> dict:
+    """Plain-version, ``copy_`` and library timings, the bound, the launch
+    plan, and the kernels-line entry for one main-path run (launches are
+    filled in by the caller)."""
     fam, args, pred = stencil.family(name), run["args"], run["pred"]
+    plan = ops.plan(fam.module, args[0])
     err, rel = compare(name, run["out"], fam.module.plain(*args),
                        fam.module.RADIUS)
     t_plain = measure.time_cuda(lambda: fam.module.plain(*args), iters=3)
@@ -244,9 +261,18 @@ def report(name: str, run: dict, stencil, measure, h100, card: str) -> dict:
     bound = stencil.bound_seconds(name, args, h100)
     ms = run["t_kernel"].wall_s * 1e3
     bound_ms = bound.seconds * 1e3
+    copy_ms = sweep.copy_yardstick(bound.bytes).wall_s * 1e3
     print(f"  {name} {MAIN[name]} on {card}:")
+    print(f"    plan     tile ({plan.bj}, {plan.bi}), {plan.c} points per "
+          f"thread, {plan.stages} stages ({plan.ahead} planes in flight), "
+          f"chunks of {plan.chunk} planes, {plan.ctas} CTAs of "
+          f"{plan.threads} threads, {plan.smem_bytes} B shared, "
+          f"{plan.ctas_per_sm} CTA/SM, {plan.in_flight_per_sm} B in flight "
+          f"per SM, {plan.words_per_point:.3f} words fetched per point")
     print(f"    kernel   {ms:.4f} ms  ({bound.bytes / (ms / 1e3) / 1e12:.3f}"
           f" TB/s effective, {bound_ms / ms:.1%} of the bound)")
+    print(f"    copy_    {copy_ms:.4f} ms for the same bytes "
+          f"({bound_ms / copy_ms:.1%} of the bound)")
     print(f"    bound    {bound_ms:.4f} ms by {bound.by}  (bytes: "
           f"{bound.bytes / 1e9:.3f} GB at {h100.hbm_bandwidth / 1e12:.2f} "
           f"TB/s, {bound.bytes_s * 1e3:.4f} ms; ops at "
@@ -267,7 +293,11 @@ def report(name: str, run: dict, stencil, measure, h100, card: str) -> dict:
             "max_abs_err": err, "ms": ms,
             "plain_ms": t_plain.wall_s * 1e3, "bound_ms": bound_ms,
             "bound_by": bound.by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "copy_ms": copy_ms,
+            "plan": {"tile": [plan.bj, plan.bi], "c": plan.c,
+                     "stages": plan.stages, "chunk": plan.chunk,
+                     "ctas": plan.ctas, "ctas_per_sm": plan.ctas_per_sm,
+                     "in_flight_per_sm": plan.in_flight_per_sm}}
 
 
 def fa_compare(what: str, got, want, dtype) -> float:
@@ -721,6 +751,35 @@ def check_build(_build, fa, info: dict) -> dict[str, int]:
     return hgmma
 
 
+def check_stencil_build(_build, ops, stencil, info: dict) -> None:
+    """No stencil kernel instantiation spills, and the advisor's shared
+    bytes and threads agree with each library's ``repro_<kernel>_limits``
+    at the main-path and ragged shapes."""
+    key, spills = None, {}
+    for name in MAIN:
+        for ln in info[name]["ptxas"]:
+            m = STENCIL_KERNEL.search(ln)
+            if "Compiling" in ln:
+                key = f"{m[1]}<C={m[2]}>" if m else None
+            elif key and SPILL.search(ln):
+                spills[key] = int(SPILL.search(ln)[1])
+    print(f"  stencil spill stores (bytes): {spills}")
+    if len(spills) != 2 * 4 or any(spills.values()):
+        raise SmokeError(f"a stencil kernel spills or is missing: {spills}")
+    for name in MAIN:
+        mod = stencil.family(name).module
+        for shape in RAGGED + [MAIN[name]]:
+            plan = ops.blocking.stencil_cta_tile(mod.RADIUS, shape, mod.OWN)
+            got = _build.compiled_limits(name, plan.launch)
+            if got != (plan.smem_bytes, plan.threads):
+                raise SmokeError(f"{name} {shape} plan {plan.launch}: the "
+                                 f"library states {got}, the advisor "
+                                 f"{(plan.smem_bytes, plan.threads)}")
+        print(f"  {name}: advisor and repro_{name}_limits agree at "
+              f"{len(RAGGED) + 1} shapes; main-path plan "
+              f"{ops.blocking.stencil_cta_tile(mod.RADIUS, MAIN[name], mod.OWN).launch}")
+
+
 def smoke(out_path: str | None) -> int:
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is False: this smoke "
@@ -733,7 +792,7 @@ def smoke(out_path: str | None) -> int:
     from repro_torch.core import machine as machine_mod
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.tune import measure, space, stencil
+    from repro_torch.tune import measure, space, stencil, sweep
 
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
@@ -757,13 +816,14 @@ def smoke(out_path: str | None) -> int:
     print(f"built {sorted(info)} in {time.perf_counter() - t0:.1f} s "
           "(parallel nvcc, sm_90a)")
     hgmma = check_build(_build, fa, info)
+    check_stencil_build(_build, ops, stencil, info)
 
     phase("3 check against the plain versions on the card")
     max_err = {}
     for name in MAIN:
         fam = stencil.family(name)
         for shape in RAGGED + [MAIN[name]]:
-            err = check_kernel(name, shape, fam, stencil)
+            err = check_kernel(name, shape, fam, stencil, ops)
             max_err[name] = max(max_err.get(name, 0.0), err)
     split_err = check_split(fa)
     fa_err = check_flash(fa, ops, space)
@@ -782,7 +842,7 @@ def smoke(out_path: str | None) -> int:
             raise SmokeError(f"main path never launched the {name} kernel")
     entries, predicted = [], {}
     for name, run in runs.items():
-        e = report(name, run, stencil, measure, h100, card)
+        e = report(name, run, stencil, measure, h100, card, ops, sweep)
         e["launches"] = launches[name]
         e["max_abs_err"] = max(max_err[name], e["max_abs_err"])
         predicted[name] = {"ecm_ms": run["pred"].ecm_s * 1e3,

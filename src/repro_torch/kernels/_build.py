@@ -145,15 +145,19 @@ def check_grid(*tensors: torch.Tensor) -> tuple[int, int]:
     return int(t0.shape[0]), int(t0.shape[1])
 
 
-def check_tile(tile: tuple[int, int], radius: int) -> tuple[int, int]:
-    """Validate a CTA ``(bj, bi)`` tile against the launch limits of a
-    radius-``radius`` stencil kernel."""
-    bj, bi = (int(x) for x in tile)
-    if bj < max(1, radius) or bi < 32 or bi % 32 or bj * bi > 1024:
-        raise ValueError(f"CTA tile (bj={bj}, bi={bi}) needs bi a multiple "
-                         f"of 32, bj >= {max(1, radius)} and bj*bi <= 1024 "
-                         "threads")
-    return bj, bi
+def check_tile(tile: tuple[int, ...], shape) -> tuple[int, ...]:
+    """Validate the grid that the launch plan ``(bj, bi, c, stages,
+    chunk)`` of a ring stencil kernel gives on an ``(M, N, N)`` array;
+    returns the plan.  Raises ``ValueError`` for a grid the kernel would
+    refuse, on every device."""
+    M, N = shape
+    bj, chunk = tile[0], tile[4]
+    if chunk < 1 or N * N >= 2 ** 31 or M >= 2 ** 31 \
+            or -(-N // bj) > 65535 or -(-M // chunk) > 65535:
+        raise ValueError(f"CTA tile {tile} on ({M}, {N}, {N}): needs a chunk "
+                         "of at least one plane, N*N < 2**31 and at most "
+                         "65535 tiles along j and chunks along k")
+    return tile
 
 
 def entry(name: str, argtypes: list, symbol: str = ""):
@@ -168,12 +172,27 @@ def entry(name: str, argtypes: list, symbol: str = ""):
 
 
 def bind(name: str, n_ptrs: int, n_coef: int):
-    """The binding of a stencil launch function: pointers, M, N, the tile
-    and the coefficients by value, then the stream."""
+    """The binding of a stencil launch function: pointers, M, N, the plan
+    ``(bj, bi, c, stages, chunk)`` and the coefficients by value, then the
+    stream."""
     return entry(name, [ctypes.c_void_p] * n_ptrs
-                 + [ctypes.c_longlong, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_int]
+                 + [ctypes.c_longlong, ctypes.c_longlong]
+                 + [ctypes.c_int] * 5
                  + [ctypes.c_float] * n_coef + [ctypes.c_void_p])
+
+
+def compiled_limits(name: str, tile) -> tuple[int, int]:
+    """(shared bytes, threads) of one CTA of the plan ``(bj, bi, c,
+    stages)`` (a chunk, if given, is ignored) as the built library states
+    them (``repro_<name>_limits``); raises ``RuntimeError`` where the
+    library refuses the plan.  Builds the library if needed."""
+    fn = entry(name, [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
+               symbol=f"{name}_limits")
+    smem, threads = ctypes.c_longlong(), ctypes.c_int()
+    check_status(f"{name}_limits", fn(*(int(x) for x in tile[:4]),
+                                      ctypes.byref(smem),
+                                      ctypes.byref(threads)))
+    return smem.value, threads.value
 
 
 def check_status(name: str, err: int) -> None:

@@ -70,6 +70,8 @@ SMEM_PER_SM = 233472
 SMEM_RESERVED = 1024
 THREADS_PER_SM = 2048
 CTAS_PER_SM = 32
+#: the JAX kernel's default block_q and block_kv
+JAX_DEFAULT_BLOCK = 128
 #: the q-block grid axis is the launch's y dimension
 MAX_Q_BLOCKS = 65535
 #: the grid the tensor-core kernels are instantiated on (:func:`_built`
@@ -491,21 +493,30 @@ split_bf16x3.launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, block_q: int = 128,
-                    block_kv: int = 128, q_offset: int | None = None,
+                    causal: bool = True, block_q: int | None = None,
+                    block_kv: int | None = None, q_offset: int | None = None,
                     force_simt: bool = False) -> torch.Tensor:
     """q: (b, h, sq, d); k, v: (b, h, skv, d), float32 or bfloat16,
     contiguous.  Grouped-head (GQA) callers broadcast kv heads before the
     call.  ``q_offset`` is the absolute position of q[0] in the kv
-    sequence (default ``skv - sq``).  On the card the kernel of the pair's
-    :func:`route` runs on the current stream without synchronising;
-    ``force_simt`` runs the CUDA-core kernel instead, within its own
-    limits (to time it where a tensor-core route is the rule)."""
+    sequence (default ``skv - sq``).  A block left as None takes the JAX
+    kernel's default, 128, which must divide its length as there; the
+    pair is then fitted to what launches (:func:`fit_blocks`).  On the
+    card the kernel of the pair's :func:`route` runs on the current
+    stream without synchronising; ``force_simt`` runs the CUDA-core
+    kernel instead, within its own limits (to time it where a tensor-core
+    route is the rule)."""
     b, h, sq, skv, d = _check_operands(q, k, v)
     if q_offset is None:
         q_offset = skv - sq
     _check_offset(causal, q_offset)
+    fit = block_q is None or block_kv is None
+    block_q = JAX_DEFAULT_BLOCK if block_q is None else block_q
+    block_kv = JAX_DEFAULT_BLOCK if block_kv is None else block_kv
     validate_blocks(sq, skv, block_q, block_kv)
+    if fit:
+        block_q, block_kv = fit_blocks(sq, skv, block_q, block_kv, d,
+                                       q.dtype)
     lim = (_simt_limits(int(block_q), int(block_kv), d) if force_simt
            else launch_limits(block_q, block_kv, d, q.dtype))
     if not lim.ok:

@@ -13,10 +13,13 @@ from __future__ import annotations
 import torch
 
 from .. import convert
+from ..core import blocking
 from ..core.trace import kernel_spec
 from . import _build, ref
 
 RADIUS = 4
+#: bare tiles each ring stage carries besides v's haloed one: u and roc
+OWN = 2
 # the kernel's (as the Pallas kernel's): each c_d multiplies the sum of its
 # six neighbours once, where the traced Listing-3 body multiplies it thrice
 FLOPS_PER_POINT = 33
@@ -47,18 +50,23 @@ def plain(u: torch.Tensor, v: torch.Tensor, roc: torch.Tensor,
 
 
 def longrange3d(u: torch.Tensor, v: torch.Tensor, roc: torch.Tensor, coeffs,
-                *, tile: tuple[int, int]) -> torch.Tensor:
+                *, tile) -> torch.Tensor:
     """U' = 2V - U + ROC * lap(V) in the interior; the width-4 boundary
     copies ``u``.
 
     ``u``, ``v``, ``roc``: float32 ``(M, N, N)``, contiguous, one device.
     ``coeffs``: 5 host numbers ``c0..c4``, passed to the kernel by value.
-    ``tile``: the CTA's ``(bj, bi)``, from
-    :func:`repro_torch.core.blocking.stencil_cta_tile`.  On the card the
+    ``tile``: the launch plan ``(bj, bi, c, stages, chunk)`` — the
+    CTA's in-plane tile, points per thread, ring stages and output planes
+    per CTA — or the
+    :class:`~repro_torch.core.blocking.StencilPlan` that
+    :func:`repro_torch.core.blocking.stencil_cta_tile` returns; a plan the
+    kernel cannot take raises ``ValueError`` on every device.  On the card the
     kernel runs on the current stream without synchronising."""
     M, N = _build.check_grid(u, v, roc)
     cvec = convert.longrange_vector(coeffs)
-    bj, bi = _build.check_tile(tile, RADIUS)
+    plan = _build.check_tile(blocking.check_launch(tile, RADIUS, OWN),
+                             (M, N))
     if u.device.type == "cpu":
         return plain(u, v, roc, cvec)
     fn = _build.bind("longrange3d", n_ptrs=4, n_coef=5)
@@ -67,7 +75,7 @@ def longrange3d(u: torch.Tensor, v: torch.Tensor, roc: torch.Tensor, coeffs,
         stream = torch.cuda.current_stream().cuda_stream
         _build.check_status("longrange3d", fn(
             u.data_ptr(), v.data_ptr(), roc.data_ptr(), out.data_ptr(),
-            M, N, bj, bi, *cvec, stream))
+            M, N, *plan, *cvec, stream))
     longrange3d.launches += 1
     return out
 

@@ -1,5 +1,6 @@
-"""Public wrappers for the port's kernels, with the CTA tiles chosen by the
-shared-memory advisors (:func:`repro_torch.core.blocking.stencil_cta_tile`,
+"""Public wrappers for the port's kernels, with the launch plans and CTA
+tiles chosen by the shared-memory advisors
+(:func:`repro_torch.core.blocking.stencil_cta_tile`,
 :func:`~repro_torch.core.blocking.attention_cta_tiles`) — the counterpart
 of ``repro.kernels.ops``, whose VMEM working-set guards the advisors
 replace.  A shape for which no legal tile exists raises ``ValueError``
@@ -14,22 +15,23 @@ from . import longrange3d as _lr
 from . import stencil3d7pt as _s7
 
 
-def _tile(radius: int, t: torch.Tensor) -> tuple[int, int]:
+def plan(module, t: torch.Tensor) -> blocking.StencilPlan:
+    """The advisor's launch plan for stencil ``module`` on grid ``t``."""
     if t.dim() != 3:
         raise ValueError(f"expected an (M, N, N) grid, got {tuple(t.shape)}")
-    tile = blocking.stencil_cta_tile(radius, tuple(t.shape))
-    return tile.bj, tile.bi
+    return blocking.stencil_cta_tile(module.RADIUS, tuple(t.shape),
+                                     module.OWN)
 
 
 def stencil3d7pt(a: torch.Tensor, coeffs) -> torch.Tensor:
     """The 7-point stencil of ``a``; coefficients in (W,E,N,S,F,B,s)."""
-    return _s7.stencil3d7pt(a, coeffs, tile=_tile(_s7.RADIUS, a))
+    return _s7.stencil3d7pt(a, coeffs, tile=plan(_s7, a))
 
 
 def longrange3d(u: torch.Tensor, v: torch.Tensor, roc: torch.Tensor,
                 coeffs) -> torch.Tensor:
     """The long-range stencil update of ``u``; coefficients c0..c4."""
-    return _lr.longrange3d(u, v, roc, coeffs, tile=_tile(_lr.RADIUS, u))
+    return _lr.longrange3d(u, v, roc, coeffs, tile=plan(_lr, u))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -13,10 +13,13 @@ from __future__ import annotations
 import torch
 
 from .. import convert
+from ..core import blocking
 from ..core.trace import kernel_spec
 from . import _build, ref
 
 RADIUS = 1
+#: bare tiles each ring stage carries besides the haloed one
+OWN = 0
 FLOPS_PER_POINT = 13    # the kernel's: 7 multiplies, 6 adds
 
 
@@ -41,17 +44,22 @@ def plain(a: torch.Tensor, coeffs) -> torch.Tensor:
     return ref.stencil3d7pt(a, convert.star7_dict(coeffs))
 
 
-def stencil3d7pt(a: torch.Tensor, coeffs, *, tile: tuple[int, int]) -> torch.Tensor:
+def stencil3d7pt(a: torch.Tensor, coeffs, *, tile) -> torch.Tensor:
     """b = 7-point stencil of ``a`` (boundary copies ``a``).
 
     ``a``: float32 ``(M, N, N)``, contiguous.  ``coeffs``: 7 host numbers
     in ``(W, E, N, S, F, B, s)`` order, passed to the kernel by value.
-    ``tile``: the CTA's ``(bj, bi)``, from
-    :func:`repro_torch.core.blocking.stencil_cta_tile`.  On the card the
+    ``tile``: the launch plan ``(bj, bi, c, stages, chunk)`` — the
+    CTA's in-plane tile, points per thread, ring stages and output planes
+    per CTA — or the
+    :class:`~repro_torch.core.blocking.StencilPlan` that
+    :func:`repro_torch.core.blocking.stencil_cta_tile` returns; a plan the
+    kernel cannot take raises ``ValueError`` on every device.  On the card the
     kernel runs on the current stream without synchronising."""
     M, N = _build.check_grid(a)
     cvec = convert.star7_vector(coeffs)
-    bj, bi = _build.check_tile(tile, RADIUS)
+    plan = _build.check_tile(blocking.check_launch(tile, RADIUS, OWN),
+                             (M, N))
     if a.device.type == "cpu":
         return plain(a, cvec)
     fn = _build.bind("stencil3d7pt", n_ptrs=2, n_coef=7)
@@ -59,7 +67,7 @@ def stencil3d7pt(a: torch.Tensor, coeffs, *, tile: tuple[int, int]) -> torch.Ten
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check_status("stencil3d7pt", fn(
-            a.data_ptr(), out.data_ptr(), M, N, bj, bi, *cvec, stream))
+            a.data_ptr(), out.data_ptr(), M, N, *plan, *cvec, stream))
     stencil3d7pt.launches += 1
     return out
 

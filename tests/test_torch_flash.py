@@ -112,6 +112,35 @@ def test_validate_blocks_raises_where_jax_raises(sq, skv, bq, bkv):
     assert t_msg == j_msg
 
 
+@pytest.mark.parametrize("d", [96, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_default_blocks_match_jax(d, dtype):
+    """Called without blocks, the port fits the JAX defaults (128, 128) to
+    what launches and returns the JAX kernel's result with its defaults."""
+    arrs = _inputs(1, 1, 128, 128, d, seed=d)
+    jq, tq, tol = _both(arrs, dtype)
+    want = j_fa.flash_attention(*jq)
+    got = t_fa.flash_attention(*tq)
+    assert got.dtype == tq[0].dtype and got.shape == tq[0].shape
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("sq, skv", [(100, 128), (128, 192)])
+def test_default_blocks_raise_where_jax_raises(sq, skv):
+    """Where 128 does not divide a length the JAX defaults raise, and the
+    port raises with the same message."""
+    jq = [jnp.zeros(s, jnp.float32) for s in ((1, 1, sq, 32),
+                                              (1, 1, skv, 32),
+                                              (1, 1, skv, 32))]
+    tq = [torch.zeros(s) for s in ((1, 1, sq, 32), (1, 1, skv, 32),
+                                   (1, 1, skv, 32))]
+    with pytest.raises(ValueError) as j_err:
+        j_fa.flash_attention(*jq)
+    with pytest.raises(ValueError) as t_err:
+        t_fa.flash_attention(*tq)
+    assert str(t_err.value) == str(j_err.value)
+
+
 def test_causal_negative_offset_raises():
     """Rows that see no key have no agreed answer in the JAX package
     (ROADMAP Queue 3): the kernel path and the plain version refuse."""

@@ -55,13 +55,21 @@ def test_wrappers_reject_bad_operands(bad, err):
     """Checks are the same on every device: float32, (M, N, N),
     contiguous — a float64 grid raises instead of being converted."""
     with pytest.raises(err):
-        t_s7.stencil3d7pt(bad, CVEC, tile=(8, 64))
+        t_s7.stencil3d7pt(bad, CVEC, tile=(8, 64, 4, 6, 8))
     with pytest.raises(err):
-        t_lr.longrange3d(bad, bad, bad, LR_C, tile=(16, 32))
+        t_lr.longrange3d(bad, bad, bad, LR_C, tile=(16, 32, 4, 9, 8))
 
 
-@pytest.mark.parametrize("tile", [(8, 48), (0, 32), (64, 32), (1, 16)])
+@pytest.mark.parametrize("tile", [
+    (8, 48, 1, 8, 4), (0, 32, 1, 8, 4), (64, 32, 1, 8, 4), (1, 16, 1, 8, 4),
+    (8, 64), (8, 32, 1, 8), (8, 32, 3, 8, 4), (6, 32, 4, 8, 4),
+    (8, 32, 1, 3, 4), (8, 32, 1, 15, 4), (64, 256, 8, 12, 4),
+    (8, 32, 1, 8, 0)])
 def test_wrappers_reject_illegal_tiles(tile):
+    """Whole warps, a plan of five numbers, instantiated points per thread
+    dividing bj, at most 512 threads, 1..8 planes in flight, the stages
+    within 227 KiB and a chunk of at least one plane: both kernels refuse
+    the rest on the CPU too, before anything launches."""
     a = torch.zeros(4, 8, 8)
     with pytest.raises(ValueError, match="CTA tile"):
         t_s7.stencil3d7pt(a, CVEC, tile=tile)
@@ -70,12 +78,38 @@ def test_wrappers_reject_illegal_tiles(tile):
 
 
 def test_longrange_tile_needs_radius_rows():
-    """Each of the first r thread rows loads one halo row above and one
-    below, so the long-range kernel needs bj >= 4."""
+    """The long-range kernel's limits ask for bj >= 4 and stages >= 7
+    (4 planes of the output's neighbourhood, the step's slack and one in
+    flight)."""
     a = torch.zeros(4, 8, 8)
     with pytest.raises(ValueError, match="bj >= 4"):
-        t_lr.longrange3d(a, a, a, LR_C, tile=(3, 32))
-    t_lr.longrange3d(a, a, a, LR_C, tile=(4, 32))
+        t_lr.longrange3d(a, a, a, LR_C, tile=(3, 32, 1, 7, 4))
+    with pytest.raises(ValueError, match="7 <= stages"):
+        t_lr.longrange3d(a, a, a, LR_C, tile=(4, 32, 1, 6, 4))
+    t_lr.longrange3d(a, a, a, LR_C, tile=(4, 32, 1, 7, 4))
+
+
+@pytest.mark.parametrize("kernel, plan", [
+    (t_s7, (8, 32, 8, 4, 5)), (t_s7, (2, 64, 2, 11, 2)),
+    (t_lr, (8, 32, 8, 7, 5)), (t_lr, (4, 32, 4, 14, 1)),
+    (t_lr, (32, 64, 8, 8, 3))])
+def test_wrappers_take_legal_plans(kernel, plan):
+    """A legal plan, as a tuple or as the advisor's StencilPlan, runs the
+    plain version on the CPU and gives the same answer as the ops
+    wrapper."""
+    (a,) = _grids((5, 12, 12), 1, seed=2)
+    t = torch.from_numpy(a)
+    shape = tuple(t.shape)
+    sp = blocking.make_plan(kernel.RADIUS, shape, *plan, own=kernel.OWN)
+    assert sp.launch == plan
+    for tile in (plan, sp):
+        if kernel is t_s7:
+            got, want = (t_s7.stencil3d7pt(t, CVEC, tile=tile),
+                         ops.stencil3d7pt(t, CVEC))
+        else:
+            got, want = (t_lr.longrange3d(t, t, t, LR_C, tile=tile),
+                         ops.longrange3d(t, t, t, LR_C))
+        assert torch.equal(got, want)
 
 
 def test_cpu_path_counts_no_launch():
@@ -135,31 +169,52 @@ def test_bound_seconds(name, grids, flops):
 # ----------------------------------------------------------------------
 
 @settings(max_examples=25, deadline=None)
-@given(radius=st.integers(0, 8), n=st.integers(1, 4096))
-def test_cta_tile_property(radius, n):
-    """Every tile fits the shared-memory budget and the thread limit, bi is
-    a whole number of warps, and bj >= radius."""
-    t = blocking.stencil_cta_tile(radius, (16, n, n))
-    assert t.smem_bytes == \
-        blocking.TILES * (t.bj + 2 * radius) * (t.bi + 2 * radius) * 4
+@given(radius=st.integers(0, 8), n=st.integers(1, 4096),
+       own=st.sampled_from([0, 2]))
+def test_cta_tile_property(radius, n, own):
+    """Every plan's stages fit the per-CTA budget, and the CTAs it counts
+    on an SM fit the SM's shared memory and threads; bi is a whole number
+    of warps, bj >= radius, c >= 1 one of the instantiated counts dividing
+    bj, 1..MAX_AHEAD planes in flight, and the stated bytes in flight."""
+    t = blocking.stencil_cta_tile(radius, (16, n, n), own)
+    haloed = (t.bj + 2 * radius) * (t.bi + 2 * radius)
+    assert t.stage_bytes == 4 * (haloed + own * t.bj * t.bi)
+    assert t.halo == radius and t.own == own
+    assert t.smem_bytes == 4 * (t.stages * haloed + haloed
+                                + (t.stages - radius) * own * t.bj * t.bi)
+    assert 1 <= t.chunk <= 16 and t.ctas >= -(-n // t.bi) * -(-n // t.bj)
     assert t.smem_bytes <= blocking.SMEM_PER_CTA <= 227 * 1024
-    assert t.bi % 32 == 0 and t.threads <= blocking.THREADS <= 1024
-    assert max(1, radius) <= t.bj <= max(n, radius)
-    assert t.words_per_point >= 1.0
+    assert 1 <= t.ctas_per_sm
+    assert t.ctas_per_sm * (t.smem_bytes + blocking.SMEM_RESERVED) \
+        <= blocking.SMEM_PER_SM
+    assert t.ctas_per_sm * t.threads <= blocking.THREADS_PER_SM
+    assert t.bi % 32 == 0 and t.threads <= blocking.THREADS <= 512
+    assert t.c == blocking.POINTS_PER_THREAD in blocking.POINTS
+    assert t.bj % t.c == 0
+    assert max(1, radius) <= t.bj <= max(n, radius) + t.c - 1
+    assert 1 <= t.ahead == t.stages - radius - 2 <= blocking.MAX_AHEAD
+    assert t.in_flight_per_sm == t.ctas_per_sm * t.ahead * t.stage_bytes
+    assert t.words_per_point >= 1.0 + own
+    assert blocking.plan_limits(radius, own, *t.launch[:4]) == \
+        (t.smem_bytes, t.threads)
 
 
 def test_cta_tile_main_path_shapes():
-    """The tiles the main path launches with (float32)."""
-    t7 = blocking.stencil_cta_tile(1, (512, 512, 512))
-    tl = blocking.stencil_cta_tile(4, (130, 1015, 1015))
-    assert (t7.bj, t7.bi) == (4, 64)
-    assert (tl.bj, tl.bi) == (8, 32)
+    """The plans the main path launches with (float32)."""
+    t7 = blocking.stencil_cta_tile(1, (512, 512, 512), t_s7.OWN)
+    tl = blocking.stencil_cta_tile(4, (130, 1015, 1015), t_lr.OWN)
+    assert t7.launch == (32, 64, 4, 5, 103)
+    assert tl.launch == (32, 64, 4, 8, 130)
+    assert (t7.ctas, t7.ctas_per_sm, tl.ctas, tl.ctas_per_sm) == \
+        (640, 4, 512, 1)
+    assert t7.in_flight_per_sm >= blocking.IN_FLIGHT_PER_SM
+    assert tl.in_flight_per_sm >= blocking.IN_FLIGHT_PER_SM
 
 
-@pytest.mark.parametrize("radius", [9, 16])
+@pytest.mark.parametrize("radius", [16, 24])
 def test_advisor_raises_without_legal_tile(radius):
-    """A halo of more than THREADS // 32 rows leaves no tile of whole warps
-    that fits the thread limit."""
+    """A halo so wide that its fewest stages (radius + 3) of the smallest
+    haloed tile exceed the shared memory leaves no plan."""
     with pytest.raises(ValueError, match="no legal CTA tile"):
         blocking.stencil_cta_tile(radius, (40, 64, 64))
     with pytest.raises(ValueError, match="radius must be non-negative"):
@@ -184,9 +239,17 @@ def _boundary(shape, r):
     return ~inner
 
 
+# shapes at the ring's edges: N not a multiple of 4 and below one tile,
+# M <= 2r, M below the stages
+EDGE_SHAPES = [(12, 5, 5), (3, 9, 9), (2, 33, 33), (8, 64, 64), (4, 40, 40),
+               (12, 37, 37)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(3, 9, 9), (12, 37, 37), (20, 45, 45),
-                                   (6, 16, 16), (5, 1, 1), (2, 33, 33)])
+                                   (6, 16, 16), (5, 1, 1), (2, 33, 33),
+                                   (12, 5, 5), (8, 64, 64), (4, 40, 40),
+                                   (70, 33, 33)])
 def test_cuda_stencil7pt_matches_plain(cuda, shape):
     (a,) = _grids(shape, 1, seed=7)
     t = convert.to_tensor(a, cuda)
@@ -202,7 +265,9 @@ def test_cuda_stencil7pt_matches_plain(cuda, shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(3, 9, 9), (12, 37, 37), (20, 45, 45),
-                                   (9, 40, 40), (11, 2, 2), (8, 64, 64)])
+                                   (9, 40, 40), (11, 2, 2), (8, 64, 64),
+                                   (12, 5, 5), (2, 33, 33), (6, 40, 40),
+                                   (70, 33, 33)])
 def test_cuda_longrange_matches_plain(cuda, shape):
     u, v, roc = _grids(shape, 3, seed=11)
     t = [convert.to_tensor(x, cuda) for x in (u, v, roc)]
@@ -216,11 +281,55 @@ def test_cuda_longrange_matches_plain(cuda, shape):
     np.testing.assert_array_equal(got[edge], u[edge])
 
 
+def _edge_plan(radius, c):
+    """A two-row-of-threads tile (at least r rows) of one warp's width."""
+    return max(2 * c, -(-radius // c) * c), 32, c
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", [(1, 32), (32, 32), (4, 256), (1, 1024)])
+@pytest.mark.parametrize("chunk", [3, 1000])
+@pytest.mark.parametrize("stages", range(4, 12))
+@pytest.mark.parametrize("c", blocking.POINTS)
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_cuda_stencil7pt_every_plan(cuda, shape, c, stages, chunk):
+    """Every points-per-thread count and every stage count the kernel
+    takes, with k in chunks of 3 planes and whole, at the ring's edge
+    shapes; boundaries bit-exact."""
+    (a,) = _grids(shape, 1, seed=17)
+    t = convert.to_tensor(a, cuda)
+    got = t_s7.stencil3d7pt(t, CVEC,
+                            tile=(*_edge_plan(1, c), stages, chunk))
+    got = got.cpu().numpy()
+    np.testing.assert_allclose(got, t_s7.plain(t, CVEC).cpu().numpy(),
+                               **TOL7)
+    edge = _boundary(shape, 1)
+    np.testing.assert_array_equal(got[edge], a[edge])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [3, 1000])
+@pytest.mark.parametrize("stages", range(7, 15))
+@pytest.mark.parametrize("c", blocking.POINTS)
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_cuda_longrange_every_plan(cuda, shape, c, stages, chunk):
+    """The same for the long-range kernel (stages 7..14)."""
+    u, v, roc = _grids(shape, 3, seed=19)
+    t = [convert.to_tensor(x, cuda) for x in (u, v, roc)]
+    got = t_lr.longrange3d(*t, LR_C,
+                           tile=(*_edge_plan(4, c), stages, chunk))
+    got = got.cpu().numpy()
+    np.testing.assert_allclose(got, t_lr.plain(*t, LR_C).cpu().numpy(),
+                               **TOL_LR)
+    edge = _boundary(shape, 4)
+    np.testing.assert_array_equal(got[edge], u[edge])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [(1, 32, 1, 4, 10), (32, 32, 8, 6, 3),
+                                  (8, 256, 4, 5, 7), (16, 128, 8, 11, 1)])
 def test_cuda_stencil7pt_takes_any_legal_tile(cuda, tile):
-    """Results do not depend on the CTA tile, from one-row tiles up to
-    1024-thread CTAs."""
+    """Results do not depend on the launch plan, from one-row tiles up to
+    512-thread CTAs."""
     a = convert.to_tensor(_grids((10, 70, 70), 1, 5)[0], cuda)
     np.testing.assert_allclose(
         t_s7.stencil3d7pt(a, CVEC, tile=tile).cpu().numpy(),
@@ -228,13 +337,40 @@ def test_cuda_stencil7pt_takes_any_legal_tile(cuda, tile):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", [(4, 32), (32, 32), (4, 256), (5, 64)])
+@pytest.mark.parametrize("tile", [(4, 32, 4, 7, 10), (32, 32, 8, 8, 3),
+                                  (8, 128, 8, 8, 5), (5, 64, 1, 9, 1)])
 def test_cuda_longrange_takes_any_legal_tile(cuda, tile):
     u, v, roc = (convert.to_tensor(x, cuda) for x in _grids((10, 70, 70), 3,
                                                            5))
     np.testing.assert_allclose(
         t_lr.longrange3d(u, v, roc, LR_C, tile=tile).cpu().numpy(),
         t_lr.plain(u, v, roc, LR_C).cpu().numpy(), **TOL_LR)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", [t_s7, t_lr])
+def test_cuda_stencil_limits_match_the_source(cuda, kernel):
+    """The library's repro_<kernel>_limits and blocking.plan_limits state
+    one rule: the same bytes and threads, or both refuse."""
+    from repro_torch.kernels import _build
+    name = kernel.__name__.rsplit(".", 1)[1]
+    agreed = refused = 0
+    for bj in (1, 3, 4, 8, 32, 64):
+        for bi in (16, 32, 64, 96, 256, 512):
+            for c in (1, 2, 3, 4, 8):
+                for stages in (3, 4, 6, 7, 10, 14, 15):
+                    plan = (bj, bi, c, stages)
+                    try:
+                        want = blocking.plan_limits(kernel.RADIUS,
+                                                    kernel.OWN, *plan)
+                    except ValueError:
+                        with pytest.raises(RuntimeError):
+                            _build.compiled_limits(name, plan)
+                        refused += 1
+                        continue
+                    assert _build.compiled_limits(name, plan) == want
+                    agreed += 1
+    assert agreed and refused
 
 
 @pytest.mark.gpu
