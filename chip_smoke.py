@@ -45,17 +45,34 @@ followed by its seconds:
                stages, CTAs and bytes in flight per SM), CUDA-event
                timing, a ``copy_`` of the same bytes, the plain version's
                and (7-point) ``conv3d``'s times, and the HBM bound;
+  4b. stencil tune — ``tune stencil3d7pt`` and ``tune longrange3d`` on the
+               H100 machine file at their defaults: predict every block
+               edge through ``grid_search``'s compiled plan at 132 cores,
+               measure the top 5 (the top 4 and the default at least) in
+               child processes on the CUDA kernels, write the calibration
+               into the copy of the machine file under ``build/``, and
+               print each candidate's predicted and measured time,
+               ``rms_log`` before and after calibration, the chosen block
+               edge against the default, and one run of the chosen
+               candidate in this process (its launches counted, held
+               against the plain version); then where ``grid_search``
+               changes regime at 132 SMs, ``lc_block_size`` per
+               level of the machine file for both traced kernels and the
+               paper's C long-range listing, and ECM at phase 4's
+               full-size shapes from the calibrated copy beside phase 4's
+               uncalibrated figures;
   5. tune    — ``tune flash_attention`` at granite-8b's attention (32
                heads, head_dim 128, bf16, causal, batch 1, seq 4096):
                predict every candidate, measure the top 4 and the default
-               in spawned children, derive calibration and write it to a
-               copy of the machine file under ``build/``; then one launch
+               in child processes, derive calibration and merge it into
+               the copy of the machine file under ``build/`` (the stencil
+               factors of 4b stay); then one launch
                at the chosen blocks in this process, held against the
                plain version and timed beside the plain version, SDPA
                (the yardstick only) and the bound.  The chosen blocks
                must take the wgmma route, and its counter must move;
   6. f32     — ``tune flash_attention`` at the same attention in float32
-               (top 4 and the default measured in spawned children, no
+               (top 4 and the default measured in child processes, no
                calibration written); the chosen blocks must take the
                bf16x3 route: one launch held against the plain version,
                timed with its split pass (the split also alone), beside
@@ -71,11 +88,11 @@ followed by its seconds:
                the plain version, SDPA (the yardstick only) and the bound
                at the real head dim (and at the padded one); then ``tune
                flash_attention`` at gemma-7b's attention in bf16 (top 4 and
-               the default measured in spawned children), whose choice
+               the default measured in child processes), whose choice
                must take the wgmma route.
-     Launch counters are zeroed just before each main path (4, 5, 6, and
-     each model and type of 7) and must be positive just after it (in 6:
-     bf16x3, its split, simt);
+     Launch counters are zeroed just before each main path (4, each
+     family of 4b, 5, 6, and each model and type of 7) and must be
+     positive just after it (in 6: bf16x3, its split, simt);
   8. a JSON line naming each ported kernel (flash attention once per
      route, and once per route, model and type of 7), then the card's
      line, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -136,6 +153,9 @@ REAL_MODELS = {"gemma-7b": {**GRANITE, "heads": 16, "head_dim": 256},
 # tensor-core route: default_config's (64, 64) row, its block_kv halved
 # at 256 until the fp32-staged tiles fit a CTA
 SIMT_BEFORE = {"gemma-7b": (64, 32), "zamba2-7b": (64, 64)}
+# the stencil tunes measure the top 5 by prediction and the default: at
+# least the top 4 and the default when the default is among the top 4
+STENCIL_TOP_K = 5
 TC_KERNEL = re.compile(r"_ZN\w*?(flash_attention_(?:wgmma|bf16x3)_kernel)"
                        r"ILi(\d+)ELi(\d+)ELi(\d+)E\w*")
 STENCIL_KERNEL = re.compile(r"_ZN\w*?(stencil3d7pt|longrange3d)_kernel"
@@ -453,6 +473,32 @@ def print_ratios(rep, fa, config) -> None:
               + f", measured/predicted {ratio}")
 
 
+def calibration_copy(tune_mod) -> pathlib.Path:
+    """Where the calibrated copy of the H100 machine file goes."""
+    return ROOT / "build" / "chip_smoke" / tune_mod.machine_yaml_path(
+        "H100").name
+
+
+def write_calibration(tune_mod, machine_mod, calibration: dict,
+                      fresh: bool) -> pathlib.Path:
+    """Merge ``calibration`` into :func:`calibration_copy` (made anew from
+    the tracked file when ``fresh`` or missing): each family's and each
+    level's factor stays beside the others', a factor of the same name is
+    replaced.  The tracked file is never written.  Returns the copy's
+    path."""
+    cal_copy = calibration_copy(tune_mod)
+    cal_copy.parent.mkdir(parents=True, exist_ok=True)
+    if fresh or not cal_copy.exists():
+        cal_copy.write_text(tune_mod.machine_yaml_path("H100").read_text())
+    prev = machine_mod.Machine.from_yaml(cal_copy).calibration or {}
+    merged = {**prev, **calibration}
+    for key in ("levels", "time", "meta"):
+        if key in prev or key in calibration:
+            merged[key] = {**prev.get(key, {}), **calibration.get(key, {})}
+    tune_mod.apply_calibration(cal_copy, merged)
+    return cal_copy
+
+
 def tune_path(fa, space, tune_mod, measure, machine_mod, config: dict,
               expect: str, calibrate: bool) -> dict:
     """The tuner at ``config``, with calibration written to a copy of the
@@ -468,15 +514,16 @@ def tune_path(fa, space, tune_mod, measure, machine_mod, config: dict,
                          "lost one")
     factor = None
     if calibrate:
-        h100_yaml = tune_mod.machine_yaml_path("H100")
-        cal_copy = ROOT / "build" / "chip_smoke" / h100_yaml.name
-        cal_copy.parent.mkdir(parents=True, exist_ok=True)
-        cal_copy.write_text(h100_yaml.read_text())
-        tune_mod.apply_calibration(cal_copy, rep.calibration)
-        factor = machine_mod.Machine.from_yaml(cal_copy).calibration_factor(
-            "time", "flash_attention")
-        print(f"  calibration written to {cal_copy.relative_to(ROOT)}; "
-              f"reloaded: time[flash_attention] = {factor:.6g}")
+        cal_copy = write_calibration(tune_mod, machine_mod, rep.calibration,
+                                     fresh=False)
+        reloaded = machine_mod.Machine.from_yaml(cal_copy)
+        factor = reloaded.calibration_factor("time", "flash_attention")
+        kept = sorted(reloaded.calibration["time"])
+        print(f"  calibration merged into {cal_copy.relative_to(ROOT)}; "
+              f"reloaded: time[flash_attention] = {factor:.6g}, time "
+              f"factors {kept}, levels {reloaded.calibration.get('levels')}")
+        if not set(MAIN) <= set(kept):
+            raise SmokeError(f"the stencil factors did not survive: {kept}")
     sp = space.resolve_space("flash_attention", "H100", **config)
     q, k, v = sp.inputs("cuda")
     bq, bkv = rep.chosen_params["block_q"], rep.chosen_params["block_kv"]
@@ -780,6 +827,112 @@ def check_stencil_build(_build, ops, stencil, info: dict) -> None:
               f"{ops.blocking.stencil_cta_tile(mod.RADIUS, MAIN[name], mod.OWN).launch}")
 
 
+def stencil_tune(name: str, tune_mod, space, stencil, machine_mod,
+                 fresh: bool) -> dict:
+    """``tune <name>`` on the H100 machine file at the space's defaults,
+    measured in child processes on the card; the calibration is merged
+    into the build copy and the candidates are predicted again from it;
+    one run of the chosen candidate in this process, counted and held
+    against the plain version."""
+    fam = stencil.family(name)
+    wrapper = getattr(fam.module, name)
+    rep = tune_mod.tune(name, "H100", top_k=STENCIL_TOP_K, isolate=True,
+                        device="cuda")
+    print("  " + rep.render().replace("\n", "\n  "))
+    measured = rep.measured_outcomes
+    if rep.n_failed or len(measured) < STENCIL_TOP_K \
+            or rep.measured_default_s is None:
+        raise SmokeError(f"tune {name}: {rep.n_failed} candidates failed, "
+                         f"{len(measured)} measured, default measured: "
+                         f"{rep.measured_default_s is not None}")
+    cal_copy = write_calibration(tune_mod, machine_mod, rep.calibration,
+                                 fresh)
+    again = tune_mod.tune(name, str(cal_copy), measure=False)
+    after = {c.params["n"]: c.predicted_s for c in again.candidates
+             if c.predicted_s is not None}
+    sp = space.resolve_space(name, "H100")
+    print(f"  {'n':>4s} {'repeats':>7s} {'predicted ms':>12s} "
+          f"{'measured ms':>11s} {'meas/pred':>9s} {'calibrated':>10s}")
+    for c in sorted(measured, key=lambda c: c.params["n"]):
+        n = c.params["n"]
+        print(f"  {n:4d} {sp.repeats(n):7d} {c.predicted_s * 1e3:12.6f} "
+              f"{c.measured_s * 1e3:11.6f} "
+              f"{c.measured_s / c.predicted_s:9.3f} "
+              f"{c.measured_s / after[n]:10.3f}")
+    before = tune_mod.prediction_error(
+        [(c.predicted_s, c.measured_s) for c in measured])
+    cal_err = tune_mod.prediction_error(
+        [(after[c.params["n"]], c.measured_s) for c in measured])
+    print(f"  rms_log before calibration {before['rms_log']:.4f}, after "
+          f"{cal_err['rms_log']:.4f} (time[{name}] = "
+          f"{rep.calibration['time'][name]:.6g}, levels "
+          f"{rep.calibration.get('levels')})")
+    print(f"  chosen n={rep.chosen_params['n']} "
+          f"{rep.measured_chosen_s * 1e3:.6f} ms against the default "
+          f"n={rep.default_params['n']} {rep.measured_default_s * 1e3:.6f} "
+          f"ms per sample: {rep.speedup_vs_default:.3f}x")
+    n = rep.chosen_params["n"]
+    wrapper.launches = 0
+    out = sp.runner({"n": n}, "cuda")()
+    torch.cuda.synchronize()
+    launches = wrapper.launches
+    args = stencil.make_inputs(name, sp.shape(n), "cuda")
+    err, _ = compare(name, out, fam.module.plain(*args), fam.module.RADIUS)
+    print(f"  chosen n={n} once in this process: {launches} launches of "
+          f"the {name} kernel (repeats {sp.repeats(n)}), max abs err vs "
+          f"plain {err:.3e}")
+    if launches != sp.repeats(n) or launches <= 0:
+        raise SmokeError(f"tune {name}: the chosen candidate launched the "
+                         f"kernel {launches} times, not {sp.repeats(n)}")
+    return {"report": rep.to_dict(), "launches": launches,
+            "max_abs_err": err, "rms_log_before": before["rms_log"],
+            "rms_log_after": cal_err["rms_log"],
+            "predicted_after_ms": {n: s * 1e3 for n, s in after.items()}}
+
+
+def regime_changes(name: str, space, api, blocking, h100) -> list[int]:
+    """The block edges of the space's range at which ``grid_search``'s
+    saturated score at all SMs changes (the LC regime boundaries the
+    candidate range must straddle)."""
+    sp = space.resolve_space(name, "H100")
+    vals = [c.config["n"] for c in sp.candidates()]
+    kernel = api.load_kernel(f"trace:{name}", {"M": sp.config["m"]}, 4)
+    sms = int(h100.extra["SM count"])
+    gs = blocking.grid_search(kernel, h100, [("N", vals)],
+                              cores=list(range(1, sms + 1)))
+    last = gs.scores[:, -1]
+    changes = [vals[i + 1] for i in range(len(vals) - 1)
+               if last[i] != last[i + 1]]
+    print(f"  {name}: grid_search at {sms} SMs over n = {vals[0]}.."
+          f"{vals[-1]} changes regime at n = {changes}")
+    return changes
+
+
+def block_sizes(api, blocking, h100) -> dict:
+    """``lc_block_size`` (safety 0.5, the default) per level of the H100
+    machine file, and of the L2's share per SM when all 132 run, for
+    both traced kernels at 4 bytes and the paper's C long-range listing
+    at its own 8-byte doubles."""
+    kernels = {
+        "stencil3d7pt traced, 4 B, M=16":
+            api.load_kernel("trace:stencil3d7pt", {"M": 16}, 4),
+        "longrange3d traced, 4 B, M=16":
+            api.load_kernel("trace:longrange3d", {"M": 16}, 4),
+        "stencil_3d_long_range.c, 8 B, M=130":
+            api.load_kernel("stencil_3d_long_range.c", {"M": 130}),
+    }
+    levels = {lv.name: lv.size_bytes for lv in h100.levels}
+    sms = int(h100.extra["SM count"])
+    levels[f"L2/{sms}"] = h100.levels[-1].size_bytes / sms
+    out = {}
+    for what, k in kernels.items():
+        out[what] = {lvl: blocking.lc_block_size(k, size)
+                     for lvl, size in levels.items()}
+        print(f"  lc_block_size {what:38s} " + ", ".join(
+            f"{lvl} N <= {b}" for lvl, b in out[what].items()))
+    return out
+
+
 def smoke(out_path: str | None) -> int:
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is False: this smoke "
@@ -789,6 +942,7 @@ def smoke(out_path: str | None) -> int:
                          "from a checkout of the repository")
     sys.path.insert(0, str(SRC))
     from repro_torch import tune as tune_mod
+    from repro_torch.core import api, blocking
     from repro_torch.core import machine as machine_mod
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
@@ -851,6 +1005,30 @@ def smoke(out_path: str | None) -> int:
         del run["args"], run["out"]
         torch.cuda.empty_cache()
 
+    phase("4b tune the stencils on the H100")
+    stencil_tunes = {name: stencil_tune(name, tune_mod, space, stencil,
+                                        machine_mod, fresh=i == 0)
+                     for i, name in enumerate(MAIN)}
+    cal_copy = calibration_copy(tune_mod)
+    predicted["regime_changes"] = {
+        name: regime_changes(name, space, api, blocking, h100)
+        for name in MAIN}
+    predicted["block_sizes"] = block_sizes(api, blocking, h100)
+    for name in MAIN:
+        unc, ms = runs[name]["pred"], runs[name]["t_kernel"].wall_s * 1e3
+        cal = stencil.predict_seconds(name, MAIN[name], str(cal_copy),
+                                      calibrated=True)
+        print(f"  {name} {MAIN[name]} measured {ms:.4f} ms: ECM "
+              f"{unc.ecm_s * 1e3:.4f} ms uncalibrated (measured/predicted "
+              f"{ms / (unc.ecm_s * 1e3):.3f}), {cal.ecm_s * 1e3:.4f} ms "
+              f"calibrated (measured/predicted {ms / (cal.ecm_s * 1e3):.3f}"
+              f"), {cal.ecm.notation()} overlapped "
+              f"{[(n, round(c, 3)) for n, c in cal.ecm.overlapped]}")
+        stencil_tunes[name]["ecm_calibrated_ms"] = cal.ecm_s * 1e3
+        stencil_tunes[name]["ecm_uncalibrated_ms"] = unc.ecm_s * 1e3
+        stencil_tunes[name]["main_path_ms"] = ms
+        predicted[f"tune_{name}"] = stencil_tunes[name]
+
     phase("5 tune flash_attention at granite-8b's attention")
     counts = fa.flash_attention.launches_by_route
     for r in counts:
@@ -861,7 +1039,7 @@ def smoke(out_path: str | None) -> int:
                        "wgmma", calibrate=True)
     fa_launches = dict(counts)
     print(f"  launches in this process during the tune path: {fa_launches} "
-          "(the measuring runs are in spawned children)")
+          "(the measuring runs are in child processes)")
     if fa_launches["wgmma"] <= 0:
         raise SmokeError("tune path never launched the wgmma flash kernel")
     rep = fa_run["report"]
@@ -884,8 +1062,8 @@ def smoke(out_path: str | None) -> int:
     fa_launches = dict(counts)
     split_launches = fa.split_bf16x3.launches
     print(f"  launches in this process during the f32 path: {fa_launches}, "
-          f"split {split_launches} (the measuring runs are in spawned "
-          "children)")
+          f"split {split_launches} (the measuring runs are in child "
+          "processes)")
     for r in ("bf16x3", "simt"):
         if fa_launches[r] <= 0:
             raise SmokeError(f"f32 path never launched the {r} flash kernel")

@@ -1,12 +1,18 @@
 """The port's command line: the ``tune`` subcommand of ``python -m repro``.
 
-    python -m repro_torch tune flash_attention -m H100 \\
+    python -m repro_torch tune {flash_attention|stencil3d7pt|longrange3d} \\
+        -m H100 \\
         [--shape NAME VALUE]... [--top-k K] [--no-measure] [--warmup N] \\
         [--reps N] [--timeout-s S] [--no-isolate] \\
         [--apply-calibration [YAML]] [--device cuda|cpu] [--json]
 
 It takes the JAX command's options, minus ``--cache-dir`` (the result
-store is not ported), plus ``--device``.  Measurement runs on the card
+store is not ported), plus ``--device``.  The JAX command's ``analyze``,
+``sweep``, ``blocking`` and ``machine validate`` run lint's preflight and
+its text reports, and wait for them (ROADMAP.md Queue 1, item 9); their
+library faces are :func:`repro_torch.core.analyze`,
+:func:`~repro_torch.core.sweep` and
+:func:`repro_torch.core.blocking.grid_search`.  Measurement runs on the card
 unless ``--device cpu`` is given; ``--no-measure`` touches no device.
 Exit codes: 0 success, 2 a bad request (unknown family, shape key or
 machine).
@@ -31,7 +37,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "family's configurations analytically, "
                              "measure the top-k on the device, derive "
                              "machine calibration factors")
-    sp.add_argument("family", help="kernel family: flash_attention")
+    sp.add_argument("family",
+                    help="kernel family: flash_attention, stencil3d7pt, "
+                         "or longrange3d")
     sp.add_argument("-m", "--machine", required=True,
                     help="machine description: short name (H100), "
                          "bundled yaml name, or path")
@@ -85,7 +93,8 @@ def cmd_tune(args) -> int:
                         top_k=args.top_k, measure=args.measure,
                         warmup=args.warmup, reps=args.reps,
                         timeout_s=args.timeout_s, isolate=args.isolate,
-                        device=args.device)
+                        device=args.device,
+                        session=api.get_session(machine))
     applied = None
     if args.apply_calibration is not None:
         if not rep.calibration:

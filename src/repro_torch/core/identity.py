@@ -1,12 +1,13 @@
 """Structural identity keys for kernels and their containers.
 
 A copy of ``repro.core.identity`` (the port keeps its own).  The
-:mod:`~repro_torch.core.layer_conditions` caches and
-:attr:`Machine.fingerprint <repro_torch.core.machine.Machine.fingerprint>`
-need one notion of identity: two kernels with the same loops, accesses,
-and bound constants share cache entries no matter how they were
-constructed, and the parity tests compare :func:`kernel_key` across the
-two packages.
+memoizing layers — :class:`~repro_torch.core.session.AnalysisSession`, the
+:mod:`~repro_torch.core.layer_conditions` caches, the compiled sweep plans
+(:mod:`repro_torch.core.compiled`) and :attr:`Machine.fingerprint
+<repro_torch.core.machine.Machine.fingerprint>` — need one notion of
+identity: two kernels with the same loops, accesses, and bound constants
+share cache entries no matter how they were constructed, and the parity
+tests compare :func:`kernel_key` across the two packages.
 
 Stringifying sympy expressions dominates key construction, and
 ``kernel.bind()`` shallow-copies — bound variants share the same loops /
@@ -79,8 +80,48 @@ def kernel_key(kernel: LoopKernel) -> tuple:
     )
 
 
+def incore_key(kernel: LoopKernel) -> tuple:
+    """Structure-only identity for in-core analysis: everything it reads
+    (flop counts, access widths, loop steps, dtype) — but *not* the bound
+    constants or the kernel name.  ``bind()``-ed sweep variants share one
+    in-core entry, which is what lets sessions and compiled sweep plans
+    evaluate in-core once per kernel structure for a whole grid.
+    """
+    return (
+        kernel.dtype_bytes,
+        structure_key(kernel.loops, loops_key),
+        structure_key(kernel.accesses, accesses_key),
+        (kernel.flops.add, kernel.flops.mul, kernel.flops.div,
+         kernel.flops.fma),
+    )
+
+
+def source_key(kernel) -> tuple:
+    """Structural identity of any frontend output: :class:`LoopKernel` via
+    :func:`kernel_key`, anything else through its ``cache_key()`` (the
+    :class:`~repro_torch.core.frontends.KernelSource` contract)."""
+    if isinstance(kernel, LoopKernel):
+        return kernel_key(kernel)
+    ck = getattr(kernel, "cache_key", None)
+    if callable(ck):
+        return ck()
+    raise TypeError(
+        f"cannot key analysis source of type {type(kernel).__name__}: "
+        "expected a LoopKernel or an object with cache_key() — build it "
+        "through repro_torch.core.frontends.load_kernel")
+
+
+def freeze(v):
+    """Recursively convert dicts/lists into hashable tuples for cache keys."""
+    if isinstance(v, dict):
+        return tuple(sorted((k, freeze(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple, set)):
+        return tuple(freeze(x) for x in v)
+    return v
+
+
 def _canonical(v):
-    """Hashable, *cross-process* stable form of a payload: dict keys are
+    """Like :func:`freeze`, but *cross-process* stable: dict keys are
     stringified before sorting (YAML payloads mix int and str keys, which
     Python 3 refuses to order) and anything that is not a JSON-ish scalar
     is reduced to its repr."""

@@ -4,8 +4,8 @@
 Both performance models consume the same input — the traffic β_k between
 adjacent memory levels.  The paper offers two ways to predict it: layer
 conditions (analytic) and the cache simulator.  The port carries LC only;
-``predictor="SIM"`` raises until the simulator is ported (ROADMAP.md,
-"left out of the first port slice").  :mod:`repro_torch.core.ecm` and
+``predictor="SIM"`` raises until the simulator is ported (ROADMAP.md
+Queue 1, item 2).  :mod:`repro_torch.core.ecm` and
 :mod:`repro_torch.core.roofline` receive a finished
 :class:`VolumePrediction` and never branch on the predictor name.
 """
@@ -46,9 +46,18 @@ class VolumePrediction:
 
 
 class CachePredictor(abc.ABC):
-    """One prediction backend for per-level cache traffic."""
+    """One prediction backend for per-level cache traffic.
+
+    ``supports_compiled`` declares whether the prediction is analytic in
+    the loop sizes and can be lowered by :mod:`repro_torch.core.compiled`
+    into a batched sweep plan (true for LC, whose traffic is
+    piecewise-constant in a single loop symbol).  The session's sweep
+    auto-routing and ``blocking.grid_search`` check this instead of
+    hard-coding predictor names.
+    """
 
     name: str = "?"
+    supports_compiled: bool = False
 
     @abc.abstractmethod
     def predict(self, kernel: LoopKernel, machine: Machine,
@@ -69,6 +78,7 @@ class LayerConditionPredictor(CachePredictor):
     """Analytic LC prediction (paper §2.4.2) — smooth in the loop sizes."""
 
     name = "LC"
+    supports_compiled = True
 
     def predict(self, kernel: LoopKernel, machine: Machine,
                 cores: int = 1) -> VolumePrediction:
@@ -91,8 +101,8 @@ def resolve_predictor(name: str) -> CachePredictor:
     if name.upper() == "SIM":
         raise ValueError(
             "cache predictor 'SIM' (the cache simulator) is not ported to "
-            "repro_torch yet; see ROADMAP.md Queue 1, 'left out of the "
-            "first port slice'.  Use predictor='LC'.")
+            "repro_torch yet; see ROADMAP.md Queue 1, item 2.  Use "
+            "predictor='LC'.")
     try:
         return PREDICTOR_REGISTRY[name.upper()]
     except KeyError:

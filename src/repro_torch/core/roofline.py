@@ -1,7 +1,7 @@
 """Roofline model (paper §1.2.1, §2.3) in both variants.
 
-A copy of ``repro.core.roofline`` (result type and model; the compiled
-``terms_arrays`` waits for compiled sweeps).
+A copy of ``repro.core.roofline``: the result type, the model, and the
+vectorized ``terms_arrays`` the compiled sweep plans score grids with.
 
 ``Roofline``      — counts high-level flops against the machine's FLOPs/cy
                     table and models L1<->register traffic with the measured
@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+
+import numpy as np
 
 from . import incore as _incore
 from .incore import InCoreResult
@@ -123,6 +125,86 @@ class RooflineResult:
                    incore_model=str(d.get("incore_model", "")),
                    incore=dict(d.get("incore", {})),
                    calibrated=bool(d.get("calibrated", False)))
+
+
+def terms_arrays(kernel: LoopKernel, machine: Machine, traffic: dict,
+                 cores: int = 1, variant: str = "IACA",
+                 incore_result: InCoreResult | None = None,
+                 incore: str = "simple") -> dict:
+    """Vectorized closed-form Roofline over a sweep grid.
+
+    ``traffic`` maps level name to a numpy array of β_k (bytes per inner
+    iteration) across the grid — the compiled sweep plan's batched LC
+    output.  Returns the scalar in-core bound plus per-level performance
+    and time arrays, and the net ``performance`` / ``time_cy`` arrays
+    (``min``/``max`` across bottlenecks, elementwise).  Mirrors
+    :func:`model`'s arithmetic term for term; used for dense grid scoring
+    (``blocking.grid_search``), while exact per-point results still come
+    from :func:`model` via the session."""
+    unit = kernel.iterations_per_cacheline(machine.cacheline_bytes)
+    flops_unit = kernel.flops.total * unit
+    if variant.upper() == "IACA":
+        ic = incore_result or _incore.analyze(kernel, machine, model=incore)
+        t_core = ic.t_core
+        core_perf = (flops_unit / t_core * machine.clock_hz
+                     if t_core > 0 else math.inf)
+    else:
+        pmax = _incore.applicable_peak(kernel, machine)
+        core_perf = pmax * machine.clock_hz * cores
+        t_core = flops_unit / pmax if pmax else 0.0
+
+    r, w, rw = kernel.stream_counts()
+    flops_it = kernel.flops.total
+    names = machine.level_names
+    levels: dict[str, dict] = {}
+    perf_cand, time_cand = [], []
+    for i, lv in enumerate(machine.levels):
+        vol = np.asarray(traffic.get(lv.name, 0.0), dtype=np.float64)
+        label = names[i + 1] if i + 1 < len(names) else "MEM"
+        try:
+            bw, bench = machine.measured_bandwidth(label, cores, r, w, rw)
+        except (ValueError, KeyError):
+            bw, bench = machine.main_memory_bandwidth, "copy"
+        with np.errstate(divide="ignore"):
+            ai = np.where(vol > 0, flops_it / np.where(vol > 0, vol, 1.0),
+                          np.inf)
+        perf = ai * bw
+        t_cy = vol * unit * machine.clock_hz / bw if bw else np.zeros_like(vol)
+        levels[label] = {"arithmetic_intensity": ai, "bandwidth": bw,
+                         "bench_kernel": bench, "performance": perf,
+                         "time_cy_per_unit": t_cy}
+        perf_cand.append(perf)
+        time_cand.append(t_cy)
+    # L1<->register entry (classic variant models it with L1 bandwidth);
+    # constant across the grid, but it can still be the binding ceiling
+    if variant.upper() != "IACA":
+        l1_bytes = kernel.first_level_bytes() \
+            if hasattr(kernel, "first_level_bytes") \
+            else sum(a.array.element_bytes for a in kernel.accesses)
+        try:
+            bw, bench = machine.measured_bandwidth("L1", cores, r, w, rw)
+            ai = flops_it / l1_bytes
+            shape = perf_cand[0].shape if perf_cand else ()
+            entry = {"arithmetic_intensity": np.full(shape, ai),
+                     "bandwidth": bw, "bench_kernel": bench,
+                     "performance": np.full(shape, ai * bw),
+                     "time_cy_per_unit": np.full(
+                         shape, l1_bytes * unit * machine.clock_hz / bw)}
+            levels = {"L1": entry, **levels}
+            perf_cand.insert(0, entry["performance"])
+            time_cand.insert(0, entry["time_cy_per_unit"])
+        except (ValueError, KeyError):
+            pass
+    performance = np.minimum.reduce([np.full_like(perf_cand[0], core_perf)]
+                                    + perf_cand) if perf_cand \
+        else np.asarray(core_perf)
+    time_cy = np.maximum.reduce([np.full_like(time_cand[0], t_core)]
+                                + time_cand) if time_cand \
+        else np.asarray(t_core)
+    return {"unit_iterations": unit, "t_core": t_core,
+            "core_performance": core_perf, "flops_per_unit": flops_unit,
+            "levels": levels, "performance": performance,
+            "time_cy": time_cy}
 
 
 def model(kernel: LoopKernel, machine: Machine, predictor: str = "LC",

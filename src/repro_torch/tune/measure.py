@@ -9,24 +9,31 @@ pairs around runs of launches, synchronizes, and divides each
 CUDA device and a host clock only on a device the caller named ``cpu``:
 a time taken on the CPU is never reported as the card's.
 
-By default every candidate runs in its own spawned subprocess with a hard
+By default every candidate runs in its own subprocess with a hard
 timeout: a candidate that faults on the card, runs out of memory or hangs
 is recorded as a failed :class:`TimedRun` and the tune run continues.
-Children are spawned, never forked (the parent has initialised CUDA),
-and import ``repro_torch`` from the ``PYTHONPATH`` this module sets; they
-load the kernel libraries the parent built (``kernels/_build.py`` reuses
-a library whose source hash matches).
+Children are never forked from the parent (it has initialised CUDA):
+they come from a fork server that imported torch and the tuner once and
+never touches the card (:func:`_context`), so a child reaches the card
+without importing torch anew.  They import ``repro_torch`` from the
+``sys.path`` and ``PYTHONPATH`` this module passes on, and load the
+kernel libraries the parent built (``kernels/_build.py`` reuses a
+library whose source hash matches).
 
 Fault injection for tests: ``REPRO_TUNE_FAULT`` ∈ {``raise``, ``exit``,
 ``hang``} fires inside the measurement path, optionally gated by
 ``REPRO_TUNE_FAULT_MATCH`` (substring of the candidate's ``k=v,k=v``
-parameter tag).
+parameter tag); the parent hands both to each child as they stand when
+it starts the child.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import math
 import multiprocessing as mp
+import multiprocessing.forkserver
+import multiprocessing.resource_tracker
 import os
 import pathlib
 import time
@@ -36,6 +43,11 @@ import torch
 from ..core.machine import Machine
 
 _SENTINEL = "repro_torch.tune"      # marker for error payloads
+#: the fault hook's variables, passed to each child explicitly (a fork
+#: server's children inherit the server's environment, not the parent's)
+_FAULT_ENV = ("REPRO_TUNE_FAULT", "REPRO_TUNE_FAULT_MATCH")
+#: what the fork server imports once for every child
+_PRELOAD = ["repro_torch.tune.space"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,8 +215,12 @@ def _run_inproc(family: str, config: dict, params: dict, machine: Machine,
 
 def _child_entry(conn, family: str, config: dict, params: dict,
                  machine: Machine, device: str, warmup: int,
-                 reps: int) -> None:
-    """Subprocess entry point (module-level for spawn picklability)."""
+                 reps: int, env: dict | None = None) -> None:
+    """Subprocess entry point (module-level for picklability); ``env``
+    holds the fault hook's variables as the parent saw them."""
+    for key in _FAULT_ENV:
+        os.environ.pop(key, None)
+    os.environ.update(env or {})
     try:
         tr = _run_inproc(family, config, params, machine, device, warmup,
                          reps)
@@ -219,9 +235,30 @@ def _child_entry(conn, family: str, config: dict, params: dict,
         conn.close()
 
 
+def _context():
+    """The multiprocessing context children come from: a fork server that
+    has imported :data:`_PRELOAD` (torch and the tuner, not CUDA)."""
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(_PRELOAD)
+    return ctx
+
+
+@atexit.register
+def _stop_fork_server() -> None:
+    """Stop the fork server and the resource tracker it started, if any,
+    and reap them before this process exits: they would otherwise outlive
+    it until their next poll.  ``_stop`` closes each one's pipe and waits
+    for it (no public call exists)."""
+    for helper in (mp.forkserver._forkserver,
+                   mp.resource_tracker._resource_tracker):
+        stop = getattr(helper, "_stop", None)
+        if stop is not None:
+            stop()
+
+
 def _ensure_importable_env() -> tuple[str, str | None]:
-    """Make sure spawned children can ``import repro_torch``; returns
-    (key, previous) to restore."""
+    """Make sure children (and the fork server) can ``import
+    repro_torch``; returns (key, previous) to restore."""
     src = str(pathlib.Path(__file__).resolve().parents[2])
     old = os.environ.get("PYTHONPATH")
     parts = (old.split(os.pathsep) if old else [])
@@ -238,10 +275,11 @@ def measure_candidate(family: str, config: dict, params: dict,
     """Measure one candidate on ``device``; never raises for
     candidate-side failures.
 
-    ``isolate=True`` (default) runs the measurement in a spawned
-    subprocess with a ``timeout_s`` wall clock and up to ``retries``
-    extra attempts after a crash — a launch fault, an out-of-memory kill
-    or a hang becomes a ``TimedRun(ok=False, ...)`` record.  Timeouts are
+    ``isolate=True`` (default) runs the measurement in a subprocess
+    (:func:`_context`) with a ``timeout_s`` wall clock and up to
+    ``retries`` extra attempts after a crash — a launch fault, an
+    out-of-memory kill or a hang becomes a ``TimedRun(ok=False, ...)``
+    record.  Timeouts are
     not retried: a config that hangs once will hang again.
     """
     device = str(torch.device(device))
@@ -253,8 +291,9 @@ def measure_candidate(family: str, config: dict, params: dict,
             return TimedRun(ok=False, wall_s=math.inf, warmup=warmup,
                             reps=reps, error=f"{type(exc).__name__}: {exc}")
 
-    ctx = mp.get_context("spawn")
     key, old = _ensure_importable_env()
+    ctx = _context()
+    env = {k: os.environ[k] for k in _FAULT_ENV if k in os.environ}
     last_err, timed_out = "no attempt ran", False
     try:
         for attempt in range(max(0, retries) + 1):
@@ -262,7 +301,7 @@ def measure_candidate(family: str, config: dict, params: dict,
             proc = ctx.Process(
                 target=_child_entry,
                 args=(child, family, dict(config), dict(params), machine,
-                      device, warmup, reps))
+                      device, warmup, reps, env))
             proc.start()
             child.close()
             payload = None

@@ -5,15 +5,14 @@ of ``repro.tune.space``.  A family registers a :class:`CandidateSpace`
 that (1) enumerates configurations, (2) scores all of them analytically
 in one call, and (3) builds a runner that times one configuration on a
 device.  Thousands of candidates cost milliseconds; only the top-k ever
-run (:mod:`repro_torch.tune.measure`).
+run (:mod:`repro_torch.tune.measure`).  The stencil families rank through
+:func:`repro_torch.core.blocking.grid_search` over the compiled sweep
+plan, flash attention through a closed-form time model of its CUDA
+kernels.
 
 Each prediction carries its binding ``bound`` ('compute' or a memory
 level), which :mod:`repro_torch.tune.calibrate` uses to attribute the
 measured/predicted error to machine factors.
-
-Only flash attention is ported.  The stencil families rank through
-``blocking.grid_search`` over the compiled sweeps, which the port does
-not have yet: :func:`resolve_space` names the ROADMAP item for them.
 """
 from __future__ import annotations
 
@@ -26,7 +25,12 @@ import torch
 
 from ..core import api, blocking
 from ..core.machine import Machine
+from ..core.session import AnalysisSession
+from ..kernels import _build
 from ..kernels import flash_attention as fa
+from ..kernels import longrange3d as _lr
+from ..kernels import stencil3d7pt as _s7
+from . import stencil as _stencil
 from .measure import Bound
 
 
@@ -91,8 +95,11 @@ class CandidateSpace(abc.ABC):
         feasible for the space's problem shape."""
 
     @abc.abstractmethod
-    def predict(self, cands: list[Candidate]) -> list[Prediction]:
-        """Analytic predictions for ``cands``, order-aligned."""
+    def predict(self, cands: list[Candidate],
+                session: AnalysisSession | None = None) -> list[Prediction]:
+        """Analytic predictions for ``cands``, order-aligned.  One call —
+        pass a warm :class:`~repro_torch.core.session.AnalysisSession` to
+        share compiled plans across repeated rankings."""
 
     @abc.abstractmethod
     def runner(self, params: dict, device):
@@ -103,14 +110,6 @@ class CandidateSpace(abc.ABC):
 
 SPACE_REGISTRY: dict[str, type] = {}
 
-#: families of the JAX tuner that the port has not ported yet
-NOT_PORTED = {
-    "stencil3d7pt": "ROADMAP Queue 1, item 4 (the stencil tune spaces wait "
-                    "for the compiled sweeps and grid_search)",
-    "longrange3d": "ROADMAP Queue 1, item 4 (the stencil tune spaces wait "
-                   "for the compiled sweeps and grid_search)",
-}
-
 
 def register_space(cls: type) -> type:
     SPACE_REGISTRY[cls.family] = cls
@@ -119,9 +118,6 @@ def register_space(cls: type) -> type:
 
 def resolve_space(family: str, machine: Machine | str,
                   **config) -> CandidateSpace:
-    if family in NOT_PORTED:
-        raise ValueError(f"tune family {family!r} is not ported yet: "
-                         f"{NOT_PORTED[family]}")
     try:
         cls = SPACE_REGISTRY[family]
     except KeyError:
@@ -269,7 +265,8 @@ class FlashAttentionSpace(CandidateSpace):
         last = qi * bq + off + bq - 1          # last kv position touched
         return int(np.minimum(nk, last // bkv + 1).clip(min=0).sum())
 
-    def predict(self, cands: list[Candidate]) -> list[Prediction]:
+    def predict(self, cands: list[Candidate],
+                session: AnalysisSession | None = None) -> list[Prediction]:
         m = self.machine
         c = self.config
         sq, skv = int(c["seq_q"]), int(c["seq_kv"])
@@ -340,6 +337,191 @@ class FlashAttentionSpace(CandidateSpace):
             return fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                       block_kv=bkv)
         return run
+
+
+# ----------------------------------------------------------------------
+# stencils: spatial block edge n, ranked through grid_search
+# ----------------------------------------------------------------------
+
+#: the top of the block-edge range on a GPU machine file, where JAX's 128
+#: stops short of the 132-SM regime change of the 7-point stencil at
+#: float32 (between n 144 and 160; PERF.md §6)
+GPU_N_MAX = 256
+
+
+class _StencilSpace(CandidateSpace):
+    """Spatial block-edge candidates for the 3D stencil kernels: the
+    cutout is ``(m, n, n)`` and candidates vary ``n``.  Ranking runs the
+    traced point function through
+    :func:`repro_torch.core.blocking.grid_search` (compiled analytic plan,
+    ECM) and converts cycles per unit of work into predicted seconds per
+    sample; the measured side times the CUDA kernel through its ``ops``
+    wrapper on the same cutout.  With ``cores`` > 1 the ranking runs over
+    the batched (block x cores) grid and scores each block by its
+    chip-level saturated performance at ``cores``.
+
+    Departures from ``repro.tune.space._StencilSpace``, each for the card:
+
+    * the point function is traced at 4-byte elements, the float32 the
+      kernels run (the JAX space models 8-byte doubles and times float32;
+      ROADMAP.md Queue 3);
+    * a candidate is feasible exactly when the ``ops`` wrapper launches
+      it: :func:`~repro_torch.core.blocking.stencil_cta_tile` plans the
+      cutout and the plan passes ``check_launch`` and the grid check (in
+      place of the TPU's VMEM plane count); an infeasible one carries the
+      refusal;
+    * ``cores`` defaults to the machine's cores per socket (the 132 SMs
+      every launch spreads over on ``h100_sxm.yaml``, 1 on a TPU file),
+      and on a GPU machine file ``n`` runs to :data:`GPU_N_MAX`;
+    * ``bound`` names the term that sets each candidate's predicted time
+      (:meth:`_bound`: ``L2`` for the saturating ``L2-MEM`` term at 132
+      SMs) where the JAX space names the first level for every candidate
+      from its winner alone — so a calibration factor scales the term
+      the measurement speaks to.
+    """
+
+    MODULE = None                 # kernel module: point, RADIUS, OWN
+    RADIUS = 1
+    DEFAULTS = {"m": 16, "n_min": 32, "n_max": 128, "n_step": 16,
+                "cores": None}
+
+    def __init__(self, machine: Machine, **config):
+        super().__init__(machine, **config)
+        c = self.config
+        if c["cores"] is None:
+            c["cores"] = int(machine.cores_per_socket)
+        if "n_max" not in config and machine.arch == "gpu":
+            c["n_max"] = GPU_N_MAX
+        for k in self.DEFAULTS:
+            c[k] = int(c[k])
+        if c["m"] < 1 or c["cores"] < 1 or c["n_step"] < 1:
+            raise ValueError(f"{self.family}: m, cores and n_step must be "
+                             f"positive, got {c}")
+        if not self._values():
+            raise ValueError(f"{self.family}: no block edge in "
+                             f"[{c['n_min']}, {c['n_max']}]")
+
+    def _values(self) -> list[int]:
+        c = self.config
+        lo = max(int(c["n_min"]), 2 * self.RADIUS + 2)
+        return list(range(lo, int(c["n_max"]) + 1, int(c["n_step"])))
+
+    def candidates(self) -> list[Candidate]:
+        return [Candidate.make(self.family, n=v) for v in self._values()]
+
+    def default(self) -> Candidate:
+        vals = self._values()
+        return Candidate.make(self.family, n=vals[len(vals) // 2])
+
+    def shape(self, n: int) -> tuple[int, int, int]:
+        return int(self.config["m"]), int(n), int(n)
+
+    def _points(self, n: int) -> int:
+        r = self.RADIUS
+        return max(1, (int(self.config["m"]) - 2 * r) * (n - 2 * r) ** 2)
+
+    def repeats(self, n: int) -> int:
+        """Invocations per timed sample so every candidate processes the
+        same reference volume (the largest candidate's point count) —
+        raw per-cutout seconds would trivially crown the smallest block.
+        Predictions scale by the same count, keeping predicted and
+        measured walls directly comparable per candidate."""
+        ref = self._points(max(self._values()))
+        return max(1, round(ref / self._points(n)))
+
+    def plan(self, n: int) -> blocking.StencilPlan:
+        """The launch plan the ``ops`` wrapper takes for the cutout at
+        ``n``; raises ``ValueError`` naming the limit it breaks."""
+        mod = self.MODULE
+        plan = blocking.stencil_cta_tile(mod.RADIUS, self.shape(n), mod.OWN)
+        _build.check_tile(blocking.check_launch(plan, mod.RADIUS, mod.OWN),
+                          self.shape(n)[:2])
+        return plan
+
+    @staticmethod
+    def _bound(res, cores: int) -> str:
+        """The term class that sets ``res``'s time at ``cores``: compute,
+        else the source level of the transfer that binds — the last one
+        (to memory) where ``cores`` saturate it, else the largest."""
+        terms = res.contributions + res.overlapped
+        if not terms or (res.t_ol >= res.t_data and all(
+                res.t_ol >= c for _, c in res.overlapped)):
+            return "compute"
+        if cores > 1 and res.saturation_cores <= cores:
+            label = terms[-1][0]
+        else:
+            label = max(terms, key=lambda t: t[1])[0]
+        return label.split("-", 1)[0]
+
+    def predict(self, cands: list[Candidate],
+                session: AnalysisSession | None = None) -> list[Prediction]:
+        m = self.machine
+        sess = session if session is not None else AnalysisSession(m)
+        kernel = api.load_kernel(f"trace:{self.family}",
+                                 {"M": int(self.config["m"])},
+                                 element_bytes=4)
+        vals = sorted({int(c.config["n"]) for c in cands})
+        n_cores = int(self.config["cores"])
+        if n_cores > 1:
+            # rank over the batched (block x cores) grid: per-candidate
+            # score = saturated min(single*n, sat) at the target core
+            # count, converted back to effective cycles per unit below
+            gs = blocking.grid_search(kernel, m, [("N", vals)],
+                                      model="ecm", session=sess,
+                                      cores=list(range(1, n_cores + 1)))
+            r0 = gs.best_result
+            perf = {n: float(gs.scores[i, -1])
+                    for i, n in enumerate(vals)}
+            score = {n: (r0.flops_per_unit * m.clock_hz / p
+                         if p > 0 else math.inf)
+                     for n, p in perf.items()}
+        else:
+            gs = blocking.grid_search(kernel, m, [("N", vals)],
+                                      model="ecm", session=sess)
+            score = {p["N"]: s for p, s in gs.ranking}
+        unit = gs.best_result.unit_iterations
+        out: list[Prediction] = []
+        for cand in cands:
+            n = int(cand.config["n"])
+            try:
+                self.plan(n)
+            except ValueError as e:
+                out.append(Prediction(math.inf, feasible=False,
+                                      reason=str(e)))
+                continue
+            res = sess.analyze(kernel.bind(N=n), "ecm", cores=n_cores)
+            secs = (score[n] / unit / m.clock_hz * self._points(n)
+                    * self.repeats(n))
+            out.append(Prediction(secs, bound=self._bound(res, n_cores)))
+        return out
+
+    def runner(self, params: dict, device):
+        n = int(params["n"])
+        args = _stencil.make_inputs(self.family, self.shape(n), device)
+        op = _stencil.family(self.family).op
+        reps = self.repeats(n)
+
+        def run():
+            for _ in range(reps):
+                out = op(*args)
+            return out
+        return run
+
+
+@register_space
+class Stencil7ptSpace(_StencilSpace):
+    family = "stencil3d7pt"
+    MODULE = _s7
+    RADIUS = _s7.RADIUS
+    sources = ("stencil3d7pt",)
+
+
+@register_space
+class LongRange3DSpace(_StencilSpace):
+    family = "longrange3d"
+    MODULE = _lr
+    RADIUS = _lr.RADIUS
+    sources = ("longrange3d",)
 
 
 #: the arithmetic an attention bound is taken at: the machine file's

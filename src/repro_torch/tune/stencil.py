@@ -1,7 +1,7 @@
 """The stencil case study for one shape: predict, run, (time elsewhere).
 
-Counterpart of ``_StencilSpace.predict`` and the stencil runners of
-``repro.tune.space``, without the grid search over block edges.
+The full-size counterpart of ``_StencilSpace.predict`` (whose grid
+search over block edges is :mod:`repro_torch.tune.space`'s).
 :func:`predict_seconds` traces the family's point function at the float32
 the kernels run, models it with ECM and Roofline on ``cores`` = the SM
 count (so the L2 is shared as on the chip), and converts to seconds the
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import convert
-from ..core import api
+from ..core import api, model_api
 from ..core.ecm import ECMResult
 from ..core.roofline import RooflineResult
 from ..kernels import longrange3d, ops, stencil3d7pt
@@ -68,9 +68,12 @@ class StencilPrediction:
 
 
 def predict_seconds(name: str, shape: tuple[int, int, int],
-                    machine="H100", cores: int | None = None) -> StencilPrediction:
+                    machine="H100", cores: int | None = None,
+                    calibrated: bool = False) -> StencilPrediction:
     """ECM and (classic) Roofline predictions for one ``(M, N, N)`` run of
-    family ``name``.  ``cores`` defaults to the machine's SM count."""
+    family ``name``.  ``cores`` defaults to the machine's SM count;
+    ``calibrated`` applies the machine file's calibration factors (as
+    ``tune --apply-calibration`` writes them) to both models."""
     fam = family(name)
     mach = api.resolve_machine(machine)
     if cores is None:
@@ -81,8 +84,10 @@ def predict_seconds(name: str, shape: tuple[int, int, int],
     return StencilPrediction(
         family=name, shape=(M, N, N), cores=cores,
         flops_total=kernel.flops.total * kernel.total_iterations(),
-        ecm=api.MODELS["ecm"](kernel, mach, cores=cores),
-        roofline=api.MODELS["roofline"](kernel, mach, cores=cores))
+        ecm=model_api.analyze("ecm", kernel, mach, cores=cores,
+                              calibrated=calibrated),
+        roofline=model_api.analyze("roofline", kernel, mach, cores=cores,
+                                   calibrated=calibrated))
 
 
 def bound_seconds(name: str, args, machine="H100") -> Bound:

@@ -29,7 +29,7 @@ KEEP_PREDICTED = 32
 def tune(family: str, machine: Machine | str, *, config: dict | None = None,
          top_k: int = 4, measure: bool = True, warmup: int = 1,
          reps: int = 3, timeout_s: float = 120.0, isolate: bool = True,
-         retries: int = 1, device=None,
+         retries: int = 1, device=None, session=None,
          keep_predicted: int = KEEP_PREDICTED) -> TuneReport:
     """Autotune ``family`` on ``machine``; returns a :class:`TuneReport`.
 
@@ -42,13 +42,15 @@ def tune(family: str, machine: Machine | str, *, config: dict | None = None,
     ``isolate=False``.  ``measure=False`` stops after the analytic ranking
     and touches no device (the chosen candidate is then the predicted
     best).  A machine carrying ``calibration.time[family]`` has that
-    factor folded into the predictions.
+    factor folded into the predictions.  ``session`` (an
+    :class:`~repro_torch.core.session.AnalysisSession` bound to
+    ``machine``) shares compiled plans across repeated rankings.
     """
     mach = api.resolve_machine(machine)
     config = dict(config or {})
     space = resolve_space(family, mach, **config)
     cands = space.candidates()
-    preds = space.predict(cands)
+    preds = space.predict(cands, session=session)
     time_factor = mach.calibration_factor("time", family)
 
     default = space.default()

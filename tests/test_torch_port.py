@@ -390,6 +390,46 @@ def test_cuda_timer_measures_the_kernel(cuda):
     assert run.ok and 0 < run.wall_s < 1.0 and len(run.samples) == 4
 
 
+STENCIL_TOL = {"stencil3d7pt": TOL7, "longrange3d": TOL_LR}
+
+
+def _space_runs(family, device):
+    """Each stencil tune space's runner at its smallest, default and
+    largest block edge on ``device``: (n, repeats, output, plain output,
+    the kernel's launches during the run)."""
+    sp = space.resolve_space(family, "H100")
+    mod = stencil.family(family).module
+    wrapper = getattr(mod, family)
+    vals = [c.config["n"] for c in sp.candidates()]
+    for n in sorted({vals[0], sp.default().config["n"], vals[-1]}):
+        run = sp.runner({"n": n}, device)
+        n0 = wrapper.launches
+        out = run()
+        launched = wrapper.launches - n0
+        want = mod.plain(*stencil.make_inputs(family, sp.shape(n), device))
+        yield n, sp.repeats(n), out, want, launched
+
+
+@pytest.mark.parametrize("family", ["stencil3d7pt", "longrange3d"])
+def test_stencil_space_runner_on_the_cpu_is_the_plain_version(family):
+    """On a CPU tensor the runner's wrapper takes the plain version and
+    counts no launch; the cutout is the candidate's (m, n, n)."""
+    for n, _, out, want, launched in _space_runs(family, "cpu"):
+        assert launched == 0 and out.shape == (16, n, n)
+        assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["stencil3d7pt", "longrange3d"])
+def test_cuda_stencil_space_runner_launches_the_kernel(cuda, family):
+    """On the card each stencil space's runner launches its CUDA kernel
+    ``repeats(n)`` times per sample, and the output holds against the
+    plain version at the reference tolerances."""
+    for n, reps, out, want, launched in _space_runs(family, cuda):
+        assert launched == reps, n
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                   **STENCIL_TOL[family])
+
 # ----------------------------------------------------------------------
 # on the card: the flash-attention kernel against its plain version
 # ----------------------------------------------------------------------

@@ -87,6 +87,21 @@ def test_no_jax_or_repro_imports(path):
     assert bad == []
 
 
+#: the modules of the blocking-analysis slice, which the scans above and
+#: below must reach
+BLOCKING_SLICE = ["core/compiled.py", "core/model_api.py", "core/session.py",
+                  "core/c_parser.py", "core/frontends/__init__.py",
+                  "core/frontends/c.py", "core/frontends/builder.py",
+                  "core/blocking.py", "core/api.py", "tune/space.py"]
+
+
+def test_scans_cover_the_blocking_slice():
+    scanned = {str(p.relative_to(PORT)) for p in _port_files()
+               if PORT in p.parents}
+    assert set(BLOCKING_SLICE) <= scanned
+    assert list(PORT.rglob("*.c")) and all(
+        p.parent.name == "stencils" for p in PORT.rglob("*.c"))
+
 def test_importing_every_port_module_loads_no_jax():
     """A fresh interpreter imports every repro_torch module (and
     chip_smoke) and ends with no jax and no repro.* in sys.modules."""

@@ -95,9 +95,6 @@ def test_space_refuses_what_the_kernel_refuses():
         t_space.resolve_space("flash_attention", H100, dtype="float16")
     with pytest.raises(ValueError, match="unknown flash_attention config"):
         t_space.resolve_space("flash_attention", H100, seq=1)
-    for fam in ("stencil3d7pt", "longrange3d"):
-        with pytest.raises(ValueError, match="ROADMAP Queue 1, item 4"):
-            t_space.resolve_space(fam, H100)
     with pytest.raises(ValueError, match="unknown tune family"):
         t_space.resolve_space("matmul", H100)
 
@@ -480,8 +477,7 @@ def test_cli_measures_on_the_cpu_when_named(capsys, tmp_path):
     assert "measured on: cpu" in out and f"written to {path}" in out
     assert t_api.resolve_machine(str(path)).calibration_factor(
         "time", "flash_attention") > 0
-    assert cli.main(["tune", "stencil3d7pt", "-m", "H100",
-                     "--no-measure"]) == 2
+    assert cli.main(["tune", "matmul", "-m", "H100", "--no-measure"]) == 2
 
 
 def test_advisor_pick_is_a_candidate():
@@ -489,3 +485,184 @@ def test_advisor_pick_is_a_candidate():
                                seq_kv=4096, heads=32, head_dim=128)
     t = blocking.attention_cta_tiles(4096, 4096, 128, "bfloat16")
     assert sp._advisor().config == {"block_q": t.bq, "block_kv": t.bkv}
+
+
+# ----------------------------------------------------------------------
+# the stencil spaces
+# ----------------------------------------------------------------------
+
+STENCILS = ("stencil3d7pt", "longrange3d")
+RADIUS = {"stencil3d7pt": 1, "longrange3d": 4}
+# the JAX space's defaults, passed explicitly (the card widens n_max)
+JAX_RANGE = {"m": 16, "n_min": 32, "n_max": 128, "n_step": 16}
+TINY_STENCIL = {"m": 8, "n_min": 16, "n_max": 32, "n_step": 16}
+
+
+def _jax_expectation(family, cfg, cores):
+    """What the JAX space's predict computes, on the kernel traced at the
+    4-byte elements the port models: grid_search's ECM cycles per unit
+    (saturated at ``cores`` over the batched cores grid when cores > 1)
+    converted to seconds per sample with the JAX space's point count and
+    repeats.  Returns (JAX space, {n: seconds})."""
+    from repro.core import api as j_api
+    from repro.core import blocking as j_blocking
+    jm = JMachine.from_yaml(H100_YAML)
+    jsp = j_space.resolve_space(family, jm, **cfg, cores=cores)
+    jk = j_api._load_kernel_cached(f"trace:{family}", None, None,
+                                   {"M": cfg["m"]}, {"element_bytes": 4})
+    vals = jsp._values()
+    if cores > 1:
+        gs = j_blocking.grid_search(jk, jm, [("N", vals)], model="ecm",
+                                    cores=list(range(1, cores + 1)))
+        score = {n: gs.best_result.flops_per_unit * jm.clock_hz
+                 / float(gs.scores[i, -1]) for i, n in enumerate(vals)}
+    else:
+        gs = j_blocking.grid_search(jk, jm, [("N", vals)], model="ecm")
+        score = {p["N"]: s for p, s in gs.ranking}
+    unit = gs.best_result.unit_iterations
+    return jsp, {n: score[n] / unit / jm.clock_hz * jsp._points(n)
+                 * jsp.repeats(n) for n in vals}
+
+
+@pytest.mark.parametrize("cores", [1, 132])
+@pytest.mark.parametrize("cfg", [JAX_RANGE, {**JAX_RANGE, "n_max": 256}],
+                         ids=["jax-range", "card-range"])
+@pytest.mark.parametrize("family", STENCILS)
+def test_stencil_space_equals_jax_at_four_bytes(family, cfg, cores):
+    """Candidates, default and repeats are the JAX space's; predictions
+    are its conversion of JAX's own grid_search on the 4-byte kernel."""
+    sp = t_space.resolve_space(family, H100, **cfg, cores=cores)
+    jsp, want = _jax_expectation(family, cfg, cores)
+    cands = sp.candidates()
+    assert cands == [t_space.Candidate(c.family, c.params)
+                     for c in jsp.candidates()]
+    assert sp.default().params == jsp.default().params
+    preds = sp.predict(cands)
+    for c, p in zip(cands, preds):
+        n = c.config["n"]
+        assert sp.repeats(n) == jsp.repeats(n)
+        assert p.feasible and p.seconds == want[n], n
+        assert p.bound == ("L2" if cores > 1 else "L1")
+
+
+def test_stencil_families_resolve():
+    """Both stencil families resolve; on the card the cores default to
+    the 132 SMs and n runs to GPU_N_MAX, on a one-core TPU file the JAX
+    space's defaults hold."""
+    v5e = t_machine.load(
+        str(REPO / "src/repro/configs/machines/tpu_v5e.yaml"))
+    for fam in STENCILS:
+        sp = t_space.resolve_space(fam, "H100")
+        assert type(sp).__name__ in ("Stencil7ptSpace", "LongRange3DSpace")
+        assert sp.config == {"m": 16, "n_min": 32, "n_step": 16,
+                             "cores": 132, "n_max": t_space.GPU_N_MAX}
+        assert sp.sources == (fam,)
+        assert t_space.resolve_space(fam, v5e).config == \
+            {**JAX_RANGE, "cores": 1}
+        assert t_space.resolve_space(fam, "H100", n_max=128).config[
+            "n_max"] == 128
+        with pytest.raises(ValueError, match="unknown .* config"):
+            t_space.resolve_space(fam, H100, seq_q=1)
+        with pytest.raises(ValueError, match="no block edge"):
+            t_space.resolve_space(fam, H100, n_min=300)
+
+
+def test_card_range_straddles_the_regime_change():
+    """At 132 SMs the predicted seconds per point change regime inside
+    the card's range for both stencils (the 7-point one only past JAX's
+    n_max of 128)."""
+    for fam, inside_jax in (("stencil3d7pt", False), ("longrange3d", True)):
+        sp = t_space.resolve_space(fam, H100)
+        cands = sp.candidates()
+        per_point = [p.seconds / (sp._points(c.config["n"])
+                                  * sp.repeats(c.config["n"]))
+                     for c, p in zip(cands, sp.predict(cands))]
+        first_change = next(c.config["n"] for c, a, b in
+                            zip(cands[1:], per_point, per_point[1:])
+                            if not math.isclose(a, b))
+        assert (first_change <= 128) == inside_jax, (fam, first_change)
+
+
+@pytest.mark.parametrize("family", STENCILS)
+def test_stencil_feasibility_is_the_launch_plan(family):
+    """A candidate is feasible exactly when the ops wrapper would launch
+    its cutout; one whose grid the kernel refuses names the limit."""
+    sp = t_space.resolve_space(family, H100, n_min=32, n_max=46400,
+                               n_step=46368)
+    cands = sp.candidates()
+    assert [c.config["n"] for c in cands] == [32, 46400]
+    ok, big = sp.predict(cands)
+    assert ok.feasible and sp.plan(32).launch == \
+        blocking.stencil_cta_tile(RADIUS[family], (16, 32, 32),
+                                  sp.MODULE.OWN).launch
+    assert not big.feasible and big.seconds == math.inf
+    assert "N*N < 2**31" in big.reason
+    for c in t_space.resolve_space(family, H100).candidates():
+        n = c.config["n"]
+        plan = sp.plan(n)
+        assert blocking.check_launch(plan, RADIUS[family],
+                                     sp.MODULE.OWN) == plan.launch
+
+
+@pytest.mark.parametrize("family", STENCILS)
+def test_cli_stencil_predict_only_json_exits_0(family):
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "tune", family,
+         "-m", "H100", "--no-measure", "--json"],
+        capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout)
+    assert out["family"] == family and out["options"]["device"] is None
+    assert out["n_feasible"] == 15 and out["config"]["cores"] == 132
+
+
+def test_stencil_tune_measures_in_child_processes_on_the_cpu():
+    """The whole loop for a stencil family at a tiny cutout: every
+    shortlisted candidate runs in its own child process on the plain
+    version (named cpu), and calibration lands on the binding level and
+    the family's time without dropping another family's keys."""
+    prev = {"compute": 2.0, "levels": {"L1": 1.5},
+            "time": {"flash_attention": 3.0}}
+    mach = dataclasses.replace(H100, calibration=prev)
+    rep = tune("longrange3d", mach, config=TINY_STENCIL, top_k=2, reps=1,
+               device="cpu", isolate=True, timeout_s=120)
+    ok = [c for c in rep.candidates if c.status == "ok"]
+    assert len(ok) == 2 and rep.n_failed == 0
+    assert all(c.bound == "L2" for c in ok)
+    assert rep.options["device"] == "cpu" and rep.options["isolate"]
+    cal = rep.calibration
+    assert cal["compute"] == 2.0 and cal["time"]["flash_attention"] == 3.0
+    assert cal["levels"]["L1"] == 1.5 and cal["levels"]["L2"] > 0
+    assert cal["time"]["longrange3d"] > 0
+
+
+def test_stencil_tune_takes_a_session():
+    """A warm session serves a second ranking from its compiled plans."""
+    sess = t_api.get_session(H100)
+    before = sess.stats.plan_compiles
+    first = tune("stencil3d7pt", H100, measure=False, session=sess)
+    compiled_once = sess.stats.plan_compiles
+    again = tune("stencil3d7pt", H100, measure=False, session=sess)
+    assert compiled_once == before + 1
+    assert sess.stats.plan_compiles == compiled_once
+    assert first.to_dict() == again.to_dict()
+
+
+def test_children_see_the_fault_hook_as_the_parent_sets_it(monkeypatch):
+    """Children come from a fork server started once; the fault hook's
+    variables reach each child as the parent has them when it starts
+    that child, not as they stood when the server started."""
+    cand = {"block_q": 16, "block_kv": 32}
+    monkeypatch.delenv("REPRO_TUNE_FAULT", raising=False)
+    ok = t_measure.measure_candidate("flash_attention", TINY, cand, H100,
+                                     device="cpu", reps=1, retries=0)
+    assert ok.ok
+    monkeypatch.setenv("REPRO_TUNE_FAULT", "raise")
+    bad = t_measure.measure_candidate("flash_attention", TINY, cand, H100,
+                                      device="cpu", reps=1, retries=0)
+    assert not bad.ok and "injected tune fault" in bad.error
+    monkeypatch.delenv("REPRO_TUNE_FAULT")
+    assert t_measure.measure_candidate("flash_attention", TINY, cand, H100,
+                                       device="cpu", reps=1,
+                                       retries=0).ok
