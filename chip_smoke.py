@@ -61,6 +61,20 @@ followed by its seconds:
                paper's C long-range listing, and ECM at phase 4's
                full-size shapes from the calibrated copy beside phase 4's
                uncalibrated figures;
+  4c. SIM and ports — host analysis only, no launch: per main-path
+               stencil traced at 4 bytes at phase 4's shape, bytes per
+               iteration per level from LC at 132 SMs, from the cache
+               simulator at the JAX default warm-up (2 rows), at a
+               256-row probe, and at a warm-up covering the 3D layer
+               condition (2N + 2 rows, 7-point; 8N + 2, long-range), cut
+               to the rows the probe says fit the phase's 30 s (the rows
+               run are printed), each with its host seconds; ECM and
+               Roofline from each beside phase 4's measured time
+               (measured/predicted); the ``ports`` in-core model against
+               ``simple`` at SP and at the DP default (T_OL, T_nOL, T_lat,
+               the binding bound).  Fails when SIM resolves to a backend
+               other than ``vector`` or ``ports`` disagrees with ``simple``
+               at SP;
   5. tune    — ``tune flash_attention`` at granite-8b's attention (32
                heads, head_dim 128, bf16, causal, batch 1, seq 4096):
                predict every candidate, measure the top 4 and the default
@@ -156,6 +170,14 @@ SIMT_BEFORE = {"gemma-7b": (64, 32), "zamba2-7b": (64, 64)}
 # the stencil tunes measure the top 5 by prediction and the default: at
 # least the top 4 and the default when the default is among the top 4
 STENCIL_TOP_K = 5
+# phase 4c: the warm-up rows that cover each stencil's 3D layer condition
+# (the planes a row's reads reach back), the host seconds the phase may
+# spend, and the rows of the probe that sizes a warm-up cut to fit
+SIM_DEEP_ROWS = {"stencil3d7pt": lambda n: 2 * n + 2,
+                 "longrange3d": lambda n: 8 * n + 2}
+SIM_BUDGET_S = 30.0
+SIM_MARGIN_S = 6.0
+SIM_PROBE_ROWS = 256
 TC_KERNEL = re.compile(r"_ZN\w*?(flash_attention_(?:wgmma|bf16x3)_kernel)"
                        r"ILi(\d+)ELi(\d+)ELi(\d+)E\w*")
 STENCIL_KERNEL = re.compile(r"_ZN\w*?(stencil3d7pt|longrange3d)_kernel"
@@ -933,6 +955,98 @@ def block_sizes(api, blocking, h100) -> dict:
     return out
 
 
+def timed_volumes(predict, kernel, h100, **kw):
+    t0 = time.perf_counter()
+    vol = predict(kernel, h100, **kw)
+    return vol, time.perf_counter() - t0
+
+
+def sim_and_ports(measured_ms: dict, stencil, h100, predictors, cachesim,
+                  incore) -> dict:
+    """Phase 4c: per main-path stencil, traced at 4 bytes at phase 4's
+    shape, the bytes per iteration per level from LC at all SMs and from
+    the cache simulator at the JAX package's default warm-up and at one
+    that covers the 3D layer condition (cut to what fits the phase's
+    budget, timed by a probe), with ECM and Roofline from each beside
+    phase 4's measured time; then the ``ports`` in-core model against
+    ``simple`` at SP and at the DP default.  Host code only: it launches
+    nothing."""
+    t_start = time.perf_counter()
+    backend = cachesim.resolve_backend(h100)
+    if backend != "vector":
+        raise SmokeError(f"SIM resolves to the {backend!r} backend on "
+                         f"{h100.name}, not 'vector'")
+    sms = int(h100.extra["SM count"])
+    names = h100.level_names
+    out = {}
+    for name, ms in measured_ms.items():
+        shape, n = MAIN[name], MAIN[name][1]
+        k = stencil.kernel(name, shape)
+        rows = {}
+        lc, lc_s = timed_volumes(predictors.predict_volumes, k, h100,
+                                 predictor="LC", cores=sms)
+        rows[f"LC at {sms} SMs"] = (lc, lc_s, None)
+        for what, n_rows in (("default", None),
+                             ("probe", SIM_PROBE_ROWS)):
+            kw = {} if n_rows is None else {"warmup_rows": n_rows}
+            vol, sec = timed_volumes(predictors.predict_volumes, k, h100,
+                                     predictor="SIM", sim_kwargs=kw)
+            if vol.params["backend"] != "vector":
+                raise SmokeError(f"{name}: SIM ran on the "
+                                 f"{vol.params['backend']!r} backend")
+            rows[f"SIM {what}"] = (vol, sec, vol.params["warmup_rows"])
+        want = SIM_DEEP_ROWS[name](n)
+        left = SIM_BUDGET_S - SIM_MARGIN_S - (time.perf_counter() - t_start)
+        per_row = rows["SIM probe"][1] / SIM_PROBE_ROWS
+        deep = min(want, max(SIM_PROBE_ROWS, int(left / per_row)))
+        vol, sec = timed_volumes(predictors.predict_volumes, k, h100,
+                                 predictor="SIM",
+                                 sim_kwargs={"warmup_rows": deep})
+        label = "SIM 3D LC" if deep == want else f"SIM cut of {want}"
+        rows[label] = (vol, sec, deep)
+        print(f"  {name} {shape} fp32 traced at 4 B, phase 4 measured "
+              f"{ms:.4f} ms; bytes per iteration into each level from the "
+              f"next one out, host seconds per prediction")
+        print("    " + f"{'':20s}" + "".join(f"{lv:>9s}" for lv in names)
+              + f" {'host s':>7s} {'rows':>5s} {'ECM ms':>8s} "
+                f"{'meas/pred':>9s} {'Roofl ms':>8s} {'meas/pred':>9s}")
+        res = {"measured_ms": ms, "deep_rows_wanted": want,
+               "deep_rows_run": deep, "predictions": {}}
+        for label, (vol, sec, n_rows) in rows.items():
+            pred = stencil.predict_seconds(name, shape, h100, volumes=vol)
+            ecm_ms, roof_ms = pred.ecm_s * 1e3, pred.roofline_s * 1e3
+            print("    " + f"{label:20s}" + "".join(
+                f"{vol.volume(lv):9.3f}" for lv in names)
+                + f" {sec:7.2f} {'-' if n_rows is None else n_rows:>5} "
+                  f"{ecm_ms:8.4f} {ms / ecm_ms:9.3f} {roof_ms:8.4f} "
+                  f"{ms / roof_ms:9.3f}")
+            res["predictions"][label] = {
+                "bytes_per_it": dict(vol.bytes_per_it), "params":
+                dict(vol.params), "host_s": sec, "ecm_ms": ecm_ms,
+                "roofline_ms": roof_ms, "ecm": pred.ecm.notation()}
+        ic = {"simple SP": incore.analyze(k, h100, "simple", precision="SP"),
+              "simple DP": incore.analyze(k, h100, "simple"),
+              "ports": incore.analyze(k, h100, "ports")}
+        for label, r in ic.items():
+            print(f"    in-core {label:10s} T_OL {r.t_ol:6.3f}  T_nOL "
+                  f"{r.t_nol:6.3f}  T_lat {r.t_latency:6.3f} cy per "
+                  f"{r.unit_iterations} it, critical path "
+                  f"{r.critical_path:5.1f} cy, {r.bound} bound")
+        p, sp = ic["ports"], ic["simple SP"]
+        if (p.t_ol, p.t_nol) != (sp.t_ol, sp.t_nol):
+            raise SmokeError(f"{name}: ports (T_OL {p.t_ol}, T_nOL "
+                             f"{p.t_nol}) disagrees with simple at SP "
+                             f"(T_OL {sp.t_ol}, T_nOL {sp.t_nol})")
+        ports = stencil.predict_seconds(name, shape, h100, incore="ports")
+        print(f"    occupation {p.port_occupation}; ECM [LC] [ports] "
+              f"{ports.ecm_s * 1e3:.4f} ms (measured/predicted "
+              f"{ms / (ports.ecm_s * 1e3):.3f})")
+        res["incore"] = {label: r.to_dict() for label, r in ic.items()}
+        res["ecm_lc_ports_ms"] = ports.ecm_s * 1e3
+        out[name] = res
+    return out
+
+
 def smoke(out_path: str | None) -> int:
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is False: this smoke "
@@ -942,7 +1056,7 @@ def smoke(out_path: str | None) -> int:
                          "from a checkout of the repository")
     sys.path.insert(0, str(SRC))
     from repro_torch import tune as tune_mod
-    from repro_torch.core import api, blocking
+    from repro_torch.core import api, blocking, cachesim, incore, predictors
     from repro_torch.core import machine as machine_mod
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
@@ -1028,6 +1142,11 @@ def smoke(out_path: str | None) -> int:
         stencil_tunes[name]["ecm_uncalibrated_ms"] = unc.ecm_s * 1e3
         stencil_tunes[name]["main_path_ms"] = ms
         predicted[f"tune_{name}"] = stencil_tunes[name]
+
+    phase("4c SIM and ports on the H100")
+    predicted["sim_ports"] = sim_and_ports(
+        {n: runs[n]["t_kernel"].wall_s * 1e3 for n in MAIN}, stencil, h100,
+        predictors, cachesim, incore)
 
     phase("5 tune flash_attention at granite-8b's attention")
     counts = fa.flash_attention.launches_by_route

@@ -9,7 +9,7 @@
 It takes the JAX command's options, minus ``--cache-dir`` (the result
 store is not ported), plus ``--device``.  The JAX command's ``analyze``,
 ``sweep``, ``blocking`` and ``machine validate`` run lint's preflight and
-its text reports, and wait for them (ROADMAP.md Queue 1, item 9); their
+its text reports, and wait for them (ROADMAP.md Queue 1, item 7); their
 library faces are :func:`repro_torch.core.analyze`,
 :func:`~repro_torch.core.sweep` and
 :func:`repro_torch.core.blocking.grid_search`.  Measurement runs on the card

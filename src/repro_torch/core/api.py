@@ -30,8 +30,8 @@ from .machine import load as load_machine
 from .model_api import Result
 from .session import AnalysisSession, _freeze
 
-#: what the port leaves to ROADMAP.md Queue 1, item 9 (service tier, lint)
-_NOT_PORTED = "is not ported to repro_torch yet (ROADMAP.md Queue 1, item 9)"
+#: what the port leaves to ROADMAP.md Queue 1, item 7 (service tier, lint)
+_NOT_PORTED = "is not ported to repro_torch yet (ROADMAP.md Queue 1, item 7)"
 
 # session pool: one memoizing session per machine description, keyed by
 # machine name (pass session= explicitly when juggling same-named variants)
@@ -135,9 +135,14 @@ def analyze(source: Any, machine: Machine | str, model: str = "ecm",
     ``RooflineResult``; both have ``to_dict()``).
 
     ``source`` goes through :func:`load_kernel`; ``predictor``, ``cores``,
-    ``incore`` and remaining ``opts`` (``calibrated=``) go to the model,
-    through the pooled session for ``machine`` unless ``session=`` names
-    one.  ``sim_kwargs``, ``lint`` and ``service`` are the JAX package's
+    ``sim_kwargs``, ``incore`` and remaining ``opts`` (``calibrated=``) go
+    to the model, through the pooled session for ``machine`` unless
+    ``session=`` names one.  For the SIM predictor, ``sim_kwargs`` carries
+    the simulator options — ``warmup_rows``/``measure_rows``/``seed`` and
+    ``backend`` (``auto``/``scalar``/``vector``) — which the session
+    normalizes into its cache keys and the result records as
+    ``predictor_params``.  ``incore`` names a registered in-core model
+    ('simple'/'ports').  ``lint`` and ``service`` are the JAX package's
     switches for parts the port does not carry yet: anything but their
     defaults raises."""
     _refuse(service, lint=lint)

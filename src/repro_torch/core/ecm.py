@@ -203,19 +203,20 @@ def _scale_terms(machine: Machine, terms: list) -> list:
 
 
 def model(kernel: LoopKernel, machine: Machine, predictor: str = "LC",
-          cores: int = 1,
+          cores: int = 1, sim_kwargs: dict | None = None,
           volumes: VolumePrediction | None = None,
           incore_result: InCoreResult | None = None,
           incore: str = "simple", calibrated: bool = False) -> ECMResult:
     """Build the full ECM model: in-core + cache prediction + data terms.
 
     ``predictor`` names a registered :class:`~repro_torch.core.predictors
-    .CachePredictor` ('LC') and ``incore`` a registered
-    :class:`~repro_torch.core.incore.InCoreModel` ('simple'), mirroring
-    the CLI's ``--cache-predictor`` / ``--incore`` switches.  A
-    precomputed ``volumes`` prediction and/or ``incore_result``
-    short-circuits the corresponding analysis so multi-model reports share
-    work (``incore_result`` takes precedence over the ``incore`` name).
+    .CachePredictor` ('LC' or 'SIM'; ``sim_kwargs`` reaches SIM only) and
+    ``incore`` a registered :class:`~repro_torch.core.incore.InCoreModel`
+    ('simple' or 'ports'), mirroring the CLI's ``--cache-predictor`` /
+    ``--incore`` switches.  A precomputed ``volumes`` prediction and/or
+    ``incore_result`` short-circuits the corresponding analysis so
+    multi-model reports share work (``incore_result`` takes precedence
+    over the ``incore`` name).
 
     ``calibrated=True`` applies the machine's tuned ``calibration``
     factors (written by the JAX package's autotuner): the
@@ -227,7 +228,8 @@ def model(kernel: LoopKernel, machine: Machine, predictor: str = "LC",
     unit = kernel.iterations_per_cacheline(machine.cacheline_bytes)
     ic = incore_result or _incore.analyze(kernel, machine, model=incore)
     if volumes is None:
-        volumes = predict_volumes(kernel, machine, predictor, cores=cores)
+        volumes = predict_volumes(kernel, machine, predictor, cores=cores,
+                                  sim_kwargs=sim_kwargs)
     serial, overl = data_terms(machine, volumes.bytes_per_it, unit)
     t_ol, t_nol = ic.t_ol, ic.t_nol
     apply_cal = bool(calibrated and machine.calibration)

@@ -15,7 +15,7 @@ consume, and every frontend registers itself by name so the unified
     ========  =======================================  ==========
 
 The JAX package's fourth frontend, ``hlo``, reads XLA HLO modules and
-waits for the port's graph frontend (ROADMAP.md Queue 1, item 8).  The
+waits for the port's graph frontend (ROADMAP.md Queue 1, item 6).  The
 ``trace`` frontend is :mod:`repro_torch.core.trace`, registered here.
 
 The contract is :class:`KernelFrontend`: ``load(source, **opts)`` returns a

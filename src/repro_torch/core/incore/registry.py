@@ -3,9 +3,9 @@ replaceable in-core component (a copy of ``repro.core.incore.registry``).
 
 Kerncraft delegates in-core prediction to IACA and aggregates its per-port
 throughput into the machine file's overlapping/non-overlapping classes
-(paper §2.5).  Every in-core model registers here and ECM and Roofline
-resolve models by name through :func:`resolve_incore`.  The port registers
-only ``"simple"``; the JAX package's ``"ports"`` scheduler is not ported.
+(paper §2.5).  Every in-core model registers here (``"simple"`` and the
+``"ports"`` scheduler), and ECM, Roofline, sessions and compiled sweep plans
+resolve models by name through :func:`resolve_incore`.
 """
 from __future__ import annotations
 

@@ -27,9 +27,8 @@ _MACHINE_DIR = pathlib.Path(__file__).resolve().parent.parent / "machines"
 
 INF = float("inf")
 
-#: Op kinds a ``ports:`` instruction table may declare (the JAX package's
-#: op-stream IR kinds; parsed here so that machine files with a ``ports:``
-#: table load unchanged).
+#: Op kinds a ``ports:`` instruction table may declare — the single source
+#: of truth shared with the op-stream IR (:mod:`repro_torch.core.incore.ir`).
 PORT_OP_KINDS = ("ADD", "MUL", "DIV", "FMA", "LOAD", "STORE", "MXU", "VPU")
 
 # accepted YAML keys; anything else raises (a misspelled key silently

@@ -17,7 +17,7 @@ in-core results so nothing is recomputed across a sweep.
 
 The port registers the three loop models.  ``hlo-roofline`` prices XLA
 HLO text and waits for a graph frontend of the port (ROADMAP.md Queue 1,
-item 8); :func:`resolve_model` names that item.
+item 6); :func:`resolve_model` names that item.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from .machine import Machine
 NOT_PORTED = {
     "hlo-roofline": "the HLO roofline prices XLA HLO text; it waits for "
                     "the port's graph frontend (ROADMAP.md Queue 1, "
-                    "item 8)",
+                    "item 6)",
 }
 
 
@@ -53,9 +53,10 @@ class PerformanceModel(abc.ABC):
     frontend/model compatibility up front.
 
     For loop models, ``analyze`` accepts the uniform option set
-    (``predictor``, ``cores``) plus the shared-work shortcuts ``volumes``
-    and ``incore_result``; concrete models forward them to their
-    module-level ``model()`` functions, which remain usable directly.
+    (``predictor``, ``cores``, ``sim_kwargs``) plus the shared-work
+    shortcuts ``volumes`` and ``incore_result``; concrete models forward
+    them to their module-level ``model()`` functions, which remain usable
+    directly.
 
     ``cores_invariant_result`` declares that two calls differing only in
     ``cores`` but with identical predicted traffic return identical

@@ -2,10 +2,11 @@
 ``--cache-predictor`` switch (a copy of ``repro.core.predictors``).
 
 Both performance models consume the same input — the traffic β_k between
-adjacent memory levels.  The paper offers two ways to predict it: layer
-conditions (analytic) and the cache simulator.  The port carries LC only;
-``predictor="SIM"`` raises until the simulator is ported (ROADMAP.md
-Queue 1, item 2).  :mod:`repro_torch.core.ecm` and
+adjacent memory levels — but the paper offers two ways to predict it:
+layer conditions (``"LC"``: analytic, fast, associativity-blind) and the
+cache simulator (``"SIM"``: slow, associativity-aware, the paper's
+fallback where LC analysis is not easily possible).  This module is the
+only place that dispatch lives; :mod:`repro_torch.core.ecm` and
 :mod:`repro_torch.core.roofline` receive a finished
 :class:`VolumePrediction` and never branch on the predictor name.
 """
@@ -15,6 +16,7 @@ import abc
 import dataclasses
 
 from . import layer_conditions
+from .cachesim import normalize_sim_kwargs, simulate
 from .kernel_ir import LoopKernel
 from .machine import Machine
 
@@ -27,9 +29,10 @@ class VolumePrediction:
     farther one (load misses + write-backs), the common input of ECM and
     Roofline.  ``detail`` keeps the predictor-specific evidence (the
     per-level :class:`~repro_torch.core.layer_conditions.LCState` map for
-    LC) for reports.  ``params`` records the predictor options actually
-    used (none for LC), so results carry full provenance (see
-    ``ECMResult.predictor_params``).
+    LC, the :class:`~repro_torch.core.cachesim.SimResult` for SIM) for
+    reports.  ``params`` records the predictor options actually used — for
+    SIM the resolved backend and warm-up/measure windows — so downstream
+    results carry full provenance (see ``ECMResult.predictor_params``).
     """
     predictor: str
     bytes_per_it: dict[str, float]
@@ -48,20 +51,27 @@ class VolumePrediction:
 class CachePredictor(abc.ABC):
     """One prediction backend for per-level cache traffic.
 
+    ``uses_sim_kwargs`` declares whether the backend consumes the
+    simulation options the CLI calls ``sim_kwargs`` (warm-up/measure
+    windows, seeds); analytic predictors leave it False and never see
+    them.
+
     ``supports_compiled`` declares whether the prediction is analytic in
     the loop sizes and can be lowered by :mod:`repro_torch.core.compiled`
     into a batched sweep plan (true for LC, whose traffic is
-    piecewise-constant in a single loop symbol).  The session's sweep
-    auto-routing and ``blocking.grid_search`` check this instead of
-    hard-coding predictor names.
+    piecewise-constant in a single loop symbol; false for the simulator,
+    whose output has no closed form).  The session's sweep auto-routing
+    and ``blocking.grid_search`` check this instead of hard-coding
+    predictor names.
     """
 
     name: str = "?"
+    uses_sim_kwargs: bool = False
     supports_compiled: bool = False
 
     @abc.abstractmethod
-    def predict(self, kernel: LoopKernel, machine: Machine,
-                cores: int = 1) -> VolumePrediction:
+    def predict(self, kernel: LoopKernel, machine: Machine, cores: int = 1,
+                **kwargs) -> VolumePrediction:
         ...
 
 
@@ -80,8 +90,8 @@ class LayerConditionPredictor(CachePredictor):
     name = "LC"
     supports_compiled = True
 
-    def predict(self, kernel: LoopKernel, machine: Machine,
-                cores: int = 1) -> VolumePrediction:
+    def predict(self, kernel: LoopKernel, machine: Machine, cores: int = 1,
+                **kwargs) -> VolumePrediction:
         states = layer_conditions.volumes_per_level(kernel, machine,
                                                     cores=cores)
         return VolumePrediction(
@@ -90,19 +100,43 @@ class LayerConditionPredictor(CachePredictor):
             detail=states)
 
 
+@register_predictor
+class CacheSimulationPredictor(CachePredictor):
+    """Set-associative simulation (paper §2.4.1) — sees real set indices.
+
+    Extra keyword arguments (``warmup_rows``, ``measure_rows``, ``seed``,
+    ``backend``) are forwarded to
+    :func:`repro_torch.core.cachesim.simulate`; ``backend`` is the
+    scalar/vector engine switch (the JAX CLI's ``--sim-backend``).  The
+    returned prediction's ``params`` records the options actually used,
+    with ``backend`` resolved (never ``auto``).  ``cores`` is dropped, as the
+    JAX package drops it: one core simulates every shared level whole.
+    """
+
+    name = "SIM"
+    uses_sim_kwargs = True
+
+    def predict(self, kernel: LoopKernel, machine: Machine, cores: int = 1,
+                **kwargs) -> VolumePrediction:
+        params = normalize_sim_kwargs(kwargs, machine)
+        res = simulate(kernel, machine, **params)
+        return VolumePrediction(
+            predictor=self.name,
+            bytes_per_it={n: res.total_bytes_per_it(n)
+                          for n in machine.level_names},
+            detail=res,
+            params=params)
+
+
 def predictor_tag(predictor: str, params: dict) -> str:
-    """Compact provenance tag for reports, e.g. ``LC`` — the one
-    definition behind ``ECMResult``/``RooflineResult`` ``.predictor_tag``."""
+    """Compact provenance tag for reports, e.g. ``LC`` or ``SIM:vector`` —
+    the one definition behind ``ECMResult``/``RooflineResult``
+    ``.predictor_tag``."""
     backend = params.get("backend")
     return predictor + (f":{backend}" if backend else "")
 
 
 def resolve_predictor(name: str) -> CachePredictor:
-    if name.upper() == "SIM":
-        raise ValueError(
-            "cache predictor 'SIM' (the cache simulator) is not ported to "
-            "repro_torch yet; see ROADMAP.md Queue 1, item 2.  Use "
-            "predictor='LC'.")
     try:
         return PREDICTOR_REGISTRY[name.upper()]
     except KeyError:
@@ -112,8 +146,13 @@ def resolve_predictor(name: str) -> CachePredictor:
 
 
 def predict_volumes(kernel: LoopKernel, machine: Machine,
-                    predictor: str = "LC",
-                    cores: int = 1) -> VolumePrediction:
+                    predictor: str = "LC", cores: int = 1,
+                    sim_kwargs: dict | None = None) -> VolumePrediction:
     """The one entry point for β_k prediction (the paper's
-    ``--cache-predictor`` switch)."""
-    return resolve_predictor(predictor).predict(kernel, machine, cores=cores)
+    ``--cache-predictor`` switch).  ``sim_kwargs`` only reaches backends
+    declaring ``uses_sim_kwargs`` (SIM), mirroring the CLI semantics where
+    the analytic predictor has no simulation options.
+    """
+    pred = resolve_predictor(predictor)
+    kwargs = dict(sim_kwargs or {}) if pred.uses_sim_kwargs else {}
+    return pred.predict(kernel, machine, cores=cores, **kwargs)

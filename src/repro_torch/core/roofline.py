@@ -209,6 +209,7 @@ def terms_arrays(kernel: LoopKernel, machine: Machine, traffic: dict,
 
 def model(kernel: LoopKernel, machine: Machine, predictor: str = "LC",
           variant: str = "IACA", cores: int = 1,
+          sim_kwargs: dict | None = None,
           volumes: VolumePrediction | None = None,
           incore_result: InCoreResult | None = None,
           incore: str = "simple",
@@ -244,7 +245,8 @@ def model(kernel: LoopKernel, machine: Machine, predictor: str = "LC",
 
     # ---- per-level transfer bounds --------------------------------------
     if volumes is None:
-        volumes = predict_volumes(kernel, machine, predictor, cores=cores)
+        volumes = predict_volumes(kernel, machine, predictor, cores=cores,
+                                  sim_kwargs=sim_kwargs)
 
     r, w, rw = kernel.stream_counts()
     levels: list[RooflineLevel] = []

@@ -2,9 +2,9 @@
 
 Blocking sweeps, multi-model reports, and any high-traffic analysis service
 evaluate the same kernel at many parameter points and under several models.
-The expensive pieces — sympy-heavy layer conditions and the in-core
-models — depend only on ``(kernel, machine, predictor, opts)``, so an
-:class:`AnalysisSession` caches all three tiers:
+The expensive pieces — sympy-heavy layer conditions, the cache simulator,
+the in-core models — depend only on ``(kernel, machine, predictor,
+opts)``, so an :class:`AnalysisSession` caches all three tiers:
 
   1. in-core analysis        (keyed by kernel *structure* × in-core model:
                               bound constants never enter, so one entry
@@ -13,9 +13,11 @@ models — depend only on ``(kernel, machine, predictor, opts)``, so an
   3. full model results      (keyed by model × kernel × predictor ×
                               in-core model × opts)
 
-The port carries the LC predictor only, which takes no simulation
-options: ``sim_kwargs`` keys as ``()``, and a non-empty ``sim_kwargs``
-raises until the cache simulator is ported (ROADMAP.md Queue 1, item 2).
+For the SIM predictor the option key is *normalized* — defaults filled
+in and ``backend='auto'`` resolved against the machine — so equivalent
+spellings share entries while different simulator backends/windows key
+separately; predictors that never see sim options (LC) drop them from
+the key entirely.
 
 The session exposes a batch API::
 
@@ -40,6 +42,7 @@ from collections.abc import Mapping, Sequence
 import numpy as np
 
 from . import incore as _incore
+from .cachesim import normalize_sim_kwargs
 from .compiled import (CompiledSweepPlan, CompileError, compile_plan,
                        meshgrid_points)
 from .identity import freeze as _freeze
@@ -128,17 +131,16 @@ class AnalysisSession:
                 _freeze(opts))
 
     def sim_key(self, predictor: str, sim_kwargs: dict) -> tuple:
-        """Cache-key fragment for the simulation options: ``()``, as the
-        JAX package keys its analytic predictors.  The only predictor of
-        the port (LC) takes no simulation options, so a non-empty
-        ``sim_kwargs`` raises instead of being dropped silently."""
-        resolve_predictor(predictor)
-        if sim_kwargs:
-            raise ValueError(
-                f"sim_kwargs {sorted(sim_kwargs)} configure the cache "
-                "simulator, which is not ported to repro_torch yet "
-                "(ROADMAP.md Queue 1, item 2)")
-        return ()
+        """Cache-key fragment for the simulation options.
+
+        Normalized so equivalent spellings share entries: predictors that
+        never see sim_kwargs (LC) key as ``()``, and for SIM the defaults
+        are filled in and ``backend='auto'`` is resolved against the
+        machine — the key always names the backend actually simulating.
+        """
+        if not resolve_predictor(predictor).uses_sim_kwargs:
+            return ()
+        return _freeze(normalize_sim_kwargs(sim_kwargs, self.machine))
 
     # ------------------------------------------------------------------
     def incore(self, kernel: LoopKernel,
@@ -174,7 +176,8 @@ class AnalysisSession:
             self.stats.volume_hits += 1
             return hit
         self.stats.volume_misses += 1
-        res = predict_volumes(kernel, self.machine, predictor, cores=cores)
+        res = predict_volumes(kernel, self.machine, predictor, cores=cores,
+                              sim_kwargs=sim_kwargs)
         self._volumes[key] = res
         return res
 
@@ -230,7 +233,8 @@ class AnalysisSession:
         vols = self.volumes(kernel, predictor, cores, sim_kwargs)
         ic = self.incore(kernel, incore)
         res = m.analyze(kernel, self.machine, predictor=predictor,
-                        cores=cores, volumes=vols, incore_result=ic, **opts)
+                        cores=cores, sim_kwargs=sim_kwargs, volumes=vols,
+                        incore_result=ic, **opts)
         self._results[key] = res
         return res
 
@@ -359,7 +363,7 @@ class AnalysisSession:
         by identical per-level LC outcome), and results are bit-for-bit
         identical to the per-point path.  ``True`` requires the compiled
         path (raises :class:`~repro_torch.core.compiled.CompileError` when
-        inapplicable); ``False`` forces
+        inapplicable, e.g. under the SIM predictor); ``False`` forces
         per-point evaluation.
         """
         if not isinstance(kernel, LoopKernel):

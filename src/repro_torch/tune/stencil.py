@@ -24,6 +24,7 @@ import torch
 from .. import convert
 from ..core import api, model_api
 from ..core.ecm import ECMResult
+from ..core.predictors import VolumePrediction
 from ..core.roofline import RooflineResult
 from ..kernels import longrange3d, ops, stencil3d7pt
 from .measure import Bound
@@ -67,27 +68,39 @@ class StencilPrediction:
         return self.flops_total / self.roofline.performance
 
 
+def kernel(name: str, shape: tuple[int, int, int]):
+    """Family ``name``'s point function traced at the float32 the kernels
+    run, with ``M`` and ``N`` of one ``(M, N, N)`` run bound."""
+    M, N, _ = shape
+    return api.load_kernel(family(name).module.point,
+                           constants={"M": M, "N": N}, element_bytes=4)
+
+
 def predict_seconds(name: str, shape: tuple[int, int, int],
                     machine="H100", cores: int | None = None,
-                    calibrated: bool = False) -> StencilPrediction:
+                    calibrated: bool = False,
+                    volumes: VolumePrediction | None = None,
+                    incore: str = "simple") -> StencilPrediction:
     """ECM and (classic) Roofline predictions for one ``(M, N, N)`` run of
     family ``name``.  ``cores`` defaults to the machine's SM count;
     ``calibrated`` applies the machine file's calibration factors (as
-    ``tune --apply-calibration`` writes them) to both models."""
-    fam = family(name)
+    ``tune --apply-calibration`` writes them) to both models.  ``volumes``
+    is a finished traffic prediction (a cache simulation, say) that both
+    models take in place of the layer conditions at ``cores``; ``incore``
+    names the ECM's in-core model."""
     mach = api.resolve_machine(machine)
     if cores is None:
         cores = int(mach.extra.get("SM count", mach.cores_per_socket))
+    k = kernel(name, shape)
     M, N, _ = shape
-    kernel = api.load_kernel(fam.module.point, constants={"M": M, "N": N},
-                             element_bytes=4)
     return StencilPrediction(
         family=name, shape=(M, N, N), cores=cores,
-        flops_total=kernel.flops.total * kernel.total_iterations(),
-        ecm=model_api.analyze("ecm", kernel, mach, cores=cores,
-                              calibrated=calibrated),
-        roofline=model_api.analyze("roofline", kernel, mach, cores=cores,
-                                   calibrated=calibrated))
+        flops_total=k.flops.total * k.total_iterations(),
+        ecm=model_api.analyze("ecm", k, mach, cores=cores,
+                              calibrated=calibrated, volumes=volumes,
+                              incore=incore),
+        roofline=model_api.analyze("roofline", k, mach, cores=cores,
+                                   calibrated=calibrated, volumes=volumes))
 
 
 def bound_seconds(name: str, args, machine="H100") -> Bound:

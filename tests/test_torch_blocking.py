@@ -134,22 +134,20 @@ def test_analyze_uses_the_pooled_session():
 @pytest.mark.parametrize("what, kwargs, match", [
     ("service", {"service": object()}, "service="),
     ("lint", {"lint": "warn"}, "lint='warn'"),
-    ("sim", {"sim_kwargs": {"seed": 1}}, "cache simulator"),
-    ("sim-predictor", {"predictor": "SIM"}, "not ported"),
 ])
 def test_unported_switches_name_their_roadmap_item(what, kwargs, match):
     with pytest.raises(ValueError, match=match) as e:
         api.analyze("stencil_3d7pt.c", IVY, constants={"M": 30, "N": 30},
                     **kwargs)
     assert "Queue 1, item" in str(e.value)
-    with pytest.raises(ValueError, match="item 9"):
+    with pytest.raises(ValueError, match="item 7"):
         api.sweep("stencil_3d7pt.c", IVY, "N", [30, 40],
                   constants={"M": 30}, workers=2)
 
 
 def test_hlo_roofline_names_its_roadmap_item():
     from repro_torch.core import model_api
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(ValueError, match="item 6"):
         model_api.resolve_model("hlo-roofline")
     assert sorted(model_api.MODEL_REGISTRY) == \
         ["ecm", "roofline", "roofline-iaca"]

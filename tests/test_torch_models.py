@@ -119,8 +119,6 @@ def test_h100_machine_file_lints_clean():
 
 def test_unported_options_raise():
     with pytest.raises(ValueError, match="not ported"):
-        api.analyze(stencil3d7pt.point, "H100", predictor="SIM")
-    with pytest.raises(ValueError, match="not ported"):
         trace.trace_kernel(stencil3d7pt.point, flops="jaxpr")
     with pytest.raises(ValueError, match="unknown performance model"):
         api.analyze(stencil3d7pt.point, "H100", model="hlo-roofline")

@@ -122,6 +122,27 @@ def test_cpu_path_counts_no_launch():
     assert (t_s7.stencil3d7pt.launches, t_lr.longrange3d.launches) == before
 
 
+def test_h100_ports_table_and_sim_backend():
+    """The H100 file's ``ports:`` table parses, and the cache simulator
+    runs on it on the vector backend — the route ``chip_smoke.py`` phase
+    4c needs on the card machine, which has no JAX."""
+    from repro_torch.core import cachesim, incore, machine
+    h100 = machine.load("H100")
+    assert h100.ports.names == ("FP32_ADD", "FP32_MUL", "FP64", "SFU",
+                                "LSU_LD", "LSU_ST")
+    assert h100.ports.non_overlapping == ("LSU_LD",)
+    assert sorted(h100.ports.entries) == ["ADD", "DIV", "FMA", "LOAD",
+                                          "MUL", "STORE"]
+    assert cachesim.resolve_backend(h100) == "vector"
+    assert cachesim.normalize_sim_kwargs({}, h100)["backend"] == "vector"
+    k = stencil.kernel("stencil3d7pt", (8, 32, 32))
+    p = incore.analyze(k, h100, "ports")
+    sp = incore.analyze(k, h100, "simple", precision="SP")
+    assert (p.t_ol, p.t_nol) == (sp.t_ol, sp.t_nol) == (1.75, 7.0)
+    res = cachesim.simulate(k, h100, warmup_rows=66)
+    assert res.backend == "vector" and res.iterations == 30
+
+
 def test_device_resolution_never_falls_back():
     assert device.resolve("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
