@@ -104,12 +104,45 @@ followed by its seconds:
                flash_attention`` at gemma-7b's attention in bf16 (top 4 and
                the default measured in child processes), whose choice
                must take the wgmma route.
+  9. serve  — the LM stack (``repro_torch.models``, ``serve``):
+               9a, each of the ten reduced configs in its own types on
+               the card and twice on the CPU (its types, and float32 as
+               the yardstick) from the same seeded parameters:
+               ``forward``, then prefill and 4 decode steps; the card's
+               logits must lie no further from the float32 run than 1.5x
+               the CPU's own run plus 0.05, and every config with causal
+               attention must reach the flash kernel.  9b, granite-8b at
+               its published widths and full depth (tp=1, bf16, weights
+               drawn on the card from a seed) behind ``BatchedServer``
+               (batch 4): 8 requests of 512-1024 tokens, 32 new tokens
+               each, ``max_len`` 1088; prefill ms per bucket and decode
+               ms per step (CUDA events), tokens/s, peak memory, each
+               beside its bound (16.1 GB of weights and the kv cache at
+               3.35 TB/s; 15.7 GFLOP a token at 989 TFLOP/s); flash
+               launches per route, at least 36 per prefill bucket on
+               wgmma; ``torch.profiler`` device time by kernel and class
+               (flash, GEMM, other) for one prefill and one decode step.
+               9c, every flash call of 9a, of both buckets' prefills and
+               of the cut serves below held against plain on its own
+               operands (2e-2 times max(1, max |v|) in bf16) and each
+               shape again on unit-normal operands (2e-2); the call of
+               the longest bucket timed beside plain, SDPA, its own bound
+               and the model's attention's (8 kv heads, the real rows);
+               the greedy agreement with the teacher-forced forward at
+               full depth printed; then the same widths cut to
+               ``GREEDY_CUTS`` (1 layer in bf16, 2 in float32) served
+               again, whose greedy tokens may disagree with the forward's
+               argmax only where its top-two gap is within
+               ``GREEDY_MARGIN``, and to the deeper ``GREEDY_PAST``,
+               printed only;
      Launch counters are zeroed just before each main path (4, each
-     family of 4b, 5, 6, and each model and type of 7) and must be
-     positive just after it (in 6: bf16x3, its split, simt);
-  8. a JSON line naming each ported kernel (flash attention once per
-     route, and once per route, model and type of 7), then the card's
-     line, then ``{"ok": true, "device": {...}}`` as the last line.
+     family of 4b, 5, 6, each model and type of 7, each config of 9a,
+     and 9b's serving) and must be positive just after it (in 6:
+     bf16x3, its split, simt);
+  10. a JSON line naming each ported kernel (flash attention once per
+     route, once per route, model and type of 7, and once on 9b's
+     serving path), then the card's line, then ``{"ok": true,
+     "device": {...}}`` as the last line.
 
 It imports nothing of JAX or of the JAX package ``repro``; it needs the
 repository's ``src/repro_torch`` beside it and a CUDA card.
@@ -117,10 +150,13 @@ repository's ``src/repro_torch`` beside it and a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -182,6 +218,41 @@ TC_KERNEL = re.compile(r"_ZN\w*?(flash_attention_(?:wgmma|bf16x3)_kernel)"
                        r"ILi(\d+)ELi(\d+)ELi(\d+)E\w*")
 STENCIL_KERNEL = re.compile(r"_ZN\w*?(stencil3d7pt|longrange3d)_kernel"
                             r"ILi(\d+)E\w*")
+# phase 9: the reduced configs on the card (batch, tokens: prefill and
+# forward within one chunk of the reduced Mamba-2 scan, 16; decode steps;
+# cache length), and 9a's rule — the card's logits no further from the
+# float32 CPU run than BF16_FACTOR times the CPU's own run in the
+# config's types, plus BF16_SLACK (tests/test_torch_lm.py holds the port
+# to JAX by the same rule)
+REDUCED_SHAPE = (2, 16)
+REDUCED_STEPS = 4
+REDUCED_MAX_LEN = 64
+BF16_FACTOR, BF16_SLACK = 1.5, 0.05
+# granite-8b served at full width: 8 requests of 512-1024 tokens, 32 new
+# tokens each, batch 4; max_len at least 1024 + 32
+SERVE_ARCH = "granite-8b"
+SERVE = {"requests": 8, "prompt": (512, 1024), "max_new": 32,
+         "batch_size": 4, "max_len": 1088}
+# 9c: a greedy token may differ from the teacher-forced forward's argmax
+# only where the forward's top-two gap is within GREEDY_MARGIN, two bf16
+# steps of a logit of magnitude 4-8 (2^-5 each).  This init (the fan-in of
+# wq is its heads axis, so scores reach the hundreds) is chaotic with
+# depth: a rounding that moves a score moves which key the softmax picks,
+# and each layer multiplies the change.  At 36 layers the served logits
+# lie as far from the forward's as logits reach, so there the agreement
+# is printed, not gated.  The gate serves the same widths cut to the
+# GREEDY_CUTS depths, at which the serving path's rounding leaves the
+# greedy tokens alone: one layer in bf16, and two in float32, where the
+# flash kernel's bf16x3 scores (about 2^-16 relative) are the rounding of
+# note, so that the stacked caches of two layers are checked too.  The
+# depths of GREEDY_PAST, a layer deeper, are served and printed to show
+# where the rounding starts to move tokens.  (Deeper still, the float32
+# scores grow sharp enough that the bf16x3 kernel's own-operand error
+# nears checked_flash's tolerance.)
+GREEDY_CUTS = (("bfloat16", 1), ("float32", 2))
+GREEDY_PAST = (("bfloat16", 2), ("float32", 3))
+GREEDY_MARGIN = 2 ** -4
+PROFILE_ROWS = 12
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 USED = re.compile(r"Used (\d+) registers")
 
@@ -1047,6 +1118,546 @@ def sim_and_ports(measured_ms: dict, stencil, h100, predictors, cachesim,
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 9: the LM stack served on the card
+# ----------------------------------------------------------------------
+def _lm_runs(model, params, batch: dict, steps: int) -> list:
+    """The full forward's logits, then the last-position logits of a
+    prefill of all but ``steps`` tokens and of ``steps`` decode steps, as
+    float32 on the host."""
+    from repro_torch.serve import make_caches
+    toks = batch["tokens"]
+    b, s = toks.shape
+    dev = toks.device
+    with torch.inference_mode():
+        out = [model.forward(params, batch)]
+        caches = make_caches(model, b, REDUCED_MAX_LEN, dev)
+        lg, caches = model.prefill(
+            params, dict(batch, tokens=toks[:, :s - steps]), caches)
+        out.append(lg)
+        for i in range(s - steps, s):
+            lg, caches = model.decode_step(params, caches,
+                                           toks[:, i:i + 1], i)
+            out.append(lg)
+    return [t.float().cpu() for t in out]
+
+
+@contextlib.contextmanager
+def checked_flash(fa):
+    """Hold every ``ops.flash_attention`` call made inside the block
+    against ``fa.plain`` on its own operands: |kernel - plain| <= FA_TOL
+    times max(1, max |v|), since the output is a convex combination of
+    v's rows, so an error of the softmax weights moves it in proportion
+    to |v| (this init's v reaches 100 and more).  The kernel call is the
+    path's own, made once, and counts; plain launches nothing.  Yields a
+    dict keyed by (q shape, k shape, causal, q_offset, dtype) of the
+    calls, their route and their worst error over its tolerance."""
+    from repro_torch.kernels import ops
+    real = ops.flash_attention
+    seen = {}
+
+    def check(q, k, v, causal=True, q_offset=None):
+        out, route = routed(fa, lambda: real(q, k, v, causal=causal,
+                                             q_offset=q_offset))
+        want = fa.plain(q, k, v, causal=causal, q_offset=q_offset)
+        tol = FA_TOL[q.dtype] * max(1.0, v.float().abs().max().item())
+        err = (out.float() - want.float()).abs().max().item()
+        key = (tuple(q.shape), tuple(k.shape), causal, q_offset, q.dtype)
+        row = seen.setdefault(key, {"calls": 0, "route": route,
+                                    "worst": 0.0, "err": 0.0})
+        row["calls"] += 1
+        if err / tol > row["worst"]:
+            row["worst"], row["err"] = err / tol, err
+        if out.shape != want.shape or not err <= tol:
+            raise SmokeError(f"flash_attention at q {key[0]}, k {key[1]}, "
+                             f"q_offset {q_offset}: {err:.3e} from plain on "
+                             f"its own operands, over {tol:.3e}")
+        return out
+    ops.flash_attention = check
+    try:
+        yield seen
+    finally:
+        ops.flash_attention = real
+
+
+def unit_normal_checks(fa, seen: dict, what: str) -> dict:
+    """Each distinct flash call of ``seen`` once more on seeded
+    unit-normal operands of its shape (the inputs FA_TOL is stated for),
+    through the ops wrapper; prints one line for the lot and returns the
+    worst error per shape."""
+    from repro_torch.kernels import ops
+    errs = {}
+    for n, ((sq, sk, causal, off, dt), row) in enumerate(seen.items()):
+        q, k, v = qkv(sq, sk[2], dt, SEED + n)
+        out = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+        errs[(sq, sk, off)] = fa_compare(
+            f"{what} at q {sq}, k {sk}", out,
+            fa.plain(q, k, v, causal=causal, q_offset=off), dt)
+    calls = sum(r["calls"] for r in seen.values())
+    worst = max((r["worst"] for r in seen.values()), default=0.0)
+    routes = sorted({r["route"] for r in seen.values()})
+    print(f"    {what}: {calls} flash calls ({len(seen)} shapes, on "
+          f"{routes}) held against plain on their own operands, worst "
+          f"{worst:.3f} of the tolerance; on unit-normal operands at "
+          f"FA_TOL worst {max(errs.values(), default=0.0):.3e}")
+    return {"calls": calls, "shapes": len(seen), "routes": routes,
+            "own_worst_of_tol": worst,
+            "unit_normal_max_abs_err": max(errs.values(), default=0.0)}
+
+
+def reduced_on_card(arch: str, fa, configs, common, lm) -> dict:
+    """Phase 9a for one reduced config: ``forward``, then prefill and
+    REDUCED_STEPS decode steps, on the card in the config's types and on
+    the CPU twice, from the same seeded parameters: in the config's types
+    and in float32 (the yardstick).  Holds the card to the rule the CPU
+    tests hold the port to against JAX (``tests/test_torch_lm.py``): its
+    logits no further from the float32 run than BF16_FACTOR times the
+    CPU's own bf16 run, plus BF16_SLACK.  Every flash call of the card
+    run is held against plain on its own operands and its shape again on
+    unit-normal ones (:func:`checked_flash`).  Returns the errors, the
+    flash launches on the card and the flash checks."""
+    cfg = configs.reduced(configs.get_config(arch))
+    model = lm.LM(cfg)
+    params = common.materialize(model.param_recs(),
+                                torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 1)
+    b, s = REDUCED_SHAPE
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g)}
+    if cfg.n_img_tokens:
+        batch["patch_embeds"] = torch.randn(b, cfg.n_img_tokens, cfg.d_model,
+                                            generator=g)
+    if cfg.encdec:
+        batch["frames"] = torch.randn(b, cfg.enc_len, cfg.d_model,
+                                      generator=g)
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    params32 = common.tmap(lambda t: t.float() if t.is_floating_point()
+                           else t, params)
+    ref = _lm_runs(lm.LM(cfg32), params32, batch, REDUCED_STEPS)
+    cpu = _lm_runs(model, params, batch, REDUCED_STEPS)
+    counts = fa.flash_attention.launches_by_route
+    for r in counts:
+        counts[r] = 0
+    on_card = common.tmap(lambda t: t.cuda(), params)
+    with checked_flash(fa) as seen:
+        card = _lm_runs(model, on_card,
+                        {k: v.cuda() for k, v in batch.items()},
+                        REDUCED_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(counts)
+    for t, r in zip(card, ref):
+        if t.shape != r.shape or not torch.isfinite(t).all():
+            raise SmokeError(f"9a {arch}: logits of shape {tuple(t.shape)} "
+                             "(or non-finite) on the card, where the CPU "
+                             f"gives {tuple(r.shape)}")
+    err_card = max((c - r).abs().max().item() for c, r in zip(card, ref))
+    err_cpu = max((c - r).abs().max().item() for c, r in zip(cpu, ref))
+    err_pair = max((c - r).abs().max().item() for c, r in zip(card, cpu))
+    bound = BF16_FACTOR * err_cpu + BF16_SLACK
+    print(f"  {arch:26s} {cfg.act_dtype:8s} |card - f32| {err_card:.4f}  "
+          f"|cpu - f32| {err_cpu:.4f}  bound {bound:.4f}  |card - cpu| "
+          f"{err_pair:.4f}  flash {launches}")
+    if err_card > bound:
+        raise SmokeError(f"9a {arch}: the card's logits are {err_card:.4f} "
+                         f"from the float32 run, over {bound:.4f}")
+    flash = unit_normal_checks(fa, seen, f"9a {arch}") if seen else None
+    return {"err_card_f32": err_card, "err_cpu_f32": err_cpu,
+            "err_card_cpu": err_pair, "bound": bound, "launches": launches,
+            "flash": flash}
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if "flash_attention" in n:
+        return "flash"
+    if any(k in n for k in ("gemm", "xmma", "cutlass", "nvjet", "gemv",
+                            "splitk")):
+        return "gemm"
+    return "other"
+
+
+def device_profile(fn) -> dict:
+    """``torch.profiler`` over one call of ``fn``: device microseconds
+    and launches per kernel name, and per class (flash, GEMM, other:
+    elementwise, reductions, copies).  Kernel events only, so a kernel's
+    time is not counted again under the operator that launched it."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    kernels, classes = {}, {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in p.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue          # an operator on the host: its kernels count
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev:
+            kernels[e.key] = {"device_us": dev, "count": e.count}
+            classes[_kernel_class(e.key)] += dev
+    return {"kernels": kernels, "classes": classes}
+
+
+def print_profile(what: str, pr: dict) -> None:
+    total = sum(pr["classes"].values())
+    print(f"    torch.profiler, {what}: {total / 1e3:.3f} ms of device "
+          "time; " + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / max(total, 1):.1%})"
+                              for k, v in pr["classes"].items()))
+    top = sorted(pr["kernels"].items(), key=lambda kv: -kv[1]["device_us"])
+    for name, row in top[:PROFILE_ROWS]:
+        print(f"      {row['device_us'] / 1e3:9.3f} ms  x{row['count']:<5d} "
+              f"[{_kernel_class(name)}] {name[:90]}")
+
+
+def bucket_tokens(prompts: list) -> torch.Tensor:
+    """A bucket's prompts left-padded with 0 to its longest, on the card,
+    as ``BatchedServer`` pads them."""
+    s = max(len(p) for p in prompts)
+    return torch.tensor([[0] * (s - len(p)) + list(p) for p in prompts],
+                        device="cuda")
+
+
+def serve(cfg, prompts: list) -> dict:
+    """Serve ``prompts`` (SERVE['max_new'] new tokens each) with ``cfg``'s
+    weights drawn on the card from SEED, behind ``BatchedServer``, after
+    one untimed warm-up bucket; the prefill and decode calls are timed
+    with CUDA events and their last-position logits kept.  Launch
+    counters are zeroed just before the requests are drained and read
+    just after."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import BatchedServer, Engine, Request
+    model = LM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = common.materialize(model.param_recs(),
+                                torch.Generator("cuda").manual_seed(SEED),
+                                default_dtype=common.dtype_of(cfg.act_dtype))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    engine = Engine(model, params, max_len=SERVE["max_len"])
+    events = {"prefill": [], "decode": []}
+    logits = {"prefill": [], "decode": []}
+
+    def timed(kind, fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            events[kind].append((start, end))
+            logits[kind].append(out[0][:, -1])
+            return out
+        return call
+    engine.prefill = timed("prefill", engine.prefill)
+    engine.decode = timed("decode", engine.decode)
+    # one untimed bucket first: cuBLAS and the caching allocator set up on
+    # their first calls, which would land in the first bucket's times
+    engine.generate(torch.zeros(SERVE["batch_size"], 64, dtype=torch.long),
+                    2)
+    for kind in events:
+        events[kind].clear()
+        logits[kind].clear()
+    server = BatchedServer(engine, batch_size=SERVE["batch_size"])
+    for i, p in enumerate(prompts):
+        server.submit(Request(uid=i, tokens=p, max_new=SERVE["max_new"]))
+    counts = fa.flash_attention.launches_by_route
+    for r in counts:
+        counts[r] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b = SERVE["batch_size"]
+    buckets = [done[i:i + b] for i in range(0, len(done), b)]
+    return {"cfg": cfg, "model": model, "params": params, "draw_s": draw_s,
+            "done": done, "buckets": buckets, "served": server._served,
+            "s_max": [max(len(r.tokens) for r in bk) for bk in buckets],
+            "launches": dict(counts), "wall": wall, "logits": logits,
+            "prefill_ms": [s.elapsed_time(e) for s, e in events["prefill"]],
+            "decode_ms": [s.elapsed_time(e) for s, e in events["decode"]],
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def report_serve(run: dict, h100, card: str, lengths: list) -> dict:
+    """Print 9b's times beside their bounds and check the flash launches:
+    at least one per layer per prefill bucket on the dtype's tensor-core
+    route.  Bounds, reckoned from the code and ``h100_sxm.yaml``: prefill
+    = the larger of its flops (2 per weight per token outside the
+    embedding, the head on the last position, 4·hd per causal (query,
+    key) pair per head and layer) at the bf16 peak and the weights' bytes
+    at the HBM rate; decode = the weights' bytes and the kv cache's bytes
+    at the step's mean length at the HBM rate."""
+    from repro_torch.models import common
+    cfg, model, s_max = run["cfg"], run["model"], run["s_max"]
+    n_params = cfg.param_count()
+    p_bytes = common.nbytes(run["params"])
+    b = SERVE["batch_size"]
+    d, L, hd, h = cfg.d_model, cfg.n_layers, cfg.head_dim, cfg.n_heads
+    embed = model.padded_vocab * d
+    bw, peak_flops = h100.hbm_bandwidth, h100.peak_flops["BF16"]
+    n_new = SERVE["max_new"]
+    pre_bound = []
+    for s in s_max:
+        flops = (2 * (n_params - embed) * b * s + 2 * embed * b
+                 + L * 4 * hd * h * b * s * (s + 1) // 2)
+        pre_bound.append(max(flops / peak_flops, p_bytes / bw) * 1e3)
+    kv_row = L * 2 * cfg.n_kv_heads * hd * common.dtype_of(
+        cfg.act_dtype).itemsize                # k and v of one token
+    mean_len = sum(s + i for s in s_max for i in range(1, n_new)) / (
+        len(s_max) * (n_new - 1))
+    dec_bound = (p_bytes + b * mean_len * kv_row) / bw * 1e3
+    dec_ms = run["decode_ms"]
+    med = statistics.median(dec_ms)
+    tokens = sum(len(r.result) for r in run["done"])
+    print(f"  9b {cfg.name} at its published widths, {L} layers: tp=1 "
+          f"(tp=16 pads the 8 kv heads to 16, a shape of the TPU mesh "
+          f"only), d {d}, {h} heads of {hd}, {cfg.n_kv_heads} kv heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params / 1e9:.3f} B "
+          f"parameters, {p_bytes / 1e9:.3f} GB in {cfg.act_dtype}, drawn on "
+          f"the card in {run['draw_s']:.1f} s")
+    print(f"    {len(lengths)} requests of {lengths} tokens, {n_new} new "
+          f"each, batch {b}, max_len {SERVE['max_len']}: buckets "
+          f"{run['served']} padded to {s_max} on {card}")
+    for i, (ms, bd, s) in enumerate(zip(run["prefill_ms"], pre_bound,
+                                        s_max)):
+        print(f"    prefill bucket {i}: {ms:.3f} ms for {b} x {s} tokens; "
+              f"bound {bd:.3f} ms ({bd / ms:.1%} of it; "
+              f"{(bd / 1e3 * peak_flops) / (b * s) / 1e9:.2f} GFLOP a token "
+              f"at {peak_flops / 1e12:.0f} TFLOP/s bf16)")
+    print(f"    decode: median {med:.3f} ms a step over {len(dec_ms)} steps "
+          f"(min {min(dec_ms):.3f}, max {max(dec_ms):.3f}); bound "
+          f"{dec_bound:.3f} ms ({dec_bound / med:.1%} of it: "
+          f"{p_bytes / 1e9:.2f} GB of weights, {p_bytes / bw * 1e3:.3f} ms, "
+          f"and the kv cache at a mean {mean_len:.0f} tokens, "
+          f"{b * mean_len * kv_row / 1e6:.1f} MB, at {bw / 1e12:.2f} TB/s)")
+    print(f"    end to end: {tokens} tokens in {run['wall']:.3f} s = "
+          f"{tokens / run['wall']:.1f} tokens/s; peak memory allocated "
+          f"{run['peak'] / 1e9:.2f} GB")
+    route = TC_ROUTE[common.dtype_of(cfg.act_dtype)]
+    launches = run["launches"]
+    need = len(s_max) * L
+    print(f"    flash launches per route: {launches} ({len(s_max)} prefill "
+          f"buckets x {L} layers = {need} at least on {route})")
+    if launches[route] < need:
+        raise SmokeError(f"9b: {launches[route]} {route} launches for "
+                         f"{len(s_max)} prefills of {L} layers")
+    return {"prefill_ms": run["prefill_ms"], "prefill_bound_ms": pre_bound,
+            "decode_ms": dec_ms, "decode_median_ms": med,
+            "decode_bound_ms": dec_bound, "tokens_per_s": tokens / run["wall"],
+            "wall_s": run["wall"], "peak_bytes": run["peak"],
+            "param_bytes": p_bytes, "buckets": s_max, "launches": launches,
+            "route": route}
+
+
+def profile_serve(run: dict) -> tuple:
+    """One prefill (bucket 0's padded prompts) and one decode step under
+    ``torch.profiler``; returns both profiles."""
+    from repro_torch.serve import make_caches
+    model, params = run["model"], run["params"]
+    toks = bucket_tokens([r.tokens for r in run["buckets"][0]])
+    caches = make_caches(model, len(toks), SERVE["max_len"], "cuda")
+    state = {}
+
+    def prefill():
+        with torch.inference_mode():
+            state["out"] = model.prefill(params, {"tokens": toks}, caches)
+
+    def decode():
+        lg, c = state["out"]
+        with torch.inference_mode():
+            model.decode_step(params, c, lg[:, -1].argmax(-1)[:, None],
+                              toks.shape[1])
+    pre = device_profile(prefill)
+    dec = device_profile(decode)
+    print_profile(f"one prefill (bucket 0, {tuple(toks.shape)})", pre)
+    print_profile("one decode step", dec)
+    return pre, dec
+
+
+def served_flash(run: dict, fa) -> tuple[dict, dict]:
+    """9c: each bucket's prefill again, as the server ran it, with every
+    flash call held against plain on its own operands and each shape on
+    unit-normal ones (:func:`checked_flash`).  Returns the calls seen and
+    the checks' numbers."""
+    from repro_torch.serve import make_caches
+    model, params = run["model"], run["params"]
+    with checked_flash(fa) as seen, torch.inference_mode():
+        for bk in run["buckets"]:
+            toks = bucket_tokens([r.tokens for r in bk])
+            model.prefill(params, {"tokens": toks},
+                          make_caches(model, len(toks), SERVE["max_len"],
+                                      "cuda"))
+    torch.cuda.synchronize()
+    return seen, unit_normal_checks(
+        fa, seen, f"9c both buckets' prefills, {run['cfg'].n_layers} layers")
+
+
+def flash_at_served_shape(run: dict, seen: dict, fa, measure, space,
+                          h100) -> dict:
+    """9c: the flash call of the longest served prefill, timed on seeded
+    unit-normal operands (the inputs its tolerance is stated for) beside
+    plain, SDPA and two bounds: the call's own (kv heads broadcast, rows
+    padded to 64), which the kernels line carries, and the model's
+    attention (its kv heads, the bucket's real rows).  Returns the
+    kernels-line entry (launches filled in by the caller)."""
+    from repro_torch.kernels import ops
+    sq, sk, _, _, dt = max(seen, key=lambda key: key[0][2])
+    q, k, v = qkv(sq, sk[2], dt, SEED)
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=True, q_offset=0)
+
+    def plain():
+        return fa.plain(q, k, v, causal=True, q_offset=0)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+    out, route = routed(fa, kernel)
+    if route != TC_ROUTE[dt]:
+        raise SmokeError(f"9c: the served prefill's flash call ran on {route}")
+    name = str(dt)[6:]
+    err = fa_compare(f"served prefill shape {name}", out, plain(), dt)
+    fa_compare("SDPA yardstick at the served shape", sdpa(), out, dt)
+    t_fa = measure.time_cuda(kernel, warmup=2, iters=5, reps=5).wall_s * 1e3
+    t_plain = measure.time_cuda(plain, warmup=1, iters=1,
+                                reps=3).wall_s * 1e3
+    t_sdpa = measure.time_cuda(sdpa, warmup=2, iters=5, reps=5).wall_s * 1e3
+    bound = space.attention_bound(q, k, causal=True, q_offset=0,
+                                  machine=h100)
+    cfg, rows = run["cfg"], max(run["s_max"])
+    real = space.attention_bound(
+        torch.empty(sq[0], cfg.n_heads, rows, sq[3], dtype=dt, device="meta"),
+        torch.empty(sq[0], cfg.n_kv_heads, rows, sq[3], dtype=dt,
+                    device="meta"),
+        causal=True, q_offset=0, machine=h100)
+    print(f"  9c flash at the longest served prefill: q {sq}, k and v {sk} "
+          f"{name}, causal, q_offset 0, route {route}: max abs err vs plain "
+          f"{err:.3e} on unit-normal operands (tolerance {FA_TOL[dt]})")
+    b_ms, r_ms = bound.seconds * 1e3, real.seconds * 1e3
+    print(f"    kernel {t_fa:.4f} ms, plain {t_plain:.4f} ms, SDPA "
+          f"{t_sdpa:.4f} ms (yardstick only); bound of this call "
+          f"{b_ms:.4f} ms by {bound.by} ({b_ms / t_fa:.1%} of the kernel's "
+          f"time); bound of the model's attention ({cfg.n_kv_heads} kv "
+          f"heads, {rows} real rows) {r_ms:.4f} ms by {real.by} "
+          f"({r_ms / t_fa:.1%})")
+    return {"name": f"flash_attention[{SERVE_ARCH} serve]", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{fa.SOURCES[route]}.cu",
+            "replaces": REPLACES["flash_attention"], "launches": 0,
+            "max_abs_err": err, "ms": t_fa, "plain_ms": t_plain,
+            "bound_ms": bound.seconds * 1e3, "bound_by": bound.by,
+            "library_ms": t_sdpa, "shape_q": list(sq), "shape_kv": list(sk),
+            "model_bound_ms": real.seconds * 1e3, "model_bound_by": real.by}
+
+
+def _forward_tail(model, params, toks: torch.Tensor) -> torch.Tensor:
+    """The teacher-forced forward over ``toks``: float32 logits at the
+    positions that predicted each of its last SERVE['max_new'] tokens."""
+    n_new = SERVE["max_new"]
+    with torch.inference_mode():
+        full = model.forward(params, {"tokens": toks})
+    return full[:, -n_new - 1:-1].float()
+
+
+def greedy_check(run: dict, margin: float | None, what: str) -> dict:
+    """9c: each greedy token against the teacher-forced forward's argmax
+    on the padded sequences.  A disagreement fails the phase where the
+    forward's top-two gap exceeds ``margin`` (None: printed only).
+    Prints the agreement share and how far the served logits lie from
+    the forward's."""
+    agree = total = over = 0
+    worst_gap = 0.0
+    delta = []
+    n_new = SERVE["max_new"]
+    for i, bk in enumerate(run["buckets"]):
+        seqs = bucket_tokens([r.tokens + r.result for r in bk])
+        pred = _forward_tail(run["model"], run["params"], seqs)
+        served = torch.stack(
+            [run["logits"]["prefill"][i]] + run["logits"]["decode"][
+                i * (n_new - 1):(i + 1) * (n_new - 1)], dim=1).float()
+        delta.append((served - pred).abs().amax(-1).flatten())
+        top2 = pred.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        same = pred.argmax(-1) == torch.tensor([r.result for r in bk],
+                                               device="cuda")
+        agree += int(same.sum())
+        total += same.numel()
+        if (~same).any():
+            worst_gap = max(worst_gap, gap[~same].max().item())
+            if margin is not None:
+                over += int(((~same) & (gap > margin)).sum())
+    delta = torch.cat(delta)
+    print(f"  9c greedy vs the teacher-forced forward, {what}: "
+          f"{agree}/{total} tokens agree ({agree / total:.1%}); served "
+          f"logits vs the forward's: max {delta.max().item():.4f}, median "
+          f"{delta.median().item():.4f}; largest top-two gap at a "
+          f"disagreement {worst_gap:.4f}, "
+          + ("printed only" if margin is None else f"margin {margin:.4f}"))
+    if over:
+        raise SmokeError(f"9c {what}: {over} greedy tokens disagree with the "
+                         f"forward where its top-two gap exceeds {margin}")
+    return {"agree": agree / total, "delta_max": delta.max().item(),
+            "delta_median": delta.median().item(), "worst_gap": worst_gap,
+            "margin": margin}
+
+
+def serve_case() -> tuple:
+    """granite-8b at its published widths (tp=1) and SERVE's prompts,
+    drawn from SEED."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get_config(SERVE_ARCH), tp=1)
+    g = torch.Generator().manual_seed(SEED)
+    lo, hi = SERVE["prompt"]
+    lengths = torch.randint(lo, hi + 1, (SERVE["requests"],),
+                            generator=g).tolist()
+    return cfg, [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+                 for n in lengths]
+
+
+def serve_granite(fa, measure, space, h100, card: str) -> tuple:
+    """Phases 9b and 9c: granite-8b at its published widths and full depth
+    (tp=1) behind ``BatchedServer``, its profile, every served prefill's
+    flash calls held against plain, the call at the longest served shape
+    timed, and the greedy agreement printed; then the same widths cut to
+    each depth of GREEDY_CUTS and GREEDY_PAST, served again with every
+    flash call held, and their greedy agreement printed, gated at
+    GREEDY_MARGIN for GREEDY_CUTS.  Returns the kernels-line entry and
+    the numbers for ``--out``."""
+    cfg, prompts = serve_case()
+    lengths = [len(p) for p in prompts]
+    run = serve(cfg, prompts)
+    numbers = report_serve(run, h100, card, lengths)
+    pre, dec = profile_serve(run)
+    numbers["profile"] = {"prefill": pre["classes"], "decode": dec["classes"]}
+    seen, numbers["flash_checks"] = served_flash(run, fa)
+    entry = flash_at_served_shape(run, seen, fa, measure, space, h100)
+    entry["launches"] = run["launches"][numbers["route"]]
+    numbers["greedy"] = greedy_check(run, None, f"{cfg.n_layers} layers")
+    del run, seen
+    torch.cuda.empty_cache()
+    for dtype, depth in sorted(GREEDY_CUTS + GREEDY_PAST):
+        cut = dataclasses.replace(cfg, n_layers=depth, act_dtype=dtype)
+        what = f"the same widths cut to {depth} layer(s) in {dtype}"
+        with checked_flash(fa) as seen:
+            run = serve(cut, prompts)
+        route = TC_ROUTE[getattr(torch, dtype)]
+        if run["launches"][route] < len(run["s_max"]) * depth:
+            raise SmokeError(f"9c {what}: {run['launches']} flash launches")
+        numbers[f"flash_checks_{dtype}_{depth}"] = unit_normal_checks(
+            fa, seen, f"9c {what}")
+        gated = (dtype, depth) in GREEDY_CUTS
+        numbers[f"greedy_{dtype}_{depth}"] = greedy_check(
+            run, GREEDY_MARGIN if gated else None,
+            f"{what}, served again ({run['launches']} flash launches)")
+        del run
+        torch.cuda.empty_cache()
+    return entry, numbers
+
+
 def smoke(out_path: str | None) -> int:
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is False: this smoke "
@@ -1251,7 +1862,27 @@ def smoke(out_path: str | None) -> int:
     g_run.clear()
     torch.cuda.empty_cache()
 
-    phase("8 result")
+    phase("9 serve granite-8b")
+    from repro_torch import configs
+    from repro_torch.models import common, lm
+    print(f"  9a every family, reduced, on the card against the CPU "
+          f"(rule: |card - f32| <= {BF16_FACTOR} |cpu - f32| + "
+          f"{BF16_SLACK}; forward, prefill and {REDUCED_STEPS} decode "
+          "steps)")
+    predicted["reduced_on_card"] = {
+        arch: reduced_on_card(arch, fa, configs, common, lm)
+        for arch in configs.ARCH_IDS}
+    for arch, r in predicted["reduced_on_card"].items():
+        cfg = configs.reduced(configs.get_config(arch))
+        causal = any(blk.kind in ("attn", "shared_attn")
+                     for st in lm.build_stages(cfg) for blk in st.blocks)
+        if causal and sum(r["launches"].values()) <= 0:
+            raise SmokeError(f"9a {arch}: causal attention never reached "
+                             "the flash kernel on the card")
+    entry, predicted["serve"] = serve_granite(fa, measure, space, h100, card)
+    entries.append(entry)
+
+    phase("10 result")
     result = {"kernels": entries}
     if out_path:
         pathlib.Path(out_path).parent.mkdir(parents=True, exist_ok=True)

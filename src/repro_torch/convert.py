@@ -1,8 +1,10 @@
 """Carrying the JAX side's inputs across.
 
 numpy arrays become tensors on a given device (the parity tests make
-inputs once with numpy and hand them to both packages), and stencil
-coefficients map between ``ref.py``'s dict form and the kernels' vectors.
+inputs once with numpy and hand them to both packages), stencil
+coefficients map between ``ref.py``'s dict form and the kernels' vectors,
+and LM parameter and cache trees (``jax.tree.map(np.asarray, tree)``)
+become the port's (:func:`lm_params`, :func:`lm_caches`).
 """
 from __future__ import annotations
 
@@ -33,7 +35,56 @@ def to_tensor(x, device=None, dtype: torch.dtype | None = None) -> torch.Tensor:
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """A tensor's values as numpy (bfloat16, which numpy lacks, as the
+    float32 values it holds exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def array_tensor(a, device=None, dtype: torch.dtype | None = None
+                 ) -> torch.Tensor:
+    """One array of a JAX tree as a tensor on ``device``, in ``dtype`` or
+    else its own type.  ``np.asarray`` of a JAX bfloat16 array is an
+    ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` refuses: it
+    goes through float32, which holds every bfloat16 value exactly."""
+    arr = np.asarray(a)
+    own = None
+    if arr.dtype.name == "bfloat16":
+        arr, own = arr.astype(np.float32), torch.bfloat16
+    t = torch.from_numpy(np.array(arr, order="C"))   # a writable copy
+    return t.to(device=_device.resolve(device), dtype=dtype or own or t.dtype)
+
+
+def _tree(recs, tree, device, dtype, keep_types: bool):
+    from .models.common import tmap
+
+    def one(rec, arr):
+        if tuple(np.shape(arr)) != tuple(rec.shape):
+            raise ValueError(f"leaf of shape {np.shape(arr)} where the "
+                             f"record says {rec.shape}")
+        want = None if keep_types else (rec.dtype or dtype)
+        return array_tensor(arr, device, want)
+    return tmap(one, recs, tree)
+
+
+def lm_params(tree, cfg, device=None, dtype: torch.dtype | None = None):
+    """A parameter tree shaped like ``LM(cfg).param_recs()`` (numpy or
+    JAX arrays) as the port's tensors on ``device``.  A leaf whose record
+    names a type (the MoE router's float32) takes it; the others take
+    ``dtype``, or keep their own type when it is None.  Raises on a leaf
+    whose shape differs from its record's."""
+    from .models.lm import LM
+    return _tree(LM(cfg).param_recs(), tree, device, dtype, False)
+
+
+def lm_caches(tree, cfg, batch: int, max_len: int, device=None):
+    """A cache tree shaped like ``LM(cfg).cache_recs(batch, max_len)`` as
+    the port's tensors on ``device``, each leaf in its own type (a JAX
+    cache after a float32 prefill holds the Mamba conv window in float32
+    where the record says bfloat16)."""
+    from .models.lm import LM
+    return _tree(LM(cfg).cache_recs(batch, max_len), tree, device, None,
+                 True)
 
 
 def star7_vector(coeffs: Mapping[str, float] | Sequence[float]) -> tuple[float, ...]:

@@ -1,0 +1,1 @@
+"""Command-line launchers of the port (``python -m repro_torch.launch.serve``)."""

@@ -4,6 +4,8 @@ wrappers' operand checks, device resolution, the card timer, and — marked
 card.  Card tests skip here with a reason; run them on a machine with a
 card with ``python -m pytest -m gpu tests/test_torch_*.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -13,12 +15,15 @@ try:
 except ImportError:    # container without hypothesis: deterministic shim
     from _hypothesis_fallback import given, settings, st
 
-from repro_torch import convert, device
+from repro_torch import configs, convert, device
 from repro_torch.core import blocking
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import longrange3d as t_lr
 from repro_torch.kernels import ops
 from repro_torch.kernels import stencil3d7pt as t_s7
+from repro_torch.models import common
+from repro_torch.models.lm import LM
+from repro_torch.serve import make_caches
 from repro_torch.tune import measure, space, stencil
 
 COEFFS = dict(W=0.1, E=0.2, N=0.3, S=0.15, F=0.25, B=0.05, s=-1.0)
@@ -817,3 +822,68 @@ def test_cuda_flash_forced_simt_route(cuda, dtype, d, blocks):
     assert t_fa.flash_attention.launches_by_route == {
         **n0, "simt": n0["simt"] + 1}
     _close(got, t_fa.plain(q, k, v), dtype)
+
+
+# ----------------------------------------------------------------------
+# the LM stack: the CPU path never launches; on the card, causal prefill
+# and the forward go through the flash kernel
+# ----------------------------------------------------------------------
+def _reduced_granite(act_dtype):
+    cfg = dataclasses.replace(configs.reduced(configs.get_config(
+        "granite-8b")), act_dtype=act_dtype)
+    model = LM(cfg)
+    params = common.materialize(model.param_recs(),
+                                torch.Generator().manual_seed(0),
+                                default_dtype=getattr(torch, act_dtype))
+    toks = torch.randint(0, cfg.vocab, (2, 61),
+                         generator=torch.Generator().manual_seed(1))
+    return cfg, model, params, toks
+
+
+def test_lm_on_the_cpu_counts_no_launch():
+    _, model, params, toks = _reduced_granite("float32")
+    before = dict(t_fa.flash_attention.launches_by_route)
+    logits = model.forward(params, {"tokens": toks})
+    assert logits.shape == (2, 61, 512) and torch.isfinite(logits).all()
+    assert t_fa.flash_attention.launches_by_route == before
+
+
+#: reduced granite-8b on the card against the CPU from the same parameters:
+#: float32 logits within LM_F32_TOL (bf16x3 attention, cuBLAS without
+#: TF32); bf16 by chip_smoke.py's 9a rule — no further from the float32 CPU
+#: run than 1.5 times the CPU's own bf16 run, plus 0.05
+LM_F32_TOL = 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act_dtype", ["bfloat16", "float32"])
+def test_cuda_lm_forward_and_decode_match_the_cpu(cuda, act_dtype):
+    cfg, model, params, toks = _reduced_granite(act_dtype)
+    route = "wgmma" if act_dtype == "bfloat16" else "bf16x3"
+
+    def run(p, t, dev):
+        out = [model.forward(p, {"tokens": t})]
+        caches = make_caches(model, 2, 64, dev)
+        lg, caches = model.prefill(p, {"tokens": t[:, :59]}, caches)
+        out.append(lg)
+        for i in (59, 60):
+            lg, caches = model.decode_step(p, caches, t[:, i:i + 1], i)
+            out.append(lg)
+        return [x.float().cpu() for x in out]
+    want = run(params, toks, "cpu")
+    n0 = dict(t_fa.flash_attention.launches_by_route)
+    got = run(common.tmap(lambda t: t.to(cuda), params), toks.to(cuda), cuda)
+    moved = {r: n - n0[r] for r, n in
+             t_fa.flash_attention.launches_by_route.items()}
+    # forward and prefill: one launch per layer each
+    assert moved == {**{r: 0 for r in moved}, route: 2 * cfg.n_layers}
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if act_dtype == "float32":
+        assert err <= LM_F32_TOL
+    else:
+        model32 = LM(dataclasses.replace(cfg, act_dtype="float32"))
+        ref = model32.forward(common.tmap(lambda t: t.float(), params),
+                              {"tokens": toks})
+        err_card = (got[0] - ref).abs().max().item()
+        err_cpu = (want[0] - ref).abs().max().item()
+        assert err_card <= 1.5 * err_cpu + 0.05

@@ -95,10 +95,19 @@ BLOCKING_SLICE = ["core/compiled.py", "core/model_api.py", "core/session.py",
                   "core/blocking.py", "core/api.py", "tune/space.py"]
 
 
+#: and the modules of the LM slice
+LM_SLICE = ["configs/__init__.py", "configs/granite_8b.py",
+            "models/common.py", "models/attention.py", "models/mlp.py",
+            "models/moe.py", "models/mamba2.py", "models/lm.py",
+            "serve/__init__.py", "serve/engine.py", "launch/serve.py",
+            "convert.py"]
+
+
 def test_scans_cover_the_blocking_slice():
     scanned = {str(p.relative_to(PORT)) for p in _port_files()
                if PORT in p.parents}
     assert set(BLOCKING_SLICE) <= scanned
+    assert set(LM_SLICE) <= scanned
     assert list(PORT.rglob("*.c")) and all(
         p.parent.name == "stencils" for p in PORT.rglob("*.c"))
 
