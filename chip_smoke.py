@@ -135,14 +135,50 @@ followed by its seconds:
                argmax only where its top-two gap is within
                ``GREEDY_MARGIN``, and to the deeper ``GREEDY_PAST``,
                printed only;
+  10. train — the training path (``repro_torch.{optim,train,data}``):
+               10a, one ``make_train_step`` step of each of the ten
+               reduced configs (4 sequences of 16 tokens in 2
+               microbatches, remat on) on the card and on the CPU, in
+               float32 and in the config's own types, from the same
+               seeded parameters, state and batch; the card's float32
+               step (flash on bf16x3) may lie no further than
+               ``TRAIN_TOL`` from the CPU's (each metric relative to its
+               value, each leaf of the first moment, which carries the
+               gradient, relative to its largest entry), the own-type
+               steps' distance from float32 is printed, every flash
+               call under grad (forward and remat's re-forward) is held
+               against plain on its own operands, and every backward of
+               ``FlashAttentionFn`` against autograd through plain on
+               its own operands (FA_TOL of each gradient's largest
+               entry).  10b, granite-8b at its published widths (tp=1)
+               cut to 8 layers, trained by ``Trainer`` with
+               ``TrainConfig``'s defaults (bf16, remat, AdamW with fp32
+               master, m and v) on ``SyntheticLM`` at 4096 tokens, batch
+               4 in 4 microbatches: one warm-up step (its flash calls
+               and backwards held as in 10a) and 4 timed (CUDA events);
+               loss, grad norm, lr and the flash launches and backwards
+               of each step (64 wgmma launches and 32 backwards each,
+               zero restarts), tokens/s, peak memory, the step's bound
+               (flops at 989 TFLOP/s) and one AdamW pass's bytes at 3.35
+               TB/s, and one more step under ``torch.profiler`` by class
+               (GEMM, flash forward, attention backward, elementwise,
+               optimizer); then the drop check (one layer, 256 tokens:
+               each leaf's float32 gradient on the card within
+               ``DROP_TOL`` of its largest entry from the CPU's float32
+               gradient through autograd of plain, wq, wk and wv
+               non-zero; the bf16 gradient within ``BF16_DROP_TOL`` of
+               the card's float32 one) and the
+               flash call at the training shape timed beside plain,
+               SDPA, its bound, the Function's backward and SDPA's
+               forward plus backward;
      Launch counters are zeroed just before each main path (4, each
      family of 4b, 5, 6, each model and type of 7, each config of 9a,
-     and 9b's serving) and must be positive just after it (in 6:
-     bf16x3, its split, simt);
-  10. a JSON line naming each ported kernel (flash attention once per
-     route, once per route, model and type of 7, and once on 9b's
-     serving path), then the card's line, then ``{"ok": true,
-     "device": {...}}`` as the last line.
+     9b's serving, each config of 10a and 10b's training) and must be
+     positive just after it (in 6: bf16x3, its split, simt);
+  11. a JSON line naming each ported kernel (flash attention once per
+     route, once per route, model and type of 7, once on 9b's serving
+     path and once on 10b's training path), then the card's line, then
+     ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX or of the JAX package ``repro``; it needs the
 repository's ``src/repro_torch`` beside it and a CUDA card.
@@ -153,6 +189,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import re
@@ -253,12 +290,54 @@ GREEDY_CUTS = (("bfloat16", 1), ("float32", 2))
 GREEDY_PAST = (("bfloat16", 2), ("float32", 3))
 GREEDY_MARGIN = 2 ** -4
 PROFILE_ROWS = 12
+# phase 10a: one train step of each reduced config (4 sequences of 16
+# tokens in 2 microbatches, lr 1e-3, remat on), and its rule: the card's
+# step in float32 (flash on bf16x3 under its Function) no further than
+# TRAIN_TOL from the CPU's float32 step, in relative terms (each metric
+# against its value, each leaf of the first moment, which carries the
+# gradient, against its largest entry).  A dropped gradient reads 1.0.
+# Measured on the card: 2.6e-6 (mamba2) to 5.5e-3 (llama4's MoE).  The
+# steps in the configs' own types are printed, not gated: bf16 alone
+# moves a leaf by up to 2.8 of its largest entry at this init
+TRAIN_REDUCED = {"batch": 4, "seq": 16, "microbatches": 2, "lr": 1e-3}
+TRAIN_TOL = 2e-2
+# phase 10b: granite-8b at its published widths, depth cut from 36 to 8
+# layers (8 layers' 2.0 B parameters at 16 B each, 32.2 GB, fit one 80 GB
+# card; 36 layers' 133.7 GB do not, and sharding waits for ROADMAP.md
+# Queue 1 item 5), at SHAPES['train_4k']'s 4096 tokens with its global
+# batch of 256 cut to 4, in 4 microbatches of 1: one warm-up step, then 4
+# timed
+TRAIN_ARCH = "granite-8b"
+TRAIN = {"layers": 8, "seq": 4096, "batch": 4, "microbatches": 4,
+         "warmup": 1, "timed": 4}
+# the check that would catch a dropped gradient: one layer at the same
+# widths and 256 tokens, the card's float32 gradient of each leaf (the
+# bf16x3 flash kernel under its Function, whose backward is
+# attention_backward) no further than DROP_TOL of the leaf's largest
+# entry from the CPU's float32 gradient through autograd of plain (which
+# shares no code with the Function), and wq, wk and wv's gradients
+# non-zero.  A dropped gradient reads 1.0; measured on the card, the
+# worst leaf reads 2.2e-4.  The card's bf16 gradient (the wgmma route)
+# is held against its float32 one only within BF16_DROP_TOL, which a
+# leaf dropped whole exceeds: bf16 alone moves wq, wk and the attention
+# norm's gain by 0.56-0.67 at this init (measured on the card): q and k
+# entries of std 11 and 23 round by about 0.5 a score, which scales the
+# non-winning keys' softmax weights by e^±0.5, and where the softmax is
+# nearly one-hot their gradient, dS = P ⊙ (dP - rowsum(P ⊙ dP)), is made
+# of those weights alone
+DROP = {"layers": 1, "seq": 256, "batch": 1}
+DROP_TOL = 2e-2
+BF16_DROP_TOL = 0.9
+# heads per slice of the backward check's autograd through plain
+BACKWARD_HEADS = 8
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 USED = re.compile(r"Used (\d+) registers")
 
 
-class SmokeError(RuntimeError):
-    pass
+class SmokeError(Exception):
+    """A failed phase.  Not a ``RuntimeError``: the trainer of phase 10
+    would take one raised inside its step for a node failure and replay
+    the step."""
 
 
 _PHASE = {"name": "", "t0": 0.0, "start": time.perf_counter()}
@@ -1159,9 +1238,10 @@ def checked_flash(fa):
     def check(q, k, v, causal=True, q_offset=None):
         out, route = routed(fa, lambda: real(q, k, v, causal=causal,
                                              q_offset=q_offset))
-        want = fa.plain(q, k, v, causal=causal, q_offset=q_offset)
-        tol = FA_TOL[q.dtype] * max(1.0, v.float().abs().max().item())
-        err = (out.float() - want.float()).abs().max().item()
+        with torch.no_grad():     # under training, the check records nothing
+            want = fa.plain(q, k, v, causal=causal, q_offset=q_offset)
+            tol = FA_TOL[q.dtype] * max(1.0, v.float().abs().max().item())
+            err = (out.float() - want.float()).abs().max().item()
         key = (tuple(q.shape), tuple(k.shape), causal, q_offset, q.dtype)
         row = seen.setdefault(key, {"calls": 0, "route": route,
                                     "worst": 0.0, "err": 0.0})
@@ -1658,6 +1738,591 @@ def serve_granite(fa, measure, space, h100, card: str) -> tuple:
     return entry, numbers
 
 
+# ----------------------------------------------------------------------
+# phase 10: training on the card
+# ----------------------------------------------------------------------
+@contextlib.contextmanager
+def checked_backward(fa):
+    """Hold every backward of ``FlashAttentionFn`` made inside the block
+    against autograd through ``fa.plain`` on its own operands (q, k, v
+    and the output's gradient), BACKWARD_HEADS heads at a time (plain's
+    float32 scores at granite's shape are 2.1 GB for all 32): each of dQ,
+    dK and dV within FA_TOL times its largest entry.  The backward's own
+    result is what the step uses.  Yields a dict keyed by (q shape, k
+    shape, q_offset, dtype) of the calls and their worst error over its
+    tolerance."""
+    real = fa.attention_backward
+    seen = {}
+
+    def check(q, k, v, grad_out, causal=True, q_offset=None):
+        got = real(q, k, v, grad_out, causal=causal, q_offset=q_offset)
+        want = [torch.empty_like(t) for t in (q, k, v)]
+        with torch.enable_grad():
+            for i in range(0, q.shape[1], BACKWARD_HEADS):
+                cut = [t[:, i:i + BACKWARD_HEADS].detach().requires_grad_()
+                       for t in (q, k, v)]
+                o = fa.plain(*cut, causal=causal, q_offset=q_offset)
+                for w, g in zip(want, torch.autograd.grad(
+                        o, cut, grad_out[:, i:i + BACKWARD_HEADS])):
+                    w[:, i:i + BACKWARD_HEADS] = g
+        tol = FA_TOL[q.dtype]
+        rel = []
+        for name, g, w in zip("qkv", got, want):
+            top = w.float().abs().max().item()
+            err = (g.float() - w.float()).abs().max().item()
+            rel.append(err / max(top, 1e-30))
+            if not (err <= tol * top) or not torch.isfinite(g).all():
+                raise SmokeError(
+                    f"flash backward d{name} at q {tuple(q.shape)}, k "
+                    f"{tuple(k.shape)}, q_offset {q_offset}: {err:.3e} from "
+                    f"autograd through plain, over {tol} x {top:.3e}")
+        key = (tuple(q.shape), tuple(k.shape), q_offset, q.dtype)
+        row = seen.setdefault(key, {"calls": 0, "worst": 0.0})
+        row["calls"] += 1
+        row["worst"] = max(row["worst"], max(rel) / tol)
+        return got
+    fa.attention_backward = check
+    try:
+        yield seen
+    finally:
+        fa.attention_backward = real
+
+
+def _backward_summary(seen: dict) -> dict:
+    calls = sum(r["calls"] for r in seen.values())
+    worst = max((r["worst"] for r in seen.values()), default=0.0)
+    return {"calls": calls, "shapes": len(seen), "worst_of_tol": worst}
+
+
+def _causal(cfg, lm) -> bool:
+    return any(blk.kind in ("attn", "shared_attn")
+               for st in lm.build_stages(cfg) for blk in st.blocks)
+
+
+def _train_case(arch: str, configs, common, lm) -> tuple:
+    """10a's config, model, seeded bf16 parameters on the host and a
+    batch: tokens, labels (the tokens rolled by one) and the extras 9a
+    passes (patch embeddings, frames)."""
+    cfg = configs.reduced(configs.get_config(arch))
+    model = lm.LM(cfg)
+    params = common.materialize(model.param_recs(),
+                                torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 1)
+    b, s = TRAIN_REDUCED["batch"], TRAIN_REDUCED["seq"]
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=g)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    if cfg.n_img_tokens:
+        batch["patch_embeds"] = torch.randn(b, cfg.n_img_tokens, cfg.d_model,
+                                            generator=g)
+    if cfg.encdec:
+        batch["frames"] = torch.randn(b, cfg.enc_len, cfg.d_model,
+                                      generator=g)
+    return cfg, model, params, batch
+
+
+def _one_step(train, optim, common, model, params, batch, device) -> dict:
+    """One ``make_train_step`` step on ``device`` from copies of
+    ``params`` and a fresh state; returns its metrics, the first moment's
+    leaves (after one step, (1 - b1) times the clipped gradient) and the
+    new parameters, on the host in float32."""
+    tcfg = train.TrainConfig(opt=optim.OptConfig(lr=TRAIN_REDUCED["lr"]),
+                             microbatches=TRAIN_REDUCED["microbatches"],
+                             warmup_steps=1, total_steps=10)
+    p = common.tmap(lambda t: t.to(device, copy=True), params)
+    opt = optim.adamw_init(p, tcfg.opt)
+    b = {k: v.to(device) for k, v in batch.items()}
+    p, opt, m = train.make_train_step(model, tcfg)(p, opt, b, 1)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "m": [t.float().cpu() for t in common.leaves(opt["m"])],
+            "params": [t.float().cpu() for t in common.leaves(p)]}
+
+
+def _step_error(run: dict, ref: dict) -> float:
+    """The largest relative distance of a step from the float32 one: each
+    metric against its value, each leaf of the first moment against its
+    largest entry."""
+    errs = [abs(v - ref["metrics"][k]) / max(abs(ref["metrics"][k]), 1e-30)
+            for k, v in run["metrics"].items()]
+    for a, r in zip(run["m"], ref["m"]):
+        top = r.abs().max().item()
+        d = (a - r).abs().max().item()
+        errs.append(d / top if top > 0 else (0.0 if d == 0 else math.inf))
+    return max(errs)
+
+
+def reduced_train_on_card(arch: str, fa, configs, common, lm, train,
+                          optim) -> dict:
+    """Phase 10a for one reduced config: one train step (TRAIN_REDUCED:
+    two microbatches, remat on) from the same seeded parameters, state
+    and batch, four times: in float32 on the CPU (the reference) and on
+    the card, which must lie within TRAIN_TOL of it
+    (:func:`_step_error`: the metrics, and the first moment, which
+    carries the gradient), and in the config's own types on both, whose
+    distance from the float32 step is printed.  Every flash call of both
+    card steps (forward and remat's re-forward) is held against plain on
+    its own operands and every backward against autograd through plain;
+    in a config with causal attention both steps must reach the kernel
+    and its backward."""
+    cfg, model, params, batch = _train_case(arch, configs, common, lm)
+    model32 = lm.LM(dataclasses.replace(cfg, act_dtype="float32"))
+    params32 = common.tmap(lambda t: t.float(), params)
+    ref = _one_step(train, optim, common, model32, params32, batch, "cpu")
+    cpu = _one_step(train, optim, common, model, params, batch, "cpu")
+    counts = fa.flash_attention.launches_by_route
+    card, launches, backward_calls = {}, {}, {}
+    with checked_flash(fa) as seen, checked_backward(fa) as back:
+        for name, m, p in (("f32", model32, params32),
+                           ("own", model, params)):
+            for r in counts:
+                counts[r] = 0
+            fa.flash_attention.backward_calls = 0
+            card[name] = _one_step(train, optim, common, m, p, batch,
+                                   "cuda")
+            torch.cuda.synchronize()
+            launches[name] = dict(counts)
+            backward_calls[name] = fa.flash_attention.backward_calls
+    for run in card.values():
+        if not all(math.isfinite(v) for v in run["metrics"].values()) or \
+                not all(torch.isfinite(t).all() for t in run["params"]):
+            raise SmokeError(f"10a {arch}: a non-finite metric or parameter "
+                             "after the card's step")
+    err = _step_error(card["f32"], ref)
+    e_card, e_cpu = _step_error(card["own"], ref), _step_error(cpu, ref)
+    print(f"  {arch:26s} f32 step: card from cpu {err:.3e} (bound "
+          f"{TRAIN_TOL}), loss {card['f32']['metrics']['loss']:.4f} (cpu "
+          f"{ref['metrics']['loss']:.4f}); {cfg.act_dtype} step from f32: "
+          f"card {e_card:.4f}, cpu {e_cpu:.4f}; flash {launches}, backward "
+          f"{backward_calls}")
+    if not err <= TRAIN_TOL:
+        raise SmokeError(f"10a {arch}: the card's float32 step is {err:.3e} "
+                         f"from the CPU's, over {TRAIN_TOL}")
+    if _causal(cfg, lm) and not all(
+            sum(launches[n].values()) > 0 and backward_calls[n] > 0
+            for n in card):
+        raise SmokeError(f"10a {arch}: causal attention never reached the "
+                         "flash kernel or its backward under training")
+    flash = unit_normal_checks(fa, seen, f"10a {arch}") if seen else None
+    return {"loss": card["f32"]["metrics"]["loss"], "err_f32": err,
+            "err_own_card_f32": e_card, "err_own_cpu_f32": e_cpu,
+            "launches": launches, "backward_calls": backward_calls,
+            "flash": flash, "backward": _backward_summary(back)}
+
+
+def train_cfg(configs, layers: int):
+    """granite-8b at its published widths (tp=1: the 8 kv heads stay 8),
+    its depth cut to ``layers``."""
+    return dataclasses.replace(configs.get_config(TRAIN_ARCH), tp=1,
+                               n_layers=layers)
+
+
+def train_bound(cfg, model, h100) -> dict:
+    """10b's bound, reckoned from the shapes and ``h100_sxm.yaml``: flops
+    at the bf16 peak — 2 per weight per token for the forward (the tied
+    head counted once, as a product; the embedding lookup is none), 2
+    more for remat's re-forward of the layers (the head is not re-run), 4
+    for the backward, and 4·hd per causal (query, key) pair per head and
+    layer for each attention pass (forward, re-forward, and the backward's
+    two) — and beside it the bytes of one AdamW pass at the HBM rate:
+    each parameter's float32 gradient, master, m and v read, and its
+    master, m, v and bf16 parameter written."""
+    n = cfg.param_count()
+    embed = model.padded_vocab * cfg.d_model
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    s = TRAIN["seq"]
+    weights = (2 * n + 2 * (n - embed) + 4 * n) * tokens
+    pairs = TRAIN["batch"] * s * (s + 1) // 2
+    attention = 4 * 4 * cfg.head_dim * cfg.n_heads * cfg.n_layers * pairs
+    flops = weights + attention
+    adam_bytes = (4 * 4 + 3 * 4 + 2) * n
+    return {"flops": flops, "weight_flops": weights,
+            "attention_flops": attention,
+            "ms": flops / h100.peak_flops["BF16"] * 1e3,
+            "adamw_bytes": adam_bytes,
+            "adamw_ms": adam_bytes / h100.hbm_bandwidth * 1e3,
+            "params": n, "tokens": tokens}
+
+
+def _timed_steps(trainer, fa):
+    """Wrap ``trainer.step_fn``: CUDA events around each call, the flash
+    launches and backward calls each makes, and the first call run inside
+    the flash and backward checks."""
+    real = trainer.step_fn
+    rec = {"events": [], "launches": [], "backward": [], "checks": None}
+
+    def step_fn(params, opt, batch, step):
+        counts = fa.flash_attention.launches_by_route
+        n0, b0 = dict(counts), fa.flash_attention.backward_calls
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if rec["checks"] is None:
+            with _first_step_checks(fa) as checks:
+                start.record()
+                out = real(params, opt, batch, step)
+                end.record()
+            rec["checks"] = checks
+        else:
+            start.record()
+            out = real(params, opt, batch, step)
+            end.record()
+        rec["events"].append((start, end))
+        rec["launches"].append({r: counts[r] - n0[r] for r in counts})
+        rec["backward"].append(fa.flash_attention.backward_calls - b0)
+        return out
+    trainer.step_fn = step_fn
+    return rec
+
+
+@contextlib.contextmanager
+def _first_step_checks(fa):
+    with checked_flash(fa) as seen, checked_backward(fa) as back:
+        yield {"flash": seen, "backward": back}
+
+
+#: the ranges 10b's profile puts around the attention backward and the
+#: optimizer, and the class of the kernels inside each
+TRAIN_RANGES = {"attention_backward": "attention backward",
+                "adamw_update": "optimizer"}
+
+
+def _is_cuda(e) -> bool:
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def train_profile(fn, fa, step_mod) -> dict:
+    """``torch.profiler`` over one call of ``fn`` (a train step), with
+    ``attention_backward`` and ``adamw_update`` inside
+    ``record_function`` ranges of their names: device microseconds per
+    class — GEMM, flash forward, attention backward (all the Function's
+    backward's kernels), elementwise, optimizer — and the step's host
+    seconds.  A kernel belongs to a range when it starts within the
+    range's span on the card's timeline (the profiler's GPU user
+    annotation); the others are classed by name."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    from torch.profiler import record_function
+    real_bwd, real_upd = fa.attention_backward, step_mod.adamw_update
+
+    def bwd(*a, **kw):
+        with record_function("attention_backward"):
+            return real_bwd(*a, **kw)
+
+    def upd(*a, **kw):
+        with record_function("adamw_update"):
+            return real_upd(*a, **kw)
+    fa.attention_backward, step_mod.adamw_update = bwd, upd
+    try:
+        torch.cuda.synchronize()
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+    finally:
+        fa.attention_backward, step_mod.adamw_update = real_bwd, real_upd
+    events = [e for e in p.events() if _is_cuda(e)]
+    spans = sorted((e.time_range.start, e.time_range.end,
+                    TRAIN_RANGES[e.name]) for e in events
+                   if e.is_user_annotation and e.name in TRAIN_RANGES)
+    counted = {v: sum(1 for *_, c in spans if c == v)
+               for v in TRAIN_RANGES.values()}
+    if not all(counted.values()):
+        raise SmokeError(f"10b profile: GPU annotation spans {counted}: the "
+                         "profiler did not put the ranges on the card's "
+                         "timeline")
+    classes = {c: 0.0 for c in ("GEMM", "flash forward",
+                                "attention backward", "elementwise",
+                                "optimizer")}
+    kernels: dict = {}
+    for e in events:
+        if e.is_user_annotation:
+            continue
+        t0_us = e.time_range.start
+        cls = next((c for a, b, c in spans if a <= t0_us < b), None) or {
+            "flash": "flash forward", "gemm": "GEMM",
+            "other": "elementwise"}[_kernel_class(e.name)]
+        dur = e.time_range.end - t0_us
+        classes[cls] += dur
+        row = kernels.setdefault(e.name, {"device_us": 0.0, "count": 0,
+                                          "class": cls})
+        row["device_us"] += dur
+        row["count"] += 1
+    return {"classes": classes, "kernels": kernels, "host_s": host_s,
+            "spans": counted}
+
+
+def drop_check(fa, configs, common, lm, train) -> dict:
+    """10b's check that would catch a dropped gradient: granite-8b's
+    widths cut to DROP's one layer and 256 tokens, the loss's gradient in
+    float32 on the card (the bf16x3 flash kernel under its Function)
+    held per leaf against the same in float32 on the CPU with the flash
+    call replaced by autograd through plain, from the same seeded
+    parameters and batch: within DROP_TOL of the CPU leaf's largest
+    entry, and wq, wk and wv's gradients non-zero.  The card's bf16
+    gradient (wgmma) lies within BF16_DROP_TOL of the card's float32
+    one."""
+    from repro_torch.ckpt.store import flatten
+    from repro_torch.kernels import ops
+    cfg = train_cfg(configs, DROP["layers"])
+    model = lm.LM(cfg)
+    model32 = lm.LM(dataclasses.replace(cfg, act_dtype="float32"))
+    params = common.materialize(model.param_recs(),
+                                torch.Generator("cuda").manual_seed(SEED))
+    params32 = common.tmap(lambda t: t.float(), params)
+    g = torch.Generator("cuda").manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (DROP["batch"], DROP["seq"]),
+                         generator=g, device="cuda")
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    counts = fa.flash_attention.launches_by_route
+
+    def grads(m, p, b):
+        for r in counts:
+            counts[r] = 0
+        fa.flash_attention.backward_calls = 0
+        live = common.tmap(lambda t: t.detach().requires_grad_(), p)
+        loss, _ = train.loss_fn(m, live, b)
+        loss.backward()
+        return (flatten(common.tmap(lambda t: t.grad, live)), loss.item(),
+                dict(counts), fa.flash_attention.backward_calls)
+    g32, l32, n32, b32 = grads(model32, params32, batch)
+    g16, l16, n16, b16 = grads(model, params, batch)
+    if not (n32["bf16x3"] > 0 and n16["wgmma"] > 0 and b32 > 0 and b16 > 0):
+        raise SmokeError(f"10b drop check: the flash kernel or its backward "
+                         f"was not reached (float32 {n32}, {b32} backwards; "
+                         f"bf16 {n16}, {b16} backwards)")
+    real = ops.flash_attention
+    ops.flash_attention = (lambda q, k, v, causal=True, q_offset=None:
+                           fa.plain(q, k, v, causal=causal,
+                                    q_offset=q_offset))
+    try:
+        ref, lref, _, _ = grads(
+            model32, common.tmap(lambda t: t.cpu(), params32),
+            {k: v.cpu() for k, v in batch.items()})
+    finally:
+        ops.flash_attention = real
+    rows = {}
+    for key, want in ref.items():
+        got, own = g32[key], g16[key]
+        if got is None or want is None or own is None:
+            raise SmokeError(f"10b drop check: {key} has no gradient")
+        got = got.cpu()
+        top = want.abs().max().item()
+        rows[key] = {
+            "err": (got - want).abs().max().item() / max(top, 1e-30),
+            "max": got.abs().max().item(),
+            "bf16": ((own.float().cpu() - got).abs().max().item()
+                     / max(got.abs().max().item(), 1e-30))}
+    worst = max(rows, key=lambda k: rows[k]["err"])
+    print(f"  10b drop check at {DROP['layers']} layer, {DROP['seq']} tokens,"
+          f" published widths: loss card f32 {l32:.4f}, cpu f32 {lref:.4f}, "
+          f"card bf16 {l16:.4f}; per leaf |g_card - g_cpu| / max |g_cpu| in "
+          f"float32: worst {rows[worst]['err']:.3e} ({worst}), bound "
+          f"{DROP_TOL}; bf16 from f32 on the card: worst "
+          f"{max(r['bf16'] for r in rows.values()):.4f}, bound "
+          f"{BF16_DROP_TOL}")
+    for key in sorted(rows):
+        if any(w in key for w in ("wq", "wk", "wv")):
+            print(f"    {key}: {rows[key]['err']:.3e}, max |g| "
+                  f"{rows[key]['max']:.3e}; bf16 {rows[key]['bf16']:.4f}")
+            if not rows[key]["max"] > 0:
+                raise SmokeError(f"10b drop check: {key}'s gradient is zero")
+    if not rows[worst]["err"] <= DROP_TOL:
+        raise SmokeError(f"10b drop check: {worst}'s float32 gradient on the "
+                         f"card is {rows[worst]['err']:.3e} of its largest "
+                         f"CPU entry from the CPU's, over {DROP_TOL}")
+    bf16_worst = max(rows, key=lambda k: rows[k]["bf16"])
+    if not rows[bf16_worst]["bf16"] <= BF16_DROP_TOL:
+        raise SmokeError(f"10b drop check: {bf16_worst}'s bf16 gradient on "
+                         f"the card is {rows[bf16_worst]['bf16']:.4f} of its "
+                         f"largest float32 entry from the float32 one, over "
+                         f"{BF16_DROP_TOL}")
+    return {"worst": rows[worst]["err"], "worst_leaf": worst,
+            "loss_f32": l32, "loss_cpu_f32": lref, "loss_bf16": l16,
+            "bf16_worst": rows[bf16_worst]["bf16"],
+            "qkv": {k: v for k, v in rows.items()
+                    if any(w in k for w in ("wq", "wk", "wv"))}}
+
+
+def train_flash_timing(cfg, fa, space, measure, h100) -> dict:
+    """The flash call of 10b's training, (1, 32, 4096, 128) bf16 causal,
+    on seeded unit-normal operands: the kernel, plain, SDPA and the bound
+    (the kernels line's numbers); the Function's backward beside SDPA's
+    forward plus backward, the yardstick."""
+    from repro_torch.kernels import ops
+    shape = (1, cfg.n_heads, TRAIN["seq"], cfg.head_dim)
+    q, k, v = qkv(shape, TRAIN["seq"], torch.bfloat16, SEED)
+    do = qkv(shape, TRAIN["seq"], torch.bfloat16, SEED + 1)[0]
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=True, q_offset=0)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+    out, route = routed(fa, kernel)
+    if route != "wgmma":
+        raise SmokeError(f"10b: the training flash call ran on {route}")
+    err = fa_compare("10b training shape", out, fa.plain(q, k, v,
+                                                         q_offset=0),
+                     torch.bfloat16)
+    t_fa = measure.time_cuda(kernel, warmup=2, iters=5, reps=5).wall_s * 1e3
+    t_plain = measure.time_cuda(lambda: fa.plain(q, k, v, q_offset=0),
+                                warmup=1, iters=1, reps=3).wall_s * 1e3
+    t_sdpa = measure.time_cuda(sdpa, warmup=2, iters=5, reps=5).wall_s * 1e3
+    t_bwd = measure.time_cuda(
+        lambda: fa.attention_backward(q, k, v, do, causal=True,
+                                      q_offset=0),
+        warmup=1, iters=2, reps=3).wall_s * 1e3
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=True).backward(do)
+    t_sdpa_fb = measure.time_cuda(sdpa_fwd_bwd, warmup=2, iters=5,
+                                  reps=5).wall_s * 1e3
+    bound = space.attention_bound(q, k, causal=True, q_offset=0,
+                                  machine=h100)
+    b_ms = bound.seconds * 1e3
+    print(f"  10b flash at the training shape {shape} bf16 causal, route "
+          f"{route}: kernel {t_fa:.4f} ms ({b_ms / t_fa:.1%} of its bound "
+          f"{b_ms:.4f} ms by {bound.by}), plain {t_plain:.4f} ms, SDPA "
+          f"{t_sdpa:.4f} ms; max abs err vs plain {err:.3e}")
+    print(f"    the Function's backward (PyTorch, float32 scores, no "
+          f"kernel) {t_bwd:.4f} ms; SDPA forward + backward {t_sdpa_fb:.4f} "
+          f"ms (yardstick only); the backward's bound (two attention "
+          f"passes) {2 * b_ms:.4f} ms")
+    return {"name": f"flash_attention[{TRAIN_ARCH} train]", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{fa.SOURCES[route]}.cu",
+            "replaces": REPLACES["flash_attention"], "launches": 0,
+            "max_abs_err": err, "ms": t_fa, "plain_ms": t_plain,
+            "bound_ms": b_ms, "bound_by": bound.by, "library_ms": t_sdpa,
+            "shape_q": list(shape), "backward_ms": t_bwd,
+            "sdpa_fwd_bwd_ms": t_sdpa_fb}
+
+
+def train_granite(fa, measure, space, h100, card: str) -> tuple:
+    """Phase 10b: granite-8b at its published widths, depth cut to
+    TRAIN['layers'], trained by ``Trainer`` on the card (bf16 params,
+    ``TrainConfig`` defaults: remat, AdamW with fp32 master, m and v; 4
+    microbatches of 1 x 4096 tokens; weights from ``torch.Generator``
+    seed SEED, ``SyntheticLM`` seed SEED) for one warm-up step and
+    TRAIN['timed'] timed ones.  The first step's flash calls and
+    backwards are held against plain; every step's flash launches are
+    counted (the counters zeroed just before ``Trainer.run``).  Then one
+    more step under ``torch.profiler``, the drop check, and the flash
+    call's times.  Returns the kernels-line entry and the numbers."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import common, lm
+    from repro_torch import train
+    from repro_torch.train import step as step_mod
+    cfg = train_cfg(configs, TRAIN["layers"])
+    model = lm.LM(cfg)
+    bound = train_bound(cfg, model, h100)
+    data = SyntheticLM(vocab=cfg.vocab, seq=TRAIN["seq"],
+                       global_batch=TRAIN["batch"], seed=SEED)
+    tcfg = train.TrainConfig(microbatches=TRAIN["microbatches"])
+    trainer = train.Trainer(model, data, tcfg)
+    rec = _timed_steps(trainer, fa)
+    n_steps = TRAIN["warmup"] + TRAIN["timed"]
+    torch.cuda.reset_peak_memory_stats()
+    counts = fa.flash_attention.launches_by_route
+    for r in counts:
+        counts[r] = 0
+    fa.flash_attention.backward_calls = 0
+    t0 = time.perf_counter()
+    params, opt, step = trainer.run(
+        n_steps, generator=torch.Generator("cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(counts)
+    backward_calls = fa.flash_attention.backward_calls
+    peak = torch.cuda.max_memory_allocated()
+    log = [m for m in trainer.metrics_log if "loss" in m]
+    restarts = [m for m in trainer.metrics_log if m.get("event")]
+    ms = [s.elapsed_time(e) for s, e in rec["events"]]
+    timed = ms[TRAIN["warmup"]:]
+    med = statistics.median(timed)
+    per_step = 2 * cfg.n_layers * TRAIN["microbatches"]
+    print(f"  10b {cfg.name} at its published widths, depth cut to "
+          f"{cfg.n_layers} of 36: tp=1, d {cfg.d_model}, {cfg.n_heads} heads "
+          f"of {cfg.head_dim}, {cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}; {bound['params']:,} parameters, bf16, "
+          f"remat, AdamW (fp32 master, m, v); {TRAIN['microbatches']} "
+          f"microbatches of 1 x {TRAIN['seq']} tokens on {card}")
+    for m, t, n, b in zip(log, ms, rec["launches"], rec["backward"]):
+        print(f"    step {m['step']}: {t:.1f} ms (CUDA events; host "
+              f"{m['dt'] * 1e3:.1f} ms), loss {m['loss']:.4f}, grad_norm "
+              f"{m['grad_norm']:.4f}, lr {m['lr']:.3e}; flash launches "
+              f"{n}, backwards {b}")
+    tps = bound["tokens"] / (med / 1e3)
+    print(f"    timed steps: median {med:.1f} ms (min {min(timed):.1f}, max "
+          f"{max(timed):.1f}) = {tps:,.0f} tokens/s; bound "
+          f"{bound['ms']:.1f} ms by operations ({bound['flops'] / 1e12:.1f} "
+          f"TFLOP: weights {bound['weight_flops'] / 1e12:.1f}, attention "
+          f"{bound['attention_flops'] / 1e12:.1f}, at "
+          f"{h100.peak_flops['BF16'] / 1e12:.0f} TFLOP/s), "
+          f"{bound['ms'] / med:.1%} of the step; one AdamW pass "
+          f"{bound['adamw_bytes'] / 1e9:.1f} GB at "
+          f"{h100.hbm_bandwidth / 1e12:.2f} TB/s = {bound['adamw_ms']:.2f} "
+          f"ms beside it")
+    print(f"    peak memory allocated {peak / 1e9:.2f} GB; {len(restarts)} "
+          f"restarts; wall {wall:.1f} s for {n_steps} steps; flash launches "
+          f"{launches}, backwards {backward_calls}")
+    if step != n_steps or restarts:
+        raise SmokeError(f"10b: {len(restarts)} restarts, ended at step "
+                         f"{step}")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in log):
+        raise SmokeError("10b: a non-finite loss or grad norm")
+    bad = [n for n in rec["launches"] if n["wgmma"] != per_step
+           or sum(n.values()) != per_step]
+    if bad or any(b != per_step // 2 for b in rec["backward"]):
+        raise SmokeError(f"10b: flash launches a step {rec['launches']} and "
+                         f"backwards {rec['backward']}, where each step "
+                         f"takes {per_step} wgmma launches and "
+                         f"{per_step // 2} backwards")
+    checks = rec["checks"]
+    flash = unit_normal_checks(fa, checks["flash"], "10b first step")
+    back = _backward_summary(checks["backward"])
+    print(f"    10b first step: {back['calls']} backwards held against "
+          f"autograd through plain, worst {back['worst_of_tol']:.3f} of the "
+          "tolerance")
+    batch = trainer._batch(step)
+    pr = train_profile(lambda: trainer.step_fn(params, opt, batch, step),
+                       fa, step_mod)
+    total = sum(pr["classes"].values())
+    print(f"    torch.profiler, one step: {total / 1e3:.1f} ms of device time"
+          f" ({pr['host_s'] * 1e3:.1f} ms on the host clock; ranges on the "
+          f"card's timeline {pr['spans']}); "
+          + ", ".join(f"{k} {v / 1e3:.1f} ms ({v / max(total, 1):.1%})"
+                      for k, v in pr["classes"].items()))
+    top = sorted(pr["kernels"].items(), key=lambda kv: -kv[1]["device_us"])
+    for name, row in top[:PROFILE_ROWS]:
+        print(f"      {row['device_us'] / 1e3:9.3f} ms  x{row['count']:<5d} "
+              f"[{row['class']}] {name[:90]}")
+    del params, opt, trainer, batch
+    torch.cuda.empty_cache()
+    drop = drop_check(fa, configs, common, lm, train)
+    torch.cuda.empty_cache()
+    entry = train_flash_timing(cfg, fa, space, measure, h100)
+    entry["launches"] = launches["wgmma"]
+    entry["backward_calls"] = backward_calls
+    entry["max_abs_err"] = max(entry["max_abs_err"],
+                               flash["unit_normal_max_abs_err"])
+    numbers = {"step_ms": ms, "median_ms": med, "tokens_per_s": tps,
+               "peak_bytes": peak, "bound": bound,
+               "losses": [m["loss"] for m in log],
+               "grad_norms": [m["grad_norm"] for m in log],
+               "lrs": [m["lr"] for m in log],
+               "launches_per_step": rec["launches"],
+               "backwards_per_step": rec["backward"],
+               "flash_checks": flash, "backward_checks": back,
+               "profile": {"classes": pr["classes"],
+                           "host_s": pr["host_s"]},
+               "drop_check": drop}
+    return entry, numbers
+
+
 def smoke(out_path: str | None) -> int:
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is False: this smoke "
@@ -1874,15 +2539,26 @@ def smoke(out_path: str | None) -> int:
         for arch in configs.ARCH_IDS}
     for arch, r in predicted["reduced_on_card"].items():
         cfg = configs.reduced(configs.get_config(arch))
-        causal = any(blk.kind in ("attn", "shared_attn")
-                     for st in lm.build_stages(cfg) for blk in st.blocks)
+        causal = _causal(cfg, lm)
         if causal and sum(r["launches"].values()) <= 0:
             raise SmokeError(f"9a {arch}: causal attention never reached "
                              "the flash kernel on the card")
     entry, predicted["serve"] = serve_granite(fa, measure, space, h100, card)
     entries.append(entry)
 
-    phase("10 result")
+    phase("10 train on the card")
+    from repro_torch import optim, train
+    print(f"  10a every family, reduced: one train step ({TRAIN_REDUCED}) on "
+          f"the card against the CPU (rule: the float32 steps within "
+          f"{TRAIN_TOL}; each config's own types printed)")
+    predicted["train_reduced"] = {
+        arch: reduced_train_on_card(arch, fa, configs, common, lm, train,
+                                    optim)
+        for arch in configs.ARCH_IDS}
+    entry, predicted["train"] = train_granite(fa, measure, space, h100, card)
+    entries.append(entry)
+
+    phase("11 result")
     result = {"kernels": entries}
     if out_path:
         pathlib.Path(out_path).parent.mkdir(parents=True, exist_ok=True)

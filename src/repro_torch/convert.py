@@ -3,8 +3,9 @@
 numpy arrays become tensors on a given device (the parity tests make
 inputs once with numpy and hand them to both packages), stencil
 coefficients map between ``ref.py``'s dict form and the kernels' vectors,
-and LM parameter and cache trees (``jax.tree.map(np.asarray, tree)``)
-become the port's (:func:`lm_params`, :func:`lm_caches`).
+and LM parameter, cache and optimizer-state trees
+(``jax.tree.map(np.asarray, tree)``) become the port's (:func:`lm_params`,
+:func:`lm_caches`, :func:`adamw_state`).
 """
 from __future__ import annotations
 
@@ -85,6 +86,15 @@ def lm_caches(tree, cfg, batch: int, max_len: int, device=None):
     from .models.lm import LM
     return _tree(LM(cfg).cache_recs(batch, max_len), tree, device, None,
                  True)
+
+
+def adamw_state(tree, device=None):
+    """A JAX AdamW state (``repro.optim.adamw_init``'s tree: ``step``,
+    ``m``, ``v``, ``master``, with ``{"q", "scale"}`` moments when
+    quantized) as the port's tensors on ``device``, every leaf in its own
+    type: int8 ``q`` and float32 ``scale`` as they are."""
+    from .models.common import tmap
+    return tmap(lambda a: array_tensor(a, device), tree)
 
 
 def star7_vector(coeffs: Mapping[str, float] | Sequence[float]) -> tuple[float, ...]:

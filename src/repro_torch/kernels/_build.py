@@ -30,6 +30,11 @@ SOURCES = ("stencil3d7pt", "longrange3d", "flash_attention",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+class KernelError(RuntimeError):
+    """A kernel that could not be built, loaded or launched: a fault of
+    the card or its toolchain, which a training loop must not replay."""
+
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: per source: build seconds and the ptxas register/shared-memory report
@@ -46,7 +51,7 @@ def nvcc() -> str:
     for c in cands:
         if c and os.path.isfile(c):
             return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+    raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
                        "to build the repro_torch CUDA kernels")
 
 
@@ -103,7 +108,7 @@ def build_all(names=SOURCES) -> dict[str, dict]:
         errors = [_finish(n, proc, tmp, out, t0)
                   for n, proc, tmp, out in started]
         if any(errors):
-            raise RuntimeError("\n".join(e for e in errors if e))
+            raise KernelError("\n".join(e for e in errors if e))
         for n in names:           # built by an earlier process
             log = library_path(n).with_suffix(".log")
             BUILD_INFO.setdefault(n, {
@@ -184,7 +189,7 @@ def bind(name: str, n_ptrs: int, n_coef: int):
 def compiled_limits(name: str, tile) -> tuple[int, int]:
     """(shared bytes, threads) of one CTA of the plan ``(bj, bi, c,
     stages)`` (a chunk, if given, is ignored) as the built library states
-    them (``repro_<name>_limits``); raises ``RuntimeError`` where the
+    them (``repro_<name>_limits``); raises :class:`KernelError` where the
     library refuses the plan.  Builds the library if needed."""
     fn = entry(name, [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
                symbol=f"{name}_limits")
@@ -198,4 +203,4 @@ def compiled_limits(name: str, tile) -> tuple[int, int]:
 def check_status(name: str, err: int) -> None:
     """Raise unless the launch function returned ``cudaSuccess``."""
     if err:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+        raise KernelError(f"{name} kernel launch failed: cudaError_t {err}")

@@ -560,6 +560,90 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = {r: 0 for r in SOURCES}
+#: calls of :class:`FlashAttentionFn`'s backward (which launches no kernel
+#: of its own; see :func:`attention_backward`)
+flash_attention.backward_calls = 0
+
+#: the float32 transient :func:`attention_backward` may hold at once:
+#: about four score-sized tensors per head
+BACKWARD_TRANSIENT_BYTES = 2 << 30
+
+
+def attention_backward(q, k, v, grad_out, causal: bool = True,
+                       q_offset: int | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of softmax attention with respect to q, k and v, written
+    out in PyTorch: the counterpart of what ``jax.grad`` takes through
+    ``repro.models.attention``'s softmax attention (the JAX kernel has no
+    backward).  Operands (b, h, s, d) as :func:`flash_attention` takes
+    them; ``grad_out`` is the gradient of its output.
+
+    The kernel writes no row log-sum-exp, so the float32 scores and the
+    softmax P are recomputed from q and k; then dV = Pᵀ·dO, dP = dO·Vᵀ,
+    dS = P ⊙ (dP − rowsum(P ⊙ dP)) (softmax's own vector-Jacobian product,
+    as JAX takes it), dQ = scale·dS·K and dK = scale·dSᵀ·Q, each cast to
+    its operand's type.  FlashAttention's rowsum(dO ⊙ O) equals
+    rowsum(P ⊙ dP) only for O = P·V exactly; the kernel's O rounds p to
+    bf16 for its P·V product and is stored in bf16, and where this init's
+    softmax is sharp (scores in the hundreds) dS is a small difference of
+    large terms, which that rounding moves by several per cent of dQ.
+    Masked pairs have P = 0, so they get no gradient.  The (batch, head)
+    pairs are walked in chunks that keep four score-sized float32
+    tensors within ``BACKWARD_TRANSIENT_BYTES``."""
+    b, h, sq, skv, d = _check_operands(q, k, v)
+    if q_offset is None:
+        q_offset = skv - sq
+    _check_offset(causal, q_offset)
+    scale = _scale(d)
+    bh = b * h
+    chunk = max(1, BACKWARD_TRANSIENT_BYTES // (4 * 4 * sq * skv))
+    flat = [t.reshape(bh, t.shape[2], d) for t in (q, k, v, grad_out)]
+    grads = [torch.empty(bh, t.shape[2], d, dtype=t.dtype, device=t.device)
+             for t in (q, k, v)]
+    keep = None
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None] + q_offset
+        keep = rows >= torch.arange(skv, device=q.device)[None]
+    for i in range(0, bh, chunk):
+        qi, ki, vi, doi = (t[i:i + chunk].float() for t in flat)
+        s = torch.matmul(qi, ki.transpose(-1, -2)) * scale
+        if keep is not None:
+            s = torch.where(keep, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        del s
+        grads[2][i:i + chunk] = torch.matmul(p.transpose(-1, -2), doi)
+        ds = torch.matmul(doi, vi.transpose(-1, -2))
+        ds.sub_((p * ds).sum(-1, keepdim=True)).mul_(p)
+        del p
+        grads[0][i:i + chunk] = torch.matmul(ds, ki) * scale
+        grads[1][i:i + chunk] = torch.matmul(ds.transpose(-1, -2), qi) * scale
+    return tuple(g.reshape(t.shape) for g, t in zip(grads, (q, k, v)))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` under autograd.  The forward is the kernel's
+    launch on the card and :func:`plain` on the CPU, as the wrapper
+    chooses, run without a graph; it saves q, k and v.  The backward is
+    :func:`attention_backward` (no kernel; counted in
+    ``flash_attention.backward_calls``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_kv, q_offset):
+        with torch.no_grad():
+            out = flash_attention(q, k, v, causal=causal, block_q=block_q,
+                                  block_kv=block_kv, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        flash_attention.backward_calls += 1
+        dq, dk, dv = attention_backward(q, k, v, grad_out,
+                                        causal=ctx.causal,
+                                        q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def _compiled_limits(route_name: str, block_q: int, block_kv: int,

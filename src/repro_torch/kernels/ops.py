@@ -39,12 +39,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int | None = None) -> torch.Tensor:
     """Attention with blocks from the shared-memory advisor, fitted to the
     lengths (a tensor-core pair wherever one divides them); kv heads
-    broadcast by GQA callers."""
+    broadcast by GQA callers.  With grad mode on and an operand that
+    requires grad, the call goes through
+    :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn` (the
+    same forward, on either device, and its backward)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention takes (b, h, s, d) tensors")
     sq, d = int(q.shape[2]), int(q.shape[3])
     skv = int(k.shape[2])
     tiles = blocking.attention_cta_tiles(sq, skv, d, q.dtype)
     bq, bkv = _fa.fit_blocks(sq, skv, tiles.bq, tiles.bkv, d, q.dtype)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, bq, bkv, q_offset)
     return _fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                block_kv=bkv, q_offset=q_offset)

@@ -15,8 +15,11 @@ shared_attn (weight-tied across applications, per-application KV cache),
 cross (encoder-decoder).
 
 ``prefill`` and ``decode_step`` update the caches in place and return
-them.  ``remat`` (activation checkpointing) is a training concern and
-waits for the training slice.
+them.  ``forward(..., remat=True)`` (training) recomputes each layer's
+group of blocks in the backward pass
+(``torch.utils.checkpoint.checkpoint``, non-reentrant), as JAX wraps its
+scan body in ``jax.checkpoint``: only the layers' inputs are kept.  A
+forward with caches takes no remat (training has none).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention, mamba2, mlp, moe
 from .common import PRec, dtype_of, einsum, layer_norm, pad_heads, rms_norm
@@ -257,21 +261,35 @@ class LM:
             return x + attention.cross_apply(p, x, enc_kv, cfg), cache
         raise ValueError(blk.kind)
 
+    def _group(self, st: Stage, lp, x, shared, enc_out, x_emb):
+        """One layer's group of blocks without caches (JAX's scan body)."""
+        for bi, blk in enumerate(st.blocks):
+            x, _ = self._apply_block(blk, lp[bi], x, shared=shared,
+                                     enc_out=enc_out, x_emb=x_emb)
+        return x
+
     def _run_stages(self, params, x, caches=None, pos=None, enc_out=None,
-                    x_emb=None):
+                    x_emb=None, remat=False):
+        if remat and caches is not None:
+            raise ValueError("remat recomputes a forward without caches "
+                             "(training); a forward with caches takes none")
         for si, st in enumerate(self.stages):
             pstack = params["stages"][si]["blocks"]
             cstack = caches[si]["blocks"] if caches is not None else None
             for i in range(st.repeat):
                 lp = take(pstack, i)
+                if cstack is None:
+                    args = (st, lp, x, params.get("shared"), enc_out, x_emb)
+                    x = (checkpoint(self._group, *args, use_reentrant=False)
+                         if remat else self._group(*args))
+                    continue
                 for bi, blk in enumerate(st.blocks):
-                    bc = take(cstack[bi], i) if cstack is not None else None
+                    bc = take(cstack[bi], i)
                     x, nc = self._apply_block(
                         blk, lp[bi], x, cache=bc, pos=pos,
                         shared=params.get("shared"), enc_out=enc_out,
                         x_emb=x_emb)
-                    if cstack is not None:
-                        _store(cstack[bi], i, bc, nc)
+                    _store(cstack[bi], i, bc, nc)
         return x, caches
 
     def _embed(self, params, tokens, batch_extra):
@@ -297,15 +315,17 @@ class LM:
             x = x + mlp.mlp_apply(lp["mlp"], x, cfg)
         return layer_norm(x, enc["ln"], enc["ln_b"])
 
-    def forward(self, params, batch, return_hidden=False):
-        """Full forward (prefill without a cache): returns logits,
-        optionally also the final hidden states (for the MTP head)."""
+    def forward(self, params, batch, remat=False, return_hidden=False):
+        """Full forward (training, prefill without a cache): returns
+        logits, optionally also the final hidden states (for the MTP
+        head); ``remat`` recomputes each layer in the backward pass."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"], batch)
         enc_out = (self._encoder(params, batch["frames"])
                    if cfg.encdec else None)
         x_emb = x if cfg.hybrid_attn_every else None
-        x, _ = self._run_stages(params, x, enc_out=enc_out, x_emb=x_emb)
+        x, _ = self._run_stages(params, x, enc_out=enc_out, x_emb=x_emb,
+                                remat=remat)
         logits = self._head(params, x)
         return (logits, x) if return_hidden else logits
 

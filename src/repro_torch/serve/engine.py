@@ -45,9 +45,13 @@ class Engine:
         self.model, self.params, self.max_len = model, params, max_len
         self.device = params["embed"].device
 
+    # no graph, whatever the parameters: a trainer's require grad, and the
+    # caches are written in place
+    @torch.no_grad()
     def prefill(self, batch, caches):
         return self.model.prefill(self.params, batch, caches)
 
+    @torch.no_grad()
     def decode(self, caches, tokens, pos: int):
         return self.model.decode_step(self.params, caches, tokens, pos)
 
@@ -58,7 +62,7 @@ class Engine:
         probs = torch.softmax(logits[:, -1].float() / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=generator)
 
-    @torch.inference_mode()
+    @torch.inference_mode()     # no_grad, and no version counters either
     def generate(self, tokens: torch.Tensor, n_new: int,
                  temperature: float = 0.0,
                  generator: torch.Generator | None = None,

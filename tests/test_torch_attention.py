@@ -179,6 +179,105 @@ def test_flash_rule():
                                  positions=torch.arange(7))
 
 
+#: FlashAttentionFn's gradients against autograd through ``plain`` on the
+#: same operands: float32 within the last bits of the same float32 sums;
+#: bf16 within 1e-2 of the largest gradient (both compute in float32 and
+#: round to bf16 once, after sums in another order)
+FN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+          torch.bfloat16: 1e-2}
+
+
+def _through_plain(monkeypatch):
+    """ops.flash_attention replaced by autograd through the plain
+    version."""
+    monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, **kw:
+                        fa.plain(q, k, v, causal=kw["causal"],
+                                 q_offset=kw["q_offset"]))
+
+
+def _grad_case(dtype, groups, s, seed=7):
+    rng = np.random.default_rng(seed)
+    shapes = ((2, s, 4, 32), (2, s, 4 // groups, 32), (2, s, 4 // groups,
+                                                       32), (2, s, 4, 32))
+    q, k, v, w = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)) for sh in shapes)
+    return [t.to(dtype).requires_grad_() for t in (q, k, v)], w
+
+
+def _flash_grads(attn, dtype, groups, s):
+    (q, k, v), w = _grad_case(dtype, groups, s)
+    out = attn(q, k, v)
+    (out.float() * w).sum().backward()
+    return out, [t.grad for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("s", [32, 64], ids=["pads_32_to_64", "no_pad"])
+def test_flash_function_gradients_match_autograd_through_plain(
+        dtype, groups, s, monkeypatch):
+    """Through ``attention.flash`` (q padded to 64 rows and sliced back,
+    kv heads ``repeat_interleave``d, casts): the Function's backward gives
+    what autograd through plain gives, and in float32 what autograd
+    through the grouped plain path (JAX's math) gives, so kv head n // g
+    sums its g query heads' gradients."""
+    before = fa.flash_attention.backward_calls
+    out, got = _flash_grads(lambda q, k, v: tattn.flash(q, k, v, 0),
+                            dtype, groups, s)
+    assert fa.flash_attention.backward_calls == before + 1
+    with monkeypatch.context() as m:
+        _through_plain(m)
+        _, want = _flash_grads(lambda q, k, v: tattn.flash(q, k, v, 0),
+                               dtype, groups, s)
+    refs = [want]
+    if dtype == torch.float32:
+        refs.append(_flash_grads(lambda q, k, v: tattn.attend(
+            q, k, v, "causal"), dtype, groups, s)[1])
+    for ref in refs:
+        for g, r in zip(got, ref):
+            assert g.dtype == dtype and g.shape == r.shape
+            if dtype == torch.float32:
+                np.testing.assert_allclose(g.numpy(), r.numpy(),
+                                           **FN_TOL[dtype])
+            else:
+                np.testing.assert_allclose(
+                    g.float().numpy(), r.float().numpy(), rtol=0,
+                    atol=FN_TOL[dtype] * float(r.float().abs().max()))
+
+
+def test_flash_function_padded_rows_get_zero_gradient():
+    """q rows past the real 13 (the padding ``flash`` adds) get no output
+    gradient, so they get no gradient either, and the keys only they see
+    (positions 13..63) get none."""
+    (q, k, v), _ = _grad_case(torch.float32, 1, 64)
+    qh, kh, vh = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = ops.flash_attention(qh, kh, vh, causal=True, q_offset=0)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    do[:, :, 13:] = 0
+    out.backward(do)
+    for t in (qh, kh, vh):
+        assert torch.count_nonzero(t.grad[:, :, 13:]) == 0
+        assert torch.count_nonzero(t.grad[:, :, :13]) > 0
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "none", "no_grad"])
+def test_flash_grad_fn_is_the_function_whenever_grad_is_needed(which):
+    qkv = [torch.randn(1, 2, 64, 32) for _ in range(3)]
+    if which in "qkv":
+        qkv["qkv".index(which)].requires_grad_()
+    if which == "no_grad":
+        qkv[0].requires_grad_()
+        with torch.no_grad():
+            out = ops.flash_attention(*qkv, causal=True, q_offset=0)
+    else:
+        out = ops.flash_attention(*qkv, causal=True, q_offset=0)
+    name = type(out.grad_fn).__name__ if out.grad_fn is not None else None
+    assert name == ("FlashAttentionFnBackward" if which in "qkv" else None)
+
+
 def test_mla_and_cross_stay_off_the_kernel(flash_spy):
     """MLA (v dim differs from its qk dim) and cross attention match JAX
     on the plain path."""

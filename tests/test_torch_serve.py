@@ -67,6 +67,27 @@ def test_greedy_matches_teacher_forced_forward(granite):
         assert torch.equal(logits[:, 8 + i - 1].argmax(-1), gen[:, i])
 
 
+def test_serving_a_trainers_params_builds_no_graph(granite):
+    """Parameters that require grad (a trainer's) serve the tokens their
+    detached copies serve, and neither prefill, decode nor generate
+    records a graph: the logits have no ``grad_fn``."""
+    from repro_torch.models.common import tmap
+    from repro_torch.serve import make_caches
+    p = granite
+    live = tmap(lambda t: t.detach().clone().requires_grad_(), p.tparams)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, p.tcfg.vocab, (2, 9)))
+    eng = Engine(p.tmodel, live, max_len=64)
+    logits, caches = eng.prefill({"tokens": toks},
+                                 make_caches(p.tmodel, 2, 64))
+    assert logits.grad_fn is None
+    logits, _ = eng.decode(caches, logits[:, -1].argmax(-1)[:, None], 9)
+    assert logits.grad_fn is None and not logits.requires_grad
+    got = eng.generate(toks, 5)
+    want = Engine(p.tmodel, p.tparams, max_len=64).generate(toks, 5)
+    assert torch.equal(got, want)
+
+
 def test_batched_server_buckets_and_left_pads(granite):
     p = granite
     eng = Engine(p.tmodel, p.tparams, max_len=64)

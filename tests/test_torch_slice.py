@@ -103,11 +103,19 @@ LM_SLICE = ["configs/__init__.py", "configs/granite_8b.py",
             "convert.py"]
 
 
+#: and the modules of the training slice
+TRAIN_SLICE = ["optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
+               "data/__init__.py", "data/pipeline.py", "ckpt/__init__.py",
+               "ckpt/store.py", "train/__init__.py", "train/step.py",
+               "train/loop.py", "launch/train.py"]
+
+
 def test_scans_cover_the_blocking_slice():
     scanned = {str(p.relative_to(PORT)) for p in _port_files()
                if PORT in p.parents}
     assert set(BLOCKING_SLICE) <= scanned
     assert set(LM_SLICE) <= scanned
+    assert set(TRAIN_SLICE) <= scanned
     assert list(PORT.rglob("*.c")) and all(
         p.parent.name == "stencils" for p in PORT.rglob("*.c"))
 
