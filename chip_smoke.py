@@ -75,6 +75,31 @@ followed by its seconds:
                the binding bound).  Fails when SIM resolves to a backend
                other than ``vector`` or ``ports`` disagrees with ``simple``
                at SP;
+  8. analysis — after 4c, the analysis tier of the port, from this
+               process (which holds the card's context): 8a ``lint`` on the
+               paper's three listings and the traced stencils at the
+               main-path sizes and ``machine validate`` on the bundled
+               files (exit 0, no error, no ``L000``; the findings counted
+               by severity); 8b ``python -m repro_torch analyze
+               stencil_3d_long_range.c -m H100 -p ecm -p roofline -D M 130
+               -D N 1015 --cores 132 --json`` in a child process, equal bit
+               for bit to this process's ``analyze`` (the ``--cores`` keys
+               too), then the same request through the result store
+               (``--cache-dir``) cold and warm, each in a fresh process
+               (seconds of the call and of the process), and its text
+               report; 8c ``sweep stencil_3d7pt.c --range 64 1024 8 -D M
+               512 --dense --workers 4`` through the store in this
+               process: the spawned pool's points equal the sequential
+               sweep's, and the warm run computes nothing (cold and warm
+               host seconds), then in fresh processes as a user runs it
+               (sequential, pooled cold and warm; the same gates); 8d ``tune stencil3d7pt`` (top 2 and the
+               default, in this process) through the store twice on the
+               card: the first measures on the CUDA kernel (its counter
+               moves; the chosen candidate is held against the plain
+               version), the second is one store hit with an equal report
+               and no launch, and a ``--device cpu --no-measure`` request
+               in the same directory is a miss.  ``--out`` keeps the
+               seconds under ``predicted.analysis_tier``;
   5. tune    — ``tune flash_attention`` at granite-8b's attention (32
                heads, head_dim 128, bf16, causal, batch 1, seq 4096):
                predict every candidate, measure the top 4 and the default
@@ -172,9 +197,10 @@ followed by its seconds:
                SDPA, its bound, the Function's backward and SDPA's
                forward plus backward;
      Launch counters are zeroed just before each main path (4, each
-     family of 4b, 5, 6, each model and type of 7, each config of 9a,
-     9b's serving, each config of 10a and 10b's training) and must be
-     positive just after it (in 6: bf16x3, its split, simt);
+     family of 4b, each tune of 8d, 5, 6, each model and type of 7, each
+     config of 9a, 9b's serving, each config of 10a and 10b's training)
+     and must be positive just after it (in 6: bf16x3, its split, simt;
+     in 8d's replay, zero);
   11. a JSON line naming each ported kernel (flash attention once per
      route, once per route, model and type of 7, once on 9b's serving
      path and once on 10b's training path), then the card's line, then
@@ -188,11 +214,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -255,6 +283,26 @@ TC_KERNEL = re.compile(r"_ZN\w*?(flash_attention_(?:wgmma|bf16x3)_kernel)"
                        r"ILi(\d+)ELi(\d+)ELi(\d+)E\w*")
 STENCIL_KERNEL = re.compile(r"_ZN\w*?(stencil3d7pt|longrange3d)_kernel"
                             r"ILi(\d+)E\w*")
+# phase 8: lint's sources at the main-path sizes; analyze at the paper's
+# section 3 size on all SMs (in a child process and through the store); the
+# 7-point sweep over the tune space's edges at the main path's M, sharded
+# over spawned workers; the stencil tune measuring its top 2 and default
+LINT_SOURCES = {"stencil_2d5pt.c": {"M": 130, "N": 1015},
+                "stencil_3d7pt.c": {"M": 512, "N": 512},
+                "stencil_3d_long_range.c": {"M": 130, "N": 1015},
+                "trace:stencil3d7pt": {"M": 512, "N": 512},
+                "trace:longrange3d": {"M": 130, "N": 1015}}
+ANALYZE = {"source": "stencil_3d_long_range.c", "models": ["ecm", "roofline"],
+           "constants": {"M": 130, "N": 1015}, "cores": 132}
+ANALYZE_ARGV = ["analyze", ANALYZE["source"], "-m", "H100", "-p", "ecm",
+                "-p", "roofline", "-D", "M", "130", "-D", "N", "1015",
+                "--cores", "132"]
+SWEEP = {"source": "stencil_3d7pt.c", "range": (64, 1024, 8),
+         "constants": {"M": 512}, "workers": 4}
+SWEEP_ARGV = ["sweep", SWEEP["source"], "-m", "H100", "--param", "N",
+              "--range", "64", "1024", "8", "-D", "M", "512", "--dense",
+              "--workers", "4"]
+TUNE_TOP_K = 2
 # phase 9: the reduced configs on the card (batch, tokens: prefill and
 # forward within one chunk of the reduced Mamba-2 scan, 16; decode steps;
 # cache length), and 9a's rule — the card's logits no further from the
@@ -1194,6 +1242,277 @@ def sim_and_ports(measured_ms: dict, stencil, h100, predictors, cachesim,
         res["incore"] = {label: r.to_dict() for label, r in ic.items()}
         res["ecm_lc_ports_ms"] = ports.ecm_s * 1e3
         out[name] = res
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 8: the analysis tier (lint, reports, the result store, its worker
+# pool and the tune served from the store), driven from this process,
+# which holds the card's context
+# ----------------------------------------------------------------------
+
+def cli_run(cli, argv: list) -> tuple[int, str, float]:
+    """``python -m repro_torch ARGV`` in this process: exit code, standard
+    output and host seconds."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def _normal(x):
+    """A value as it reads back from JSON (tuples become lists)."""
+    return json.loads(json.dumps(x, sort_keys=True))
+
+
+def lint_tier(cli) -> dict:
+    """8a: ``lint`` on the paper's listings and the traced stencils at the
+    main-path sizes, and ``machine validate`` on the bundled files."""
+    counts: dict[str, int] = {}
+    for src, consts in LINT_SOURCES.items():
+        defines = [a for n, v in consts.items() for a in ("-D", n, str(v))]
+        rc, out, _ = cli_run(cli, ["lint", src, "-m", "H100", "--json"]
+                             + defines)
+        rep = json.loads(out)
+        codes = [d["code"] for d in rep["diagnostics"]]
+        print(f"  lint {src} {consts}: exit {rc}, {rep['errors']} errors, "
+              f"{rep['warnings']} warnings, codes {codes}")
+        if rc != 0 or rep["errors"] or "L000" in codes:
+            raise SmokeError(f"lint {src}: exit {rc}, codes {codes}")
+        for d in rep["diagnostics"]:
+            counts[d["severity"]] = counts.get(d["severity"], 0) + 1
+    rc, out, _ = cli_run(cli, ["machine", "validate"])
+    print("  machine validate: exit", rc, "|", out.strip().replace(
+        "\n", " | "))
+    if rc != 0:
+        raise SmokeError(f"machine validate exited {rc}")
+    print(f"  findings by severity: {counts or 'none'}")
+    return counts
+
+
+def child_cli(argv: list) -> tuple[int, str, float, float]:
+    """``repro_torch.cli.main(ARGV)`` in a fresh Python process: exit code,
+    standard output, the seconds of the call in the child (no warm cache
+    of this process helps it) and the child's wall seconds.  The child's
+    main module is ``-c`` code, which spawned workers do not re-run, as
+    with ``python -m repro_torch``: its pool's children import what a
+    user's do, and no torch."""
+    code = ("import sys, time\n"
+            "from repro_torch import cli\n"
+            "t0 = time.perf_counter()\n"
+            "rc = cli.main(sys.argv[1:])\n"
+            "print(time.perf_counter() - t0, file=sys.stderr)\n"
+            "sys.exit(rc)\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code] + argv,
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    try:
+        call_s = float(proc.stderr.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        raise SmokeError(f"child {argv[:2]} failed (exit {proc.returncode})"
+                         f": {proc.stderr[-400:]}") from None
+    return proc.returncode, proc.stdout, call_s, wall
+
+
+def analyze_tier(cli, api, store: pathlib.Path) -> dict:
+    """8b: ``python -m repro_torch analyze`` in a child process against
+    this process's ``analyze``, bit for bit with the ``--cores`` keys;
+    then cold and warm through the store, each in a fresh child."""
+    want = []
+    for model in ANALYZE["models"]:
+        res = api.analyze(ANALYZE["source"], "H100", model,
+                          constants=ANALYZE["constants"],
+                          cores=ANALYZE["cores"])
+        d = res.to_dict()
+        if hasattr(res, "scaling_curve"):
+            c = ANALYZE["cores"]
+            d.update(cores=c, performance_at_cores=res.performance_flops(c),
+                     scaling_curve=res.scaling_curve(
+                         max(c, res.saturation_cores)))
+        want.append(d)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch"]
+                          + ANALYZE_ARGV + ["--json"], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0 or json.loads(proc.stdout) != _normal(want):
+        raise SmokeError(f"analyze in a child process (exit "
+                         f"{proc.returncode}) differs from this process's: "
+                         f"{proc.stderr[-400:]}")
+    print(f"  python -m repro_torch {' '.join(ANALYZE_ARGV)} --json: exit "
+          f"0 in {child_s:.2f} s, equal to this process's analyze() "
+          "bit for bit")
+    runs = [child_cli(ANALYZE_ARGV + ["--cache-dir", str(store), "--stats",
+                                      "--json"]) for _ in range(2)]
+    (rc0, out0, cold_s, cold_wall), (rc1, out1, warm_s, warm_wall) = runs
+    cold, warm = json.loads(out0), json.loads(out1)
+    svc = warm["stats"]["service"]
+    print(f"  through the store, each in a fresh process: cold "
+          f"{cold_s:.4f} s (computed {cold['stats']['service']['computed']}"
+          f"; process {cold_wall:.2f} s), warm {warm_s:.4f} s (disk hits "
+          f"{svc['disk_hits']}, computed {svc['computed']}; process "
+          f"{warm_wall:.2f} s): warm/cold {warm_s / cold_s:.3f}")
+    if (rc0, rc1) != (0, 0) or svc["computed"] or \
+            svc["disk_hits"] != len(ANALYZE["models"]) or \
+            warm["results"] != cold["results"] or \
+            cold["results"] != _normal(want):
+        raise SmokeError("analyze through the store: the warm run computed "
+                         "or differs from the cold one")
+    rc, out, _ = cli_run(cli, ANALYZE_ARGV)
+    print("  " + out.rstrip().replace("\n", "\n  "))
+    return {"child_s": child_s, "cold_s": cold_s, "warm_s": warm_s,
+            "cold_process_s": cold_wall, "warm_process_s": warm_wall}
+
+
+def sweep_tier(cli, api, store: pathlib.Path) -> dict:
+    """8c: the sweep sharded over spawned workers through the store, from
+    this process (which holds the card's context), point for point against
+    the sequential sweep, then warm from the store; then the same requests
+    in fresh processes, as a user of ``python -m repro_torch`` runs them:
+    sequential, and pooled cold and warm through a store of their own."""
+    n0, n1, step = SWEEP["range"]
+    api.clear_sessions()
+    t0 = time.perf_counter()
+    seq = api.sweep(SWEEP["source"], "H100", "N", range(n0, n1 + 1, step),
+                    constants=SWEEP["constants"], compiled=True)
+    seq_s = time.perf_counter() - t0
+    want = _normal({m: [r.to_dict() for r in rs] for m, rs in seq.items()})
+    runs = []
+    for _ in range(2):
+        api.clear_sessions()
+        rc, out, dt = cli_run(cli, SWEEP_ARGV + [
+            "--cache-dir", str(store), "--stats", "--json"])
+        runs.append((rc, json.loads(out), dt))
+    (rc0, cold, cold_s), (rc1, warm, warm_s) = runs
+    c_svc, w_svc = cold["stats"]["service"], warm["stats"]["service"]
+    print(f"  in this process: sweep over {len(want['ecm'])} points, "
+          f"{SWEEP['workers']} spawned workers (each re-running this "
+          f"script's imports, torch among them): cold {cold_s:.4f} s "
+          f"(computed {c_svc['computed']}, worker batches "
+          f"{c_svc['worker_batches']}), warm {warm_s:.4f} s (disk hits "
+          f"{w_svc['disk_hits']}, computed {w_svc['computed']}): warm/cold "
+          f"{warm_s / cold_s:.3f}; the sequential sweep {seq_s:.4f} s")
+    if (rc0, rc1) != (0, 0) or c_svc["worker_batches"] != 1 or \
+            cold["results"] != want:
+        raise SmokeError("the sharded sweep differs from the sequential one "
+                         "or never reached the worker pool")
+    if w_svc["computed"] or w_svc["disk_hits"] != w_svc["requests"] or \
+            warm["results"] != want:
+        raise SmokeError("the warm sweep computed or differs")
+    fresh = store.parent / "store_fresh"
+    shutil.rmtree(fresh, ignore_errors=True)
+    seq_argv = SWEEP_ARGV[:SWEEP_ARGV.index("--workers")] + ["--json"]
+    rc, out, fseq_s, fseq_wall = child_cli(seq_argv)
+    if rc != 0 or json.loads(out) != want:
+        raise SmokeError(f"the sequential sweep in a fresh process (exit "
+                         f"{rc}) differs from this process's")
+    runs = [child_cli(SWEEP_ARGV + ["--cache-dir", str(fresh), "--stats",
+                                    "--json"]) for _ in range(2)]
+    (rc0, out0, fcold_s, fcold_wall), (rc1, out1, fwarm_s, fwarm_wall) = runs
+    cold, warm = json.loads(out0), json.loads(out1)
+    c_svc, w_svc = cold["stats"]["service"], warm["stats"]["service"]
+    print(f"  in fresh processes: sequential {fseq_s:.4f} s (process "
+          f"{fseq_wall:.2f} s); {SWEEP['workers']} spawned workers cold "
+          f"{fcold_s:.4f} s (worker batches {c_svc['worker_batches']}; "
+          f"process {fcold_wall:.2f} s), warm {fwarm_s:.4f} s (disk hits "
+          f"{w_svc['disk_hits']}, computed {w_svc['computed']}; process "
+          f"{fwarm_wall:.2f} s): pool/sequential {fcold_s / fseq_s:.1f}, "
+          f"warm/cold {fwarm_s / fcold_s:.3f}")
+    if (rc0, rc1) != (0, 0) or c_svc["worker_batches"] != 1 or \
+            cold["results"] != want or w_svc["computed"] or \
+            w_svc["disk_hits"] != w_svc["requests"] or \
+            warm["results"] != want:
+        raise SmokeError("the pooled sweep in fresh processes differs, never "
+                         "reached the pool, or its warm run computed")
+    return {"points": len(want["ecm"]), "cold_s": cold_s, "warm_s": warm_s,
+            "sequential_s": seq_s,
+            "fresh_process": {"sequential_s": fseq_s, "cold_s": fcold_s,
+                              "warm_s": fwarm_s,
+                              "sequential_process_s": fseq_wall,
+                              "cold_process_s": fcold_wall,
+                              "warm_process_s": fwarm_wall}}
+
+
+def tune_tier(tune_mod, space, stencil, service_mod, store: pathlib.Path,
+              counters: dict) -> dict:
+    """8d: ``tune stencil3d7pt`` through the store twice on the card (in
+    this process, so that its launches are counted), then a predict-only
+    request on the CPU in the same directory, which must be a miss."""
+    name = "stencil3d7pt"
+    fam = stencil.family(name)
+    wrapper = getattr(fam.module, name)
+
+    def served(**kw):
+        svc = service_mod.AnalysisService(cache_dir=str(store))
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rep = tune_mod.tune(name, "H100", top_k=TUNE_TOP_K, isolate=False,
+                            service=svc, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        moved = {k: c.launches for k, c in counters.items()}
+        return rep, svc.stats, dt, moved
+
+    cold, cs, cold_s, c_moved = served(device="cuda")
+    print(f"  cold: {cold_s:.4f} s, computed {cs.computed}, launches "
+          f"{c_moved}")
+    if cs.computed != 1 or c_moved[name] <= 0 or \
+            cold.measured_chosen_s is None:
+        raise SmokeError(f"the cold tune computed {cs.computed} reports and "
+                         f"launched {c_moved}")
+    sp = space.resolve_space(name, "H100")
+    n = cold.chosen_params["n"]
+    out = sp.runner({"n": n}, "cuda")()
+    torch.cuda.synchronize()
+    args = stencil.make_inputs(name, sp.shape(n), "cuda")
+    err, _ = compare(name, out, fam.module.plain(*args), fam.module.RADIUS)
+    print(f"  chosen n={n} ({cold.measured_chosen_s * 1e3:.6f} ms a "
+          f"sample), held against plain: max abs err {err:.3e}")
+    warm, ws, warm_s, w_moved = served(device="cuda")
+    print(f"  warm: {warm_s:.4f} s, disk hits {ws.disk_hits}, computed "
+          f"{ws.computed}, launches {w_moved}: warm/cold "
+          f"{warm_s / cold_s:.4f}")
+    if ws.disk_hits != 1 or ws.computed or any(w_moved.values()) or \
+            warm.to_dict() != cold.to_dict():
+        raise SmokeError("the warm tune was not one store hit with an equal "
+                         "report and no launch")
+    _, ps, cpu_s, p_moved = served(device="cpu", measure=False)
+    print(f"  --device cpu --no-measure in the same directory: "
+          f"{cpu_s:.4f} s, disk hits {ps.disk_hits}, computed "
+          f"{ps.computed} (a miss), launches {p_moved}")
+    if ps.disk_hits or ps.computed != 1 or any(p_moved.values()):
+        raise SmokeError("the CPU request was served from the card's entry")
+    wrapper.launches = 0
+    return {"cold_s": cold_s, "warm_s": warm_s, "cpu_s": cpu_s,
+            "launches": c_moved[name], "chosen": cold.chosen_params,
+            "max_abs_err": err}
+
+
+def analysis_tier(counters: dict) -> dict:
+    """Phase 8: 8a lint, 8b analyze, 8c the sharded sweep through the
+    store, 8d the stencil tune served from the store on the card."""
+    from repro_torch import cli, service as service_mod
+    from repro_torch import tune as tune_mod
+    from repro_torch.core import api
+    from repro_torch.tune import space, stencil
+    store = ROOT / "build" / "chip_smoke" / "store"
+    shutil.rmtree(store, ignore_errors=True)
+    print("  8a lint")
+    out = {"lint": lint_tier(cli)}
+    print("  8b analyze")
+    out["analyze"] = analyze_tier(cli, api, store)
+    print("  8c sweep through the store and the worker pool")
+    out["sweep"] = sweep_tier(cli, api, store)
+    print("  8d tune stencil3d7pt through the store")
+    out["tune"] = tune_tier(tune_mod, space, stencil, service_mod, store,
+                            counters)
+    print(f"  store: {service_mod.ResultStore(store).summary(detail=True)}")
     return out
 
 
@@ -2423,6 +2742,15 @@ def smoke(out_path: str | None) -> int:
     predicted["sim_ports"] = sim_and_ports(
         {n: runs[n]["t_kernel"].wall_s * 1e3 for n in MAIN}, stencil, h100,
         predictors, cachesim, incore)
+
+    phase("8 the analysis tier: lint, analyze, the store and its pool")
+    counters = {n: w for n, w in wrappers.items()}
+    counters["flash_attention"] = fa.flash_attention
+    predicted["analysis_tier"] = analysis_tier(counters)
+    for e in entries:
+        if e["name"] == "stencil3d7pt":
+            e["analysis_tier_launches"] = \
+                predicted["analysis_tier"]["tune"]["launches"]
 
     phase("5 tune flash_attention at granite-8b's attention")
     counts = fa.flash_attention.launches_by_route

@@ -1,6 +1,5 @@
 """The analysis entry point of the port (the counterpart of
-``repro.core.analyze`` and ``repro.core.sweep``, without the service tier
-and lint).
+``repro.core.analyze`` and ``repro.core.sweep``).
 
     from repro_torch.core import analyze, sweep
     res = analyze("stencil_3d_long_range.c", "H100", model="ecm",
@@ -17,7 +16,11 @@ and ``stencil_2d5pt.c``), a ``@kernel_spec`` point function or a
 ``machine`` is a :class:`Machine`, a bundled short name (``"H100"``) or a
 YAML path.  Models resolve by name through the registry of
 :mod:`repro_torch.core.model_api`, and every call goes through a pooled
-memoizing :class:`~repro_torch.core.session.AnalysisSession` per machine.
+memoizing :class:`~repro_torch.core.session.AnalysisSession` per machine,
+unless ``service=`` (a :class:`repro_torch.service.AnalysisService`) routes
+it through the disk-backed, coalescing result store.  ``lint=`` runs the
+static diagnostics pass (:mod:`repro_torch.core.lint`) first, and
+``sweep(..., workers=N)`` shards a grid across a spawned process pool.
 """
 from __future__ import annotations
 
@@ -29,9 +32,6 @@ from .machine import Machine
 from .machine import load as load_machine
 from .model_api import Result
 from .session import AnalysisSession, _freeze
-
-#: what the port leaves to ROADMAP.md Queue 1, item 7 (service tier, lint)
-_NOT_PORTED = "is not ported to repro_torch yet (ROADMAP.md Queue 1, item 7)"
 
 # session pool: one memoizing session per machine description, keyed by
 # machine name (pass session= explicitly when juggling same-named variants)
@@ -100,16 +100,41 @@ def load_kernel(source: Any, constants: dict | None = None,
     return kernel
 
 
-def _refuse(service, workers: int = 0, lint: str = "off") -> None:
-    if service is not None:
-        raise ValueError(f"service= (the disk-backed result store) "
-                         f"{_NOT_PORTED}")
-    if workers and workers > 1:
-        raise ValueError(f"workers > 1 (sharded sweeps over a process pool) "
-                         f"{_NOT_PORTED}")
-    if lint != "off":
-        raise ValueError(f"lint={lint!r} (the static diagnostics pass) "
-                         f"{_NOT_PORTED}")
+#: Accepted values for ``analyze(..., lint=)`` / ``sweep(..., lint=)``.
+LINT_MODES = ("off", "warn", "error")
+
+
+def _lint_gate(kernel, mach: Machine, mode: str, **request):
+    """The pre-compute lint pass behind ``lint="warn"|"error"``: run all
+    rule families over the loaded kernel + machine + request, raise
+    :class:`~repro_torch.core.lint.LintError` for mode ``"error"`` when any
+    error-severity finding exists, and hand the report back so results
+    can carry it (``LintedResult``)."""
+    if mode not in LINT_MODES:
+        raise ValueError(
+            f"unknown lint mode {mode!r}; expected one of {list(LINT_MODES)}")
+    if mode == "off":
+        return None
+    from . import lint as lint_mod
+    report = lint_mod.lint_request(
+        kernel, mach,
+        filename=getattr(kernel, "source_path", "")
+        or getattr(kernel, "name", ""),
+        **request)
+    if mode == "error":
+        report.raise_if_errors()
+    return report
+
+
+def _attach_report(out: dict, report) -> dict:
+    """Wrap every sweep result in a ``LintedResult`` carrying ``report``
+    (sweep payloads stay pure on the cache/store paths; wrapping happens
+    on the way out)."""
+    if report is None:
+        return out
+    from .lint import LintedResult
+    return {m: [LintedResult(r, report) for r in rs]
+            for m, rs in out.items()}
 
 
 def _session(session: AnalysisSession | None, mach: Machine
@@ -142,17 +167,39 @@ def analyze(source: Any, machine: Machine | str, model: str = "ecm",
     ``backend`` (``auto``/``scalar``/``vector``) — which the session
     normalizes into its cache keys and the result records as
     ``predictor_params``.  ``incore`` names a registered in-core model
-    ('simple'/'ports').  ``lint`` and ``service`` are the JAX package's
-    switches for parts the port does not carry yet: anything but their
-    defaults raises."""
-    _refuse(service, lint=lint)
+    ('simple'/'ports').  Pass ``service=`` (an
+    :class:`repro_torch.service.AnalysisService`) to serve the request
+    through the disk-backed, coalescing service tier instead.
+
+    ``lint`` runs the static diagnostics pass (:mod:`repro_torch.core.lint`)
+    before any model computes: ``"error"`` raises
+    :class:`~repro_torch.core.lint.LintError` on error-severity findings,
+    ``"warn"`` (and ``"error"`` with only warnings) returns a
+    ``LintedResult`` whose ``to_dict()`` carries the findings under a
+    ``"diagnostics"`` key — every modeled number stays bit-for-bit
+    identical to ``lint="off"`` (the default)."""
+    if service is not None:
+        if session is not None:
+            raise ValueError("pass either session= or service=, not both")
+        return service.analyze(source, machine, model, predictor,
+                               frontend=frontend, name=name,
+                               constants=constants, cores=cores,
+                               sim_kwargs=sim_kwargs, incore=incore,
+                               lint=lint, element_bytes=element_bytes,
+                               frontend_opts=frontend_opts, **opts)
     mach = resolve_machine(machine)
     kernel = load_kernel(source, constants, element_bytes,
                          frontend=frontend, name=name,
                          **(frontend_opts or {}))
-    return _session(session, mach).analyze(
+    report = _lint_gate(kernel, mach, lint, model=model,
+                        predictor=predictor, incore=incore)
+    res = _session(session, mach).analyze(
         kernel, model, predictor=predictor, cores=cores,
         sim_kwargs=sim_kwargs, incore=incore, **opts)
+    if report is not None:
+        from .lint import LintedResult
+        return LintedResult(res, report)
+    return res
 
 
 def sweep(source: Any, machine: Machine | str, param, values=None,
@@ -178,23 +225,54 @@ def sweep(source: Any, machine: Machine | str, param, values=None,
     ``"auto"`` (default) batches eligible sweeps through the compiled
     analytic plan (:mod:`repro_torch.core.compiled`; results stay bit for
     bit identical to the per-point path), ``True`` requires it, ``False``
-    forces the per-point symbolic path."""
-    _refuse(service, workers, lint)
+    forces the per-point symbolic path.  ``service=`` routes the whole
+    sweep through an :class:`repro_torch.service.AnalysisService` (disk
+    cache + coalescing); ``workers > 1`` shards the grid across a spawned
+    process pool (:func:`repro_torch.service.sweep_sharded`) — both
+    produce ``to_dict``-identical results.  ``lint`` behaves as in
+    :func:`analyze`: the report is computed once for the whole sweep and
+    attached to every returned result."""
+    if service is not None:
+        if session is not None:
+            raise ValueError("pass either session= or service=, not both")
+        return service.sweep(source, machine, param, values, models=models,
+                             predictor=predictor, frontend=frontend,
+                             name=name, constants=constants, cores=cores,
+                             sim_kwargs=sim_kwargs, incore=incore,
+                             lint=lint, element_bytes=element_bytes,
+                             frontend_opts=frontend_opts,
+                             compiled=compiled, workers=workers, **opts)
     mach = resolve_machine(machine)
     kernel = load_kernel(source, constants, element_bytes,
                          frontend=frontend, name=name,
                          **(frontend_opts or {}))
-    return _session(session, mach).sweep(
+    report = _lint_gate(kernel, mach, lint, models=list(models),
+                        predictor=predictor, incore=incore,
+                        compiled=compiled,
+                        sweep_params=(list(param) if isinstance(param, dict)
+                                      else [str(param)]),
+                        cores_axis=AnalysisSession._cores_axis(cores)
+                        is not None)
+    if workers and workers > 1:
+        from ..service.workers import sweep_sharded
+        out = sweep_sharded(kernel, mach, param, values, models=models,
+                            predictor=predictor, cores=cores,
+                            sim_kwargs=sim_kwargs, incore=incore,
+                            compiled=compiled, workers=workers, opts=opts)
+        return _attach_report(out, report)
+    out = _session(session, mach).sweep(
         kernel, param, values, models=models, predictor=predictor,
         cores=cores, sim_kwargs=sim_kwargs, incore=incore,
         compiled=compiled, **opts)
+    return _attach_report(out, report)
 
 
 def tune(family: str, machine: Machine | str, **opts):
     """Autotune a kernel family on ``machine`` — the predict → measure →
     calibrate loop (:func:`repro_torch.tune.tune`), with the same keyword
     arguments (``config=``, ``top_k=``, ``measure=``, ``device=``,
-    ``session=``, ...); returns a :class:`repro_torch.tune.TuneReport`.
+    ``session=``, ``service=``, ...); returns a
+    :class:`repro_torch.tune.TuneReport`.
     Imported lazily: analysis-only callers never load the tuner."""
     from ..tune import tune as _tune
     return _tune(family, machine, **opts)

@@ -12,10 +12,12 @@ consume, and every frontend registers itself by name so the unified
     c         C source text / ``.c`` path              LoopKernel
     builder   LoopKernel / ``make_stencil`` kwargs     LoopKernel
     trace     Python ``@kernel_spec`` point function   LoopKernel
+    hlo       HLO text / ``.hlo`` path (stand-in)      raises
     ========  =======================================  ==========
 
-The JAX package's fourth frontend, ``hlo``, reads XLA HLO modules and
-waits for the port's graph frontend (ROADMAP.md Queue 1, item 6).  The
+The JAX package's ``hlo`` frontend reads XLA HLO modules; the port
+registers a stand-in that recognizes the same sources and raises naming
+the port's graph frontend it waits for (ROADMAP.md Queue 1, item 6).  The
 ``trace`` frontend is :mod:`repro_torch.core.trace`, registered here.
 
 The contract is :class:`KernelFrontend`: ``load(source, **opts)`` returns a
@@ -85,7 +87,8 @@ def resolve_frontend(name: str) -> KernelFrontend:
 
 
 # detection order: specific object types first, ambiguous strings last
-_DETECT_ORDER = ("builder", "trace", "c")
+# (HLO before C, as in the JAX package)
+_DETECT_ORDER = ("builder", "trace", "hlo", "c")
 
 
 def detect_frontend(source: Any) -> KernelFrontend:
@@ -154,6 +157,37 @@ class TraceFrontend(KernelFrontend):
                 f"'module:attr' reference), got {type(source).__name__}")
         return _trace.trace_kernel(source, name=name, constants=constants,
                                    **opts)
+
+
+_HLO_SUFFIXES = (".hlo", ".txt", ".hlo.gz")
+
+
+@register_frontend
+class HLOFrontend(KernelFrontend):
+    """Stand-in for the JAX package's ``hlo`` frontend: it recognizes what
+    that one recognizes (HLO text, dumps by suffix, compiled objects with
+    ``as_text``), so detection and ``frontend="hlo"`` resolve as in JAX,
+    and :meth:`load` raises naming the ROADMAP item it waits for."""
+
+    name = "hlo"
+    produces = "hlo"
+
+    def matches(self, source) -> bool:
+        if hasattr(source, "as_text") and callable(source.as_text):
+            return True
+        if isinstance(source, pathlib.Path):
+            return source.name.endswith(_HLO_SUFFIXES)
+        if isinstance(source, str):
+            if "\n" in source:
+                return "HloModule" in source or "ENTRY" in source
+            return source.endswith(_HLO_SUFFIXES)
+        return False
+
+    def load(self, source, **opts):
+        raise ValueError(
+            "the hlo frontend is not ported to repro_torch yet: it reads "
+            "XLA HLO modules and waits for the port's graph frontend "
+            "(ROADMAP.md Queue 1, item 6)")
 
 
 # importing the implementations registers them

@@ -22,6 +22,7 @@ item 6); :func:`resolve_model` names that item.
 from __future__ import annotations
 
 import abc
+import dataclasses
 from typing import Protocol, runtime_checkable
 
 from . import ecm as _ecm
@@ -29,11 +30,23 @@ from . import roofline as _roofline
 from .kernel_ir import LoopKernel
 from .machine import Machine
 
+@dataclasses.dataclass(frozen=True)
+class NotPorted:
+    """A model of the JAX package's registry that the port does not carry
+    yet: its name and the kernel kind it consumes (all that lint's cross
+    rules X301/X302 read, so a request for it draws the JAX package's
+    findings), and why it is missing."""
+    name: str
+    input_kind: str
+    why: str
+
+
 #: registry names of the JAX package that the port does not carry yet
 NOT_PORTED = {
-    "hlo-roofline": "the HLO roofline prices XLA HLO text; it waits for "
-                    "the port's graph frontend (ROADMAP.md Queue 1, "
-                    "item 6)",
+    "hlo-roofline": NotPorted(
+        "hlo-roofline", "hlo",
+        "the HLO roofline prices XLA HLO text; it waits for the port's "
+        "graph frontend (ROADMAP.md Queue 1, item 6)"),
 }
 
 
@@ -126,8 +139,8 @@ def resolve_model(name: str) -> PerformanceModel:
         return MODEL_REGISTRY[name.lower()]
     except KeyError:
         why = (f" (not ported to repro_torch yet: "
-               f"{NOT_PORTED[name.lower()]})" if name.lower() in NOT_PORTED
-               else "")
+               f"{NOT_PORTED[name.lower()].why})"
+               if name.lower() in NOT_PORTED else "")
         raise ValueError(
             f"unknown performance model {name!r}{why}; "
             f"available: {sorted(MODEL_REGISTRY)}") from None

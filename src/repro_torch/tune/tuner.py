@@ -1,12 +1,16 @@
 """The tune loop: rank analytically, measure a shortlist, derive factors.
 
-Counterpart of ``repro.tune.tuner`` without the result-store branch.
-``tune()`` is the one entry point (``python -m repro_torch tune`` and
-``repro_torch.core.api.tune`` both land here): resolve the family's
+Counterpart of ``repro.tune.tuner``.  ``tune()`` is the one entry point
+(``python -m repro_torch tune`` and ``repro_torch.core.api.tune`` both
+land here): resolve the family's
 :class:`~repro_torch.tune.space.CandidateSpace`, predict every candidate
 in one call, measure the top-k plus the shipped default on the device,
 pick the fastest measured candidate, and derive calibration factors from
-the measured/predicted ratios.
+the measured/predicted ratios.  With a
+:class:`~repro_torch.service.AnalysisService` attached, whole reports
+persist in the result store under kind ``"tune"``, keyed by the device
+they were measured on: a warm replay decodes from disk and touches no
+device.
 """
 from __future__ import annotations
 
@@ -26,10 +30,31 @@ from .space import resolve_space
 KEEP_PREDICTED = 32
 
 
+def device_key(device, measure: bool) -> str | None:
+    """The device part of a tune report's store key, where the JAX
+    package keys its ``interpret`` flag: ``"cpu"``, or the card's name as
+    ``torch.cuda.get_device_name`` gives it, so that a report measured on
+    the CPU (or by the JAX package) is never replayed as a card's.  A
+    request that measures nothing touches no device and keys ``None``."""
+    if not measure:
+        return None
+    dev = _device.resolve(device)
+    return "cpu" if dev.type == "cpu" else torch.cuda.get_device_name(dev)
+
+
+def store_key(family: str, mach: Machine, config: dict, top_k: int,
+              measure: bool, warmup: int, reps: int,
+              device: str | None) -> tuple:
+    """The result-store key of one tune request (``device`` as
+    :func:`device_key` gives it)."""
+    return ("tune", family, mach.fingerprint, tuple(sorted(config.items())),
+            int(top_k), bool(measure), int(warmup), int(reps), device)
+
+
 def tune(family: str, machine: Machine | str, *, config: dict | None = None,
          top_k: int = 4, measure: bool = True, warmup: int = 1,
          reps: int = 3, timeout_s: float = 120.0, isolate: bool = True,
-         retries: int = 1, device=None, session=None,
+         retries: int = 1, device=None, session=None, service=None,
          keep_predicted: int = KEEP_PREDICTED) -> TuneReport:
     """Autotune ``family`` on ``machine``; returns a :class:`TuneReport`.
 
@@ -45,9 +70,33 @@ def tune(family: str, machine: Machine | str, *, config: dict | None = None,
     factor folded into the predictions.  ``session`` (an
     :class:`~repro_torch.core.session.AnalysisSession` bound to
     ``machine``) shares compiled plans across repeated rankings.
+    ``service`` (an :class:`~repro_torch.service.AnalysisService`) serves
+    the whole report through its memory, coalescing and disk tiers under
+    :func:`store_key`.
     """
     mach = api.resolve_machine(machine)
     config = dict(config or {})
+    if service is not None:
+        key = store_key(family, mach, config, top_k, measure, warmup, reps,
+                        device_key(device, measure))
+        meta = {"kind": "tune", "family": family, "machine": mach.name,
+                "machine_fingerprint": mach.fingerprint,
+                "measured": bool(measure)}
+
+        def compute():
+            rep = tune(family, mach, config=config, top_k=top_k,
+                       measure=measure, warmup=warmup, reps=reps,
+                       timeout_s=timeout_s, isolate=isolate,
+                       retries=retries, device=device, session=session,
+                       keep_predicted=keep_predicted)
+            return rep, rep.to_dict()
+
+        def decode(payload):
+            try:
+                return TuneReport.from_dict(payload)
+            except (KeyError, TypeError, ValueError):
+                return None
+        return service.serve_custom(key, compute, decode, meta=meta)
     space = resolve_space(family, mach, **config)
     cands = space.candidates()
     preds = space.predict(cands, session=session)

@@ -3,7 +3,9 @@
 The paper's three C listings parse to the same ``kernel_key`` in both
 packages and give the same Listing 4 ECM line and Listing 5 layer
 conditions; detection, ``frontend=`` and ``name=`` behave as the JAX
-registry's do for the C, builder and trace frontends; the port's copies
+registry's do for the C, builder and trace frontends, and HLO sources
+detect as the JAX registry detects them, reaching the port's stand-in,
+which refuses to load them naming its ROADMAP item; the port's copies
 of the listings are byte for byte the JAX package's.
 """
 import pathlib
@@ -15,6 +17,8 @@ pytest.importorskip("jax")
 from repro.core import analyze as j_analyze  # noqa: E402
 from repro.core import layer_conditions as j_lc  # noqa: E402
 from repro.core.c_parser import parse_kernel as j_parse  # noqa: E402
+from repro.core.frontends import FRONTEND_REGISTRY as JFRONTENDS  # noqa: E402,E501
+from repro.core.frontends import detect_frontend as jdetect  # noqa: E402
 from repro.core.frontends import load_kernel as j_load  # noqa: E402
 from repro.core.identity import kernel_key as j_key  # noqa: E402
 
@@ -105,13 +109,15 @@ def test_listing5_layer_conditions_from_c(level):
 # ----------------------------------------------------------------------
 
 def test_registry_contents_and_lookup():
-    assert set(FRONTEND_REGISTRY) == {"c", "builder", "trace"}
+    assert set(FRONTEND_REGISTRY) == set(JFRONTENDS) == {
+        "c", "builder", "trace", "hlo"}
     assert resolve_frontend("C") is FRONTEND_REGISTRY["c"]
     with pytest.raises(ValueError, match=r"unknown kernel frontend.*"
-                                         r"builder.*c.*trace"):
+                                         r"builder.*c.*hlo.*trace"):
         resolve_frontend("fortran")
-    with pytest.raises(ValueError, match="unknown kernel frontend"):
-        resolve_frontend("hlo")
+    # the hlo entry is a stand-in that refuses to load, naming its item
+    with pytest.raises(ValueError, match="Queue 1, item 6"):
+        load_kernel("HloModule m", frontend="hlo")
 
 
 def test_detection():
@@ -125,8 +131,12 @@ def test_detection():
     assert detect_frontend({"name": "x"}).name == "builder"
     with pytest.raises(ValueError, match="no registered frontend"):
         detect_frontend(12345)
-    with pytest.raises(ValueError, match="no registered frontend"):
-        detect_frontend("HloModule m\nENTRY %e () -> f32[] {\n}")
+    # HLO sources detect as JAX detects them, and the stand-in refuses
+    for src in ("HloModule m\nENTRY %e () -> f32[] {\n}", "dump.hlo",
+                pathlib.Path("dump.hlo.gz"), "dump.txt"):
+        assert detect_frontend(src).name == jdetect(src).name == "hlo"
+        with pytest.raises(ValueError, match="Queue 1, item 6"):
+            load_kernel(src)
 
 
 def test_text_path_and_bare_name_agree():

@@ -110,12 +110,23 @@ TRAIN_SLICE = ["optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
                "train/loop.py", "launch/train.py"]
 
 
+#: and the modules of the analysis tier (lint, reports, the result store,
+#: its worker pool, the tuner's store branch and the command line)
+ANALYSIS_SLICE = ["core/reports.py", "core/lint/__init__.py",
+                  "core/lint/diagnostics.py", "core/lint/engine.py",
+                  "core/lint/rules_kernel.py", "core/lint/rules_machine.py",
+                  "core/lint/rules_cross.py", "service/__init__.py",
+                  "service/store.py", "service/workers.py",
+                  "service/service.py", "tune/tuner.py", "cli.py"]
+
+
 def test_scans_cover_the_blocking_slice():
     scanned = {str(p.relative_to(PORT)) for p in _port_files()
                if PORT in p.parents}
     assert set(BLOCKING_SLICE) <= scanned
     assert set(LM_SLICE) <= scanned
     assert set(TRAIN_SLICE) <= scanned
+    assert set(ANALYSIS_SLICE) <= scanned
     assert list(PORT.rglob("*.c")) and all(
         p.parent.name == "stencils" for p in PORT.rglob("*.c"))
 
