@@ -201,7 +201,24 @@ followed by its seconds:
      config of 9a, 9b's serving, each config of 10a and 10b's training)
      and must be positive just after it (in 6: bf16x3, its split, simt;
      in 8d's replay, zero);
-  11. a JSON line naming each ported kernel (flash attention once per
+  11. fleet — graph-level analysis (``repro_torch.fleet``), host only, no
+               launch: 11a ``fleet --all`` on the JAX package's two
+               machine files (by path, as YAML) into ``build/``, whose 20
+               artifacts ``scripts/fleet_gate.py``'s ``compare`` (loaded
+               by path; it imports only the standard library) holds
+               against ``benchmarks/golden/fleet/``: 20 pairs, no
+               failure, none missing; 11b ``python -m repro_torch fleet
+               --all -m H100 --cache-dir C --json`` in a fresh process
+               (its module run by ``runpy`` under a wrapper that counts
+               the module walks and reads the service's counters): ten
+               reports, each conserving and equal to this process's
+               ``FleetAnalyzer().analyze(config, "H100")``, and
+               granite-8b's rendered report; 11c the same command again:
+               ten disk hits, nothing computed, no module walked, the
+               same output, cold and warm host seconds; 11d ``analyze
+               configs/hlo/granite-8b.hlo.gz -m H100 -p hlo-roofline
+               --json``, whose terms must equal 11b's module roofline;
+  12. a JSON line naming each ported kernel (flash attention once per
      route, once per route, model and type of 7, once on 9b's serving
      path and once on 10b's training path), then the card's line, then
      ``{"ok": true, "device": {...}}`` as the last line.
@@ -2642,6 +2659,154 @@ def train_granite(fa, measure, space, h100, card: str) -> tuple:
     return entry, numbers
 
 
+# ----------------------------------------------------------------------
+# phase 11: graph-level analysis (the HLO parser, hlo-roofline and the
+# fleet analyzer), priced on the H100 file and held to the JAX goldens
+# ----------------------------------------------------------------------
+
+J_MACHINES = SRC / "repro" / "configs" / "machines"
+GOLDENS = ROOT / "benchmarks" / "golden" / "fleet"
+# ``python -m repro_torch ARGV`` run by runpy, with the fleet analyzer's
+# module walks counted and its service counters written to stderr
+FLEET_CHILD = (
+    "import json, runpy, sys, time\n"
+    "from repro_torch import fleet\n"
+    "made, walks = [], [0]\n"
+    "init, build = fleet.FleetAnalyzer.__init__, fleet.FleetAnalyzer._build\n"
+    "def _init(self, *a, **k):\n"
+    "    init(self, *a, **k)\n"
+    "    made.append(self)\n"
+    "def _build(self, *a, **k):\n"
+    "    walks[0] += 1\n"
+    "    return build(self, *a, **k)\n"
+    "fleet.FleetAnalyzer.__init__ = _init\n"
+    "fleet.FleetAnalyzer._build = _build\n"
+    "t0 = time.perf_counter()\n"
+    "try:\n"
+    "    runpy.run_module('repro_torch', run_name='__main__')\n"
+    "    rc = 0\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code\n"
+    "print(json.dumps({'seconds': time.perf_counter() - t0, "
+    "'walks': walks[0], 'service': [a.service.stats.to_dict() "
+    "for a in made]}), file=sys.stderr)\n"
+    "sys.exit(rc)\n")
+
+
+def fleet_child(argv: list) -> tuple[str, dict, float]:
+    """``python -m repro_torch ARGV`` in a fresh process under
+    ``FLEET_CHILD``: standard output, the wrapper's counters (seconds of
+    the command, module walks, service counters) and the wall seconds."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FLEET_CHILD] + argv,
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SmokeError(f"fleet child {argv} exited {proc.returncode}: "
+                         f"{proc.stderr[-600:]}")
+    return proc.stdout, json.loads(proc.stderr.strip().splitlines()[-1]), \
+        wall
+
+
+def fleet_goldens(cli, out: pathlib.Path) -> dict:
+    """11a: the 20 artifacts on the JAX package's machine files against
+    the goldens, through the gate's own ``compare``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "fleet_gate", ROOT / "scripts" / "fleet_gate.py")
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    machines = [str(J_MACHINES / "ivybridge_ep.yaml"),
+                str(J_MACHINES / "tpu_v5e.yaml")]
+    argv = ["fleet", "--all", "--out", str(out)]
+    for m in machines:
+        argv += ["-m", m]
+    rc, text, secs = cli_run(cli, argv)
+    arts = {p.name: p for p in out.glob("*.json")}
+    golds = {p.name: p for p in GOLDENS.glob("*.json")}
+    missing = sorted(set(arts) ^ set(golds))
+    fails = {n: gate.compare(json.loads(arts[n].read_text()),
+                             json.loads(golds[n].read_text()), tol=0.05)
+             for n in sorted(set(arts) & set(golds))}
+    fails = {n: f for n, f in fails.items() if f}
+    pairs = len(set(arts) & set(golds))
+    print(f"  11a fleet --all on ivybridge_ep.yaml and tpu_v5e.yaml: exit "
+          f"{rc}, {pairs} pairs against benchmarks/golden/fleet, "
+          f"{len(fails)} failing, missing {missing}, {secs:.3f} s")
+    if rc != 0 or pairs != 20 or fails or missing:
+        raise SmokeError(f"11a: fleet goldens: exit {rc}, {pairs} pairs, "
+                         f"failures {fails}, missing {missing}")
+    return {"pairs": pairs, "host_s": secs}
+
+
+def fleet_tier(cli) -> dict:
+    """Phase 11: 11a the goldens, 11b the ten bundled dumps priced on the
+    H100 file in a fresh process, 11c the same from the store, 11d one
+    module through ``analyze``."""
+    from repro_torch import fleet
+    base = ROOT / "build" / "chip_smoke" / "fleet"
+    shutil.rmtree(base, ignore_errors=True)
+    out = {"goldens": fleet_goldens(cli, base / "goldens")}
+
+    argv = ["fleet", "--all", "-m", "H100", "--out", str(base / "h100"),
+            "--cache-dir", str(base / "store"), "--json"]
+    cold_out, cold, cold_wall = fleet_child(argv)
+    reps = json.loads(cold_out)
+    t0 = time.perf_counter()
+    want = {c: fleet.FleetAnalyzer().analyze(c, "H100").to_dict()
+            for c in fleet.dump_configs()}
+    parent_s = time.perf_counter() - t0
+    got = {d["config"]: d for d in reps}
+    bad = sorted(c for c in want if got.get(c) != want[c])
+    print(f"  11b fleet --all -m H100 in a fresh process: {len(reps)} "
+          f"reports, {cold['walks']} module walks, all conserving: "
+          f"{all(d['conserved'] for d in reps)}, equal to this process's: "
+          f"{not bad} (this process: {parent_s:.3f} s for ten)")
+    if len(reps) != 10 or bad or not all(d["conserved"] for d in reps) \
+            or len(list((base / "h100").glob("*.json"))) != 10:
+        raise SmokeError(f"11b: {len(reps)} reports, differing {bad}")
+    granite = fleet.FleetReport.from_dict(got["granite-8b"])
+    print("\n".join("    " + line for line in granite.render(top=5)
+                     .splitlines()))
+
+    warm_out, warm, warm_wall = fleet_child(argv)
+    svc = warm["service"]
+    disk = sum(s["disk_hits"] for s in svc)
+    computed = sum(s["computed"] for s in svc)
+    print(f"  11c the same from the store: {disk} disk hits, {computed} "
+          f"computed, {warm['walks']} module walks, same output: "
+          f"{warm_out == cold_out}")
+    print(f"  host seconds (command / process): cold {cold['seconds']:.3f}"
+          f" / {cold_wall:.3f}, warm {warm['seconds']:.3f} / "
+          f"{warm_wall:.3f}")
+    if disk != 10 or computed or warm["walks"] or warm_out != cold_out:
+        raise SmokeError(f"11c: warm run: {disk} disk hits, {computed} "
+                         f"computed, {warm['walks']} walks")
+    out.update(cold_s=cold["seconds"], cold_wall_s=cold_wall,
+               warm_s=warm["seconds"], warm_wall_s=warm_wall,
+               granite={k: got["granite-8b"][k]
+                        for k in ("t_graph", "t_graph_serial", "bottleneck",
+                                  "bounds", "module", "totals")})
+
+    dump = SRC / "repro_torch" / "configs" / "hlo" / "granite-8b.hlo.gz"
+    rc, text, secs = cli_run(cli, ["analyze", str(dump), "-m", "H100", "-p",
+                                   "hlo-roofline", "--json"])
+    res = json.loads(text)[0] if rc == 0 else {}
+    same = res == got["granite-8b"]["module"]
+    print(f"  11d analyze granite-8b.hlo.gz -p hlo-roofline: exit {rc}, "
+          f"terms equal to 11b's module roofline: {same} (compute "
+          f"{res.get('t_compute', 0) * 1e6:.3f} us, memory "
+          f"{res.get('t_memory', 0) * 1e6:.3f} us, collective "
+          f"{res.get('t_collective', 0) * 1e6:.3f} us, bound "
+          f"{res.get('bottleneck')}; {secs:.3f} s)")
+    if not same:
+        raise SmokeError("11d: analyze's hlo-roofline differs from the "
+                         "fleet report's module roofline")
+    return out
+
+
 def smoke(out_path: str | None) -> int:
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is False: this smoke "
@@ -2886,7 +3051,12 @@ def smoke(out_path: str | None) -> int:
     entry, predicted["train"] = train_granite(fa, measure, space, h100, card)
     entries.append(entry)
 
-    phase("11 result")
+    phase("11 graph-level analysis: the fleet on the H100 file")
+    from repro_torch import cli
+    print(f"  host only, no launch; card: {card}")
+    predicted["fleet"] = fleet_tier(cli)
+
+    phase("12 result")
     result = {"kernels": entries}
     if out_path:
         pathlib.Path(out_path).parent.mkdir(parents=True, exist_ok=True)

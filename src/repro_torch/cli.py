@@ -11,8 +11,11 @@ the counterpart of ``python -m repro``:
     python -m repro_torch blocking stencil_3d_long_range.c -m H100 \
         -D M 130 -D N 1015 --grid 64 1024 8
     python -m repro_torch lint stencil_3d7pt.c -m H100 [--json|--sarif]
+    python -m repro_torch analyze configs/hlo/granite-8b.hlo.gz -m H100 \
+        -p hlo-roofline
     python -m repro_torch machine validate [PATH ...]
     python -m repro_torch cache stats --cache-dir build/cache
+    python -m repro_torch fleet --all -m H100 [--cache-dir build/cache]
     python -m repro_torch tune {flash_attention|stencil3d7pt|longrange3d} \
         -m H100 [--shape NAME VALUE]... [--top-k K] [--no-measure] \
         [--no-isolate] [--apply-calibration [YAML]] [--device cuda|cpu] \
@@ -26,11 +29,14 @@ pre-flight of ``analyze``, ``sweep`` and ``blocking``).  ``--cache-dir``
 serves results through the result store of :mod:`repro_torch.service`,
 whose entries either package reads.  Only ``tune`` touches a device: it
 measures on the card unless ``--device cpu`` is given, and
-``--no-measure`` touches none.  What the port does not carry yet exits 2
-naming its ROADMAP item: HLO sources and ``-p hlo-roofline`` (the graph
-frontend, Queue 1 item 6), and ``fleet`` (item 6 too).  The blocking
-analysis and the tuner, which import torch, load only for the subcommands
-that run them.
+``--no-measure`` touches none.  HLO dumps (the bundled ones resolve as
+``configs/hlo/<config>.hlo.gz`` from any directory) go through
+``analyze`` and ``lint`` under ``-p hlo-roofline``; ``fleet`` prices
+whole modules per op.  Two defaults of ``fleet`` differ from the JAX
+command's: its machine is the port's card (``H100``, not IVY and V5E),
+and its artifacts go under ``build/fleet``, never into the JAX harness's
+``benchmarks/out``.  The blocking analysis and the tuner, which import
+torch, load only for the subcommands that run them.
 """
 from __future__ import annotations
 
@@ -41,20 +47,13 @@ import math
 import pathlib
 import sys
 
-from .core import api, reports
-
-#: what ``fleet`` waits for
-_FLEET_NOT_PORTED = ("fleet (whole-model reports over compiled HLO "
-                     "modules) is not ported to repro_torch yet: it waits "
-                     "for the port's graph frontend (ROADMAP.md Queue 1, "
-                     "item 6)")
+from .core import LoopKernel, api, reports
 
 
 def _add_common(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("kernel",
-                    help="kernel source: .c file or trace:<module>[:attr] "
-                         "point-function reference (HLO dumps wait for "
-                         "ROADMAP.md Queue 1, item 6)")
+                    help="kernel source: .c file, HLO text/dump, or "
+                         "trace:<module>[:attr] point-function reference")
     sp.add_argument("-m", "--machine", required=True,
                     help="machine description: short name (H100), "
                          "bundled yaml name, or path")
@@ -191,8 +190,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="static diagnostics: check kernel, machine, "
                              "and request before any model runs")
     sp.add_argument("kernel",
-                    help="kernel source: .c file or trace:<module>[:attr] "
-                         "point-function reference")
+                    help="kernel source: .c file, HLO text/dump, or "
+                         "trace:<module>[:attr] point-function reference")
     sp.add_argument("-m", "--machine", required=True,
                     help="machine description: short name (H100), "
                          "bundled yaml name, or path")
@@ -206,7 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("-p", "--performance-model", action="append",
                     default=None, metavar="MODEL",
                     help="model(s) the vetted request would run "
-                         "(default ecm)")
+                         "(default: ecm for loop kernels, hlo-roofline "
+                         "for HLO dumps)")
     sp.add_argument("--cache-predictor", default="LC", choices=["LC", "SIM"],
                     help="traffic predictor the request would use "
                          "(default LC)")
@@ -232,25 +232,37 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("fleet",
                         help="whole-model bottleneck reports over compiled "
-                             "HLO modules (not ported yet: ROADMAP.md "
-                             "Queue 1, item 6)")
+                             "HLO modules: ranked top ops, bound-class mix "
+                             "(MXU/VPU/HBM/ICI: on the H100 tensor-core, "
+                             "CUDA-core, HBM and NVLink time), per-layer "
+                             "attribution")
     sp.add_argument("--config", action="append", default=None,
                     metavar="NAME",
-                    help="bundled config name or an HLO dump path; "
-                         "repeatable")
+                    help="bundled config name (src/repro_torch/configs/hlo/"
+                         "<NAME>.hlo.gz) or an HLO dump path; repeatable")
     sp.add_argument("--all", action="store_true",
-                    help="analyze every config with a checked-in HLO dump")
+                    help="analyze every config with a checked-in HLO dump "
+                         "(default when no --config is given; overrides "
+                         "--config)")
     sp.add_argument("-m", "--machine", action="append", default=None,
                     metavar="MACHINE",
-                    help="machine description (repeatable)")
+                    help="machine description (repeatable; default: the "
+                         "bundled card, H100)")
     sp.add_argument("--top", type=int, default=20, metavar="N",
                     help="ops ranked in the report (default 20)")
     sp.add_argument("--dtype", default="BF16",
-                    help="peak-flops dtype (default BF16)")
-    sp.add_argument("--out", default="-", metavar="DIR",
-                    help="write one JSON artifact per (config, machine)")
+                    help="peak-flops dtype for machines with a peak flops "
+                         "table (default BF16)")
+    sp.add_argument("--out", default="build/fleet", metavar="DIR",
+                    help="write one JSON artifact per (config, machine) "
+                         "as DIR/<config>__<machine>.json (default "
+                         "build/fleet, which .gitignore lists; '-' "
+                         "disables); scripts/fleet_gate.py --artifacts DIR "
+                         "compares them against the goldens")
     sp.add_argument("--cache-dir", default=None, metavar="DIR",
-                    help="serve reports through the result cache at DIR")
+                    help="serve reports through the disk-backed result "
+                         "cache rooted at DIR (kind 'fleet'; warm runs "
+                         "skip the module walk entirely)")
     sp.add_argument("--json", action="store_true",
                     help="emit the full report payloads as JSON")
 
@@ -564,7 +576,9 @@ def cmd_lint(args) -> int:
         except Exception as e:      # noqa: BLE001 - surfaced as diagnostic
             report = lint_mod.load_failure(args.kernel, e, kind="kernel")
         else:
-            models = args.performance_model or ["ecm"]
+            models = args.performance_model or (
+                ["ecm"] if isinstance(kernel, LoopKernel)
+                else ["hlo-roofline"])
             report = lint_mod.lint_request(
                 kernel, machine, filename=args.kernel, models=models,
                 predictor=args.cache_predictor, incore=args.incore)
@@ -633,9 +647,32 @@ def cmd_cache(args) -> int:
 
 
 def cmd_fleet(args) -> int:
-    """The JAX command's whole-model reports over compiled HLO modules,
-    which wait for the port's graph frontend: exit 2 naming the item."""
-    raise ValueError(_FLEET_NOT_PORTED)
+    """Whole-model bottleneck reports (:mod:`repro_torch.fleet`): one
+    ranked report per (config, machine), emitted as text/JSON and as the
+    per-pair artifact files ``scripts/fleet_gate.py`` diffs against the
+    goldens."""
+    from . import fleet
+    configs_ = args.config if args.config and not args.all else None
+    machines = args.machine or list(fleet.DEFAULT_MACHINES)
+    analyzer = fleet.FleetAnalyzer(cache_dir=args.cache_dir, top=args.top,
+                                   dtype=args.dtype)
+    results = analyzer.analyze_all(configs_, machines)
+    paths = []
+    if args.out and args.out != "-":
+        paths = analyzer.write_artifacts(results, machines, args.out)
+    if args.json:
+        print(json.dumps([r.to_dict() for r in results], indent=2,
+                         sort_keys=True))
+        return 0
+    for i, rep in enumerate(results):
+        if i:
+            print()
+        print(rep.render(top=min(args.top, 5)))
+    if paths:
+        print(f"\nwrote {len(paths)} artifact(s) under {args.out} "
+              f"(compare: python scripts/fleet_gate.py --artifacts "
+              f"{args.out})")
+    return 0
 
 
 def _cmd_blocking_grid(args, machine, kernel) -> int:

@@ -12,16 +12,15 @@ consume, and every frontend registers itself by name so the unified
     c         C source text / ``.c`` path              LoopKernel
     builder   LoopKernel / ``make_stencil`` kwargs     LoopKernel
     trace     Python ``@kernel_spec`` point function   LoopKernel
-    hlo       HLO text / ``.hlo`` path (stand-in)      raises
+    hlo       HLO text / path / compiled executable    HLOProgram
     ========  =======================================  ==========
 
-The JAX package's ``hlo`` frontend reads XLA HLO modules; the port
-registers a stand-in that recognizes the same sources and raises naming
-the port's graph frontend it waits for (ROADMAP.md Queue 1, item 6).  The
-``trace`` frontend is :mod:`repro_torch.core.trace`, registered here.
+The ``trace`` frontend is :mod:`repro_torch.core.trace`, registered here;
+``hlo`` is :mod:`.hlo`.
 
 The contract is :class:`KernelFrontend`: ``load(source, **opts)`` returns a
-kernel object whose ``produces`` kind tells the model layer what it is;
+kernel object whose ``produces`` kind ("loop" or "hlo") tells the model
+layer what it is;
 :func:`detect_frontend` guesses the right frontend from the source value so
 ``analyze(source, machine)`` usually needs no ``frontend=`` argument.
 """
@@ -40,7 +39,8 @@ class KernelSource(Protocol):
     memoizing session only need a structural identity.
     :class:`~repro_torch.core.kernel_ir.LoopKernel` satisfies it through
     :func:`repro_torch.core.identity.kernel_key`; non-loop kernels
-    implement ``cache_key()`` directly."""
+    (:class:`~repro_torch.core.frontends.hlo.HLOProgram`) implement
+    ``cache_key()`` directly."""
 
     def cache_key(self) -> tuple: ...
 
@@ -49,8 +49,9 @@ class KernelFrontend(abc.ABC):
     """One way of turning a source representation into a kernel object.
 
     ``name`` is the registry key; ``produces`` declares the output kind
-    ("loop" for :class:`~repro_torch.core.kernel_ir.LoopKernel`) so the
-    model layer can check compatibility before analyzing.
+    ("loop" for :class:`~repro_torch.core.kernel_ir.LoopKernel`, "hlo"
+    for HLO programs) so the model layer can check compatibility before
+    analyzing.
     """
 
     name: str = "?"
@@ -127,9 +128,15 @@ def resolve_path(source: str | pathlib.Path) -> pathlib.Path | None:
 def load_kernel(source: Any, frontend: str | None = None, **opts):
     """The one frontend entry point: resolve (or detect) a frontend and run
     it.  Returns what the frontend produces (a
-    :class:`~repro_torch.core.kernel_ir.LoopKernel`)."""
+    :class:`~repro_torch.core.kernel_ir.LoopKernel` or an HLO program)."""
     fe = resolve_frontend(frontend) if frontend else detect_frontend(source)
     return fe.load(source, **opts)
+
+
+# importing the implementations registers them, in the JAX package's
+# order (builder, c, hlo, trace)
+from . import builder, c, hlo  # noqa: E402,F401
+from .hlo import HLOProgram  # noqa: E402,F401
 
 
 @register_frontend
@@ -159,37 +166,4 @@ class TraceFrontend(KernelFrontend):
                                    **opts)
 
 
-_HLO_SUFFIXES = (".hlo", ".txt", ".hlo.gz")
-
-
-@register_frontend
-class HLOFrontend(KernelFrontend):
-    """Stand-in for the JAX package's ``hlo`` frontend: it recognizes what
-    that one recognizes (HLO text, dumps by suffix, compiled objects with
-    ``as_text``), so detection and ``frontend="hlo"`` resolve as in JAX,
-    and :meth:`load` raises naming the ROADMAP item it waits for."""
-
-    name = "hlo"
-    produces = "hlo"
-
-    def matches(self, source) -> bool:
-        if hasattr(source, "as_text") and callable(source.as_text):
-            return True
-        if isinstance(source, pathlib.Path):
-            return source.name.endswith(_HLO_SUFFIXES)
-        if isinstance(source, str):
-            if "\n" in source:
-                return "HloModule" in source or "ENTRY" in source
-            return source.endswith(_HLO_SUFFIXES)
-        return False
-
-    def load(self, source, **opts):
-        raise ValueError(
-            "the hlo frontend is not ported to repro_torch yet: it reads "
-            "XLA HLO modules and waits for the port's graph frontend "
-            "(ROADMAP.md Queue 1, item 6)")
-
-
-# importing the implementations registers them
-from . import builder, c  # noqa: E402,F401
 from ..trace import kernel_spec, trace_kernel  # noqa: E402,F401

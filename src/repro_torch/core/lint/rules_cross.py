@@ -1,6 +1,7 @@
 """Cross rules (X3xx): request combinations that are individually valid
-but jointly not (a copy of ``repro.core.lint.rules_cross``, in its words,
-which name the JAX package's HLO frontend and TPU machine).
+but jointly not (a copy of ``repro.core.lint.rules_cross``, in its words:
+X302's "TPU machine description" is one with ``peak flops``/``hbm
+bandwidth`` fields, which ``h100_sxm.yaml`` has).
 
 Every name in the request resolves against a real registry entry — an
 *unknown* name is an ordinary ``ValueError`` from the registries and
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from typing import Iterable
 
+from ..frontends.hlo import HLOProgram
 from ..kernel_ir import LoopKernel
 from .diagnostics import Diagnostic
 from .engine import LintContext, LintRule, register_rule
@@ -21,19 +23,17 @@ from .engine import LintContext, LintRule, register_rule
 def _kernel_kind(kernel) -> str | None:
     if isinstance(kernel, LoopKernel):
         return "loop"
-    if hasattr(kernel, "text"):               # HLOProgram duck type
+    if isinstance(kernel, HLOProgram):
         return "hlo"
     return None
 
 
 def _resolve_model(name):
-    from ..model_api import NOT_PORTED, resolve_model
+    from ..model_api import resolve_model
     try:
         return resolve_model(str(name))
     except ValueError:
-        # a model the port does not carry yet reads as the JAX package's;
-        # an unknown name is not ours
-        return NOT_PORTED.get(str(name).lower())
+        return None                           # unknown name: not ours
 
 
 @register_rule

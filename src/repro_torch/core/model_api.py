@@ -15,39 +15,20 @@ memoizing :class:`~repro_torch.core.session.AnalysisSession` and
 :func:`resolve_model` and feed models precomputed predictor volumes and
 in-core results so nothing is recomputed across a sweep.
 
-The port registers the three loop models.  ``hlo-roofline`` prices XLA
-HLO text and waits for a graph frontend of the port (ROADMAP.md Queue 1,
-item 6); :func:`resolve_model` names that item.
+The registry holds the JAX package's four models: the three loop models
+and ``hlo-roofline``, which prices an HLO program from the ``hlo``
+frontend against a machine file's accelerator fields.
 """
 from __future__ import annotations
 
 import abc
-import dataclasses
 from typing import Protocol, runtime_checkable
 
 from . import ecm as _ecm
+from . import hlo_analysis as _hlo
 from . import roofline as _roofline
 from .kernel_ir import LoopKernel
 from .machine import Machine
-
-@dataclasses.dataclass(frozen=True)
-class NotPorted:
-    """A model of the JAX package's registry that the port does not carry
-    yet: its name and the kernel kind it consumes (all that lint's cross
-    rules X301/X302 read, so a request for it draws the JAX package's
-    findings), and why it is missing."""
-    name: str
-    input_kind: str
-    why: str
-
-
-#: registry names of the JAX package that the port does not carry yet
-NOT_PORTED = {
-    "hlo-roofline": NotPorted(
-        "hlo-roofline", "hlo",
-        "the HLO roofline prices XLA HLO text; it waits for the port's "
-        "graph frontend (ROADMAP.md Queue 1, item 6)"),
-}
 
 
 @runtime_checkable
@@ -61,9 +42,10 @@ class PerformanceModel(abc.ABC):
     """One analytic performance model over a kernel object.
 
     ``input_kind`` declares what the model consumes — ``"loop"`` for the
-    affine :class:`LoopKernel` IR every frontend of the port produces — so
-    the session and the unified ``analyze`` entry point can check
-    frontend/model compatibility up front.
+    affine :class:`LoopKernel` IR, ``"hlo"`` for the ``hlo`` frontend's
+    :class:`~repro_torch.core.frontends.hlo.HLOProgram` — so the session
+    and the unified ``analyze`` entry point can check frontend/model
+    compatibility up front.
 
     For loop models, ``analyze`` accepts the uniform option set
     (``predictor``, ``cores``, ``sim_kwargs``) plus the shared-work
@@ -134,15 +116,63 @@ class RooflineIACAModel(RooflineModel):
     variant = "IACA"
 
 
+@register_model
+class HLORooflineModel(PerformanceModel):
+    """Kerncraft-for-XLA roofline over a compiled HLO module.
+
+    Consumes the ``hlo`` frontend's :class:`~repro_torch.core.frontends.hlo
+    .HLOProgram` instead of a loop kernel; machine constants come from the
+    accelerator fields of the machine description (``peak flops``, ``hbm
+    bandwidth``, ``ici link bandwidth``: the TPU fields of ``tpu_v5e.yaml``,
+    which ``h100_sxm.yaml`` carries too).  A machine with none of those
+    fields (an x86 cache machine like IVY) is rejected rather than silently
+    costed with v5e numbers, as is a ``dtype`` the machine has no peak for.
+    The words of the errors are the JAX package's.
+    """
+
+    name = "hlo-roofline"
+    input_kind = "hlo"
+
+    def analyze(self, program, machine: Machine,
+                dtype: str = "BF16", **opts) -> _hlo.HLORooflineResult:
+        if opts:
+            raise TypeError(
+                f"hlo-roofline got unknown options {sorted(opts)}")
+        if not hasattr(program, "text"):
+            raise TypeError(
+                "hlo-roofline consumes an HLOProgram (use the 'hlo' "
+                f"frontend), got {type(program).__name__}")
+        if not machine.peak_flops and not machine.hbm_bandwidth:
+            raise ValueError(
+                f"machine {machine.name!r} carries no TPU fields "
+                "('peak flops', 'hbm bandwidth'); hlo-roofline needs a "
+                "TPU machine description (e.g. V5E)")
+        if machine.peak_flops:
+            peak = machine.peak_flops.get(dtype.upper())
+            if peak is None:
+                raise ValueError(
+                    f"machine {machine.name!r} has no peak flops for dtype "
+                    f"{dtype!r}; available: {sorted(machine.peak_flops)}")
+        else:                         # hbm given, peak table absent
+            peak = _hlo.PEAK_FLOPS_BF16
+        ana = _hlo.analyze_hlo_text(
+            program.text, default_group=program.default_group,
+            assume_rs_rewrite=program.assume_rs_rewrite)
+        vpu_peak = machine.peak_flops.get("FP32") or _hlo.PEAK_FLOPS_FP32
+        return _hlo.roofline_result(
+            ana, program=program.name, machine_name=machine.name,
+            peak_flops=peak,
+            hbm_bandwidth=machine.hbm_bandwidth or _hlo.HBM_BW,
+            ici_bandwidth=machine.ici_link_bandwidth or _hlo.ICI_LINK_BW,
+            vpu_peak_flops=vpu_peak)
+
+
 def resolve_model(name: str) -> PerformanceModel:
     try:
         return MODEL_REGISTRY[name.lower()]
     except KeyError:
-        why = (f" (not ported to repro_torch yet: "
-               f"{NOT_PORTED[name.lower()].why})"
-               if name.lower() in NOT_PORTED else "")
         raise ValueError(
-            f"unknown performance model {name!r}{why}; "
+            f"unknown performance model {name!r}; "
             f"available: {sorted(MODEL_REGISTRY)}") from None
 
 

@@ -1,23 +1,18 @@
 """CLI-style reports mirroring the paper's Listings 4 and 5, plus the
 machine-readable JSON round-trip every result supports (a copy of
-``repro.core.reports``).
-
-The JAX package's ``hlo-roofline`` results wait for the port's graph
-frontend (ROADMAP.md Queue 1, item 6): :func:`hlo_report` and
-:func:`result_from_dict` of such a payload raise ``ValueError`` naming
-that item."""
+``repro.core.reports``)."""
 from __future__ import annotations
 
 import json
 
 from . import layer_conditions
 from .ecm import ECMResult
+from .hlo_analysis import HLORooflineResult
 from .kernel_ir import LoopKernel
 from .machine import Machine
-from .model_api import NOT_PORTED
 from .roofline import RooflineResult
 
-AnyResult = ECMResult | RooflineResult
+AnyResult = ECMResult | RooflineResult | HLORooflineResult
 
 
 def _gf(x: float) -> str:
@@ -85,11 +80,33 @@ def roofline_report(res: RooflineResult, cores: int = 1) -> str:
     return "\n".join(lines)
 
 
-def hlo_report(res) -> str:
-    """The JAX package's text report of the ``hlo-roofline`` model, which
-    the port does not carry yet."""
-    raise ValueError("no hlo-roofline report in repro_torch yet: "
-                     + NOT_PORTED["hlo-roofline"].why)
+def _eng(x: float) -> str:
+    for div, unit in ((1e12, "T"), (1e9, "G"), (1e6, "M"), (1e3, "k")):
+        if abs(x) >= div:
+            return f"{x / div:.2f} {unit}"
+    return f"{x:.2f} "
+
+
+def hlo_report(res: HLORooflineResult) -> str:
+    """Text report for the ``hlo-roofline`` model: the three roofline
+    terms plus the collective breakdown."""
+    lines = ["-" * 22 + " HLO Roofline " + "-" * 22,
+             f"program {res.program} on {res.machine}",
+             f"  MXU flops   {_eng(res.mxu_flops)}FLOP   "
+             f"(VPU {_eng(res.vpu_flops)}FLOP)",
+             f"  HBM bytes   {_eng(res.hbm_bytes)}B",
+             f"  wire bytes  {_eng(res.collective_wire_bytes)}B over "
+             f"{res.n_collectives} collectives"]
+    for kind, b in sorted(res.collective_by_kind.items()):
+        lines.append(f"      {kind:<24} {_eng(b)}B")
+    lines += [f"  T_compute    {res.t_compute * 1e6:10.3f} us",
+              f"  T_memory     {res.t_memory * 1e6:10.3f} us",
+              f"  T_collective {res.t_collective * 1e6:10.3f} us",
+              f"bound: {res.bottleneck}  "
+              f"(overlapped {res.t_total_overlapped * 1e6:.3f} us, "
+              f"serial {res.t_total_serial * 1e6:.3f} us); "
+              f"AI {res.arithmetic_intensity:.2f} FLOP/B"]
+    return "\n".join(lines)
 
 
 # ----------------------------------------------------------------------
@@ -108,8 +125,7 @@ def result_from_dict(d: dict) -> AnyResult:
     if model == "ecm":
         return ECMResult.from_dict(d)
     if model == "hlo-roofline":
-        raise ValueError("cannot rebuild an hlo-roofline result in "
-                         "repro_torch yet: " + NOT_PORTED["hlo-roofline"].why)
+        return HLORooflineResult.from_dict(d)
     if model.startswith("roofline"):
         return RooflineResult.from_dict(d)
     raise ValueError(
@@ -125,6 +141,8 @@ def text_report(res: AnyResult, cores: int = 1) -> str:
     """Dispatch to the right text renderer for any model result."""
     if isinstance(res, ECMResult):
         return ecm_report(res, cores=cores)
+    if isinstance(res, HLORooflineResult):
+        return hlo_report(res)
     if isinstance(res, RooflineResult):
         return roofline_report(res, cores=cores)
     raise TypeError(f"no text report for {type(res).__name__}")

@@ -192,8 +192,7 @@ class AnalysisSession:
         (``incore`` names the registered in-core model, defaulting to the
         session's), so several models over one kernel share both;
         non-loop models skip the predictor and in-core tiers — those
-        switches do not apply to them — but still memoize full results
-        (the port registers none yet).
+        switches do not apply to them — but still memoize full results.
         """
         m = resolve_model(model)
         if m.input_kind != "loop":

@@ -257,7 +257,8 @@ def trace_kernel(fn: Callable, spec: TraceSpec | None = None,
     if flops == "jaxpr":
         raise ValueError(
             "flops='jaxpr' (the jax.make_jaxpr recount) is not ported to "
-            "repro_torch; use flops='dag', which yields the same counts")
+            "repro_torch (ROADMAP.md Queue 1, item 6); use flops='dag', "
+            "which yields the same counts")
     if flops != "dag":
         raise ValueError(f"flops must be 'dag', got {flops!r}")
     fc = _dag_flops(rec.roots)

@@ -161,6 +161,8 @@ class AnalysisService:
                 name or frontend_opts or element_bytes is not None):
             # common hot path: an already-built kernel (bind() is cheap)
             return source.bind(**(constants or {}))
+        if callable(getattr(source, "cache_key", None)):
+            return source                   # non-loop kernel object (HLO)
         return _api.load_kernel(source, constants, element_bytes,
                                 frontend=frontend, name=name,
                                 **(frontend_opts or {}))
@@ -177,9 +179,13 @@ class AnalysisService:
                      model: str, predictor: str, cores: int,
                      sim_kwargs: dict | None, incore: str,
                      opts: dict) -> tuple:
-        # every model and frontend of the port is a loop one, so the key
-        # has the JAX package's loop shape (its non-loop shape keys HLO)
         m = resolve_model(model)
+        if m.input_kind != "loop" or not isinstance(kernel, LoopKernel):
+            # non-loop models never see predictor/incore/sim switches
+            # (mismatched kernel/model pairs key loosely here and raise
+            # in the session on the compute path)
+            return ("analyze", m.name, source_key(kernel),
+                    mach.fingerprint, freeze(opts))
         return ("analyze", m.name, kernel_key(kernel), mach.fingerprint,
                 predictor.upper(), int(cores),
                 sess.sim_key(predictor, sim_kwargs or {}),
@@ -229,8 +235,11 @@ class AnalysisService:
         ``(value, payload)`` where ``payload`` is the JSON-serializable
         form; ``decode(payload)`` rebuilds the value from a stored payload
         (return None to treat the entry as foreign/corrupt and recompute).
-        The tuner stores its reports through it (kind ``"tune"``), so a
-        warm replay decodes from disk without measuring again."""
+        The fleet analyzer serves whole-module reports through it (kind
+        ``"fleet"``), so they share the warm disk cache across configs and
+        processes, and the tuner stores its reports through it (kind
+        ``"tune"``), so a warm replay decodes from disk without measuring
+        again."""
         self._count(requests=1)
 
         def _compute():

@@ -131,19 +131,15 @@ def test_analyze_uses_the_pooled_session():
                     constants={"M": 130, "N": 100})
 
 
-@pytest.mark.parametrize("what, kwargs, match", [
-    ("service", {"service": object()}, "service="),
-    ("lint", {"lint": "warn"}, "lint='warn'"),
-])
-def test_unported_switches_name_their_roadmap_item(what, kwargs, match):
-    """The switches ``service=`` and ``lint='warn'`` (spelled as ``match``
-    in the failure messages) give the plain call's results, lint adding
-    only its empty ``diagnostics`` key, and with ``workers=2`` the
-    sequential sweep's.  The test keeps the name it had when these
-    switches raised naming the ROADMAP item that waited for them."""
+@pytest.mark.parametrize("what", ["service", "lint"])
+def test_service_and_lint_switches_give_the_plain_results(what):
+    """The switches ``service=`` and ``lint='warn'`` give the plain call's
+    results, lint adding only its empty ``diagnostics`` key, and with
+    ``workers=2`` the sequential sweep's."""
     from repro_torch.service import AnalysisService
-    if what == "service":
-        kwargs = {"service": AnalysisService()}
+    kwargs = ({"service": AnalysisService()} if what == "service"
+              else {"lint": "warn"})
+    match = {"service": "service=", "lint": "lint='warn'"}[what]
     plain = api.analyze("stencil_3d7pt.c", IVY,
                         constants={"M": 30, "N": 30}).to_dict()
     got = api.analyze("stencil_3d7pt.c", IVY, constants={"M": 30, "N": 30},
@@ -160,12 +156,20 @@ def test_unported_switches_name_their_roadmap_item(what, kwargs, match):
         f"sweep({match}..., workers=2) differs from the sequential sweep"
 
 
-def test_hlo_roofline_names_its_roadmap_item():
+def test_hlo_roofline_is_registered_as_in_jax():
+    """The port's registry holds JAX's four models, ``hlo-roofline``
+    consuming HLO programs, and an unknown name draws JAX's error."""
+    from repro.core import model_api as j_model_api
     from repro_torch.core import model_api
-    with pytest.raises(ValueError, match="item 6"):
-        model_api.resolve_model("hlo-roofline")
+    assert model_api.resolve_model("hlo-roofline").input_kind == "hlo"
     assert sorted(model_api.MODEL_REGISTRY) == \
-        ["ecm", "roofline", "roofline-iaca"]
+        sorted(j_model_api.MODEL_REGISTRY) == \
+        ["ecm", "hlo-roofline", "roofline", "roofline-iaca"]
+    with pytest.raises(ValueError) as ours:
+        model_api.resolve_model("bogus")
+    with pytest.raises(ValueError) as theirs:
+        j_model_api.resolve_model("bogus")
+    assert str(ours.value) == str(theirs.value)
 
 
 # ----------------------------------------------------------------------

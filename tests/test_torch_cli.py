@@ -6,9 +6,10 @@ Every case of ``tests/test_cli.py``, and the command-line cases of
 arguments, on the paper's Ivy Bridge file and on the H100 file (both by
 path), and must print the same output and exit with the same code.  The
 sources are the port's byte copies of the listings, passed by path to
-both.  What the port does not carry yet — HLO sources, ``-p
-hlo-roofline`` computed, ``fleet`` — exits 2 naming ROADMAP.md Queue 1,
-item 6.  A few cases run as real ``python -m`` processes.
+both; HLO sources (``-p hlo-roofline``, the lint pre-flight's X301/X302/
+X304 refusals) and ``fleet`` are held to JAX's the same way
+(``tests/test_torch_fleet.py`` holds the rest of ``fleet``).  A few cases
+run as real ``python -m`` processes.
 """
 import json
 import os
@@ -192,28 +193,50 @@ def test_cli_errors_exit_2(case, capsys):
 HLO = ("HloModule m\n\n"
        "ENTRY %main (p: f32[1024]) -> f32[1024] {\n"
        "  %p = f32[1024]{0} parameter(0)\n"
-       "  ROOT %o = f32[1024]{0} add(%p, %p)\n"
+       "  %ar = f32[1024]{0} all-reduce(%p), "
+       "replica_groups={{0,1,2,3}}, to_apply=%sum\n"
+       "  ROOT %o = f32[1024]{0} add(%ar, %ar)\n"
        "}\n")
+V5E = str(REPO / "src" / "repro" / "configs" / "machines" / "tpu_v5e.yaml")
 
 
-@pytest.mark.parametrize("argv", [
-    ["analyze", "{hlo}", "-m", IVY, "-p", "hlo-roofline"],
-    ["analyze", "{hlo}", "-m", H100, "-p", "hlo-roofline", "--json"],
-    ["blocking", "{hlo}", "-m", IVY],
-    ["sweep", "{hlo}", "-m", IVY, "--range", "1", "2", "1"],
-    ["analyze", S3D7, "-m", H100, "--frontend", "hlo"],
-    ["fleet", "--all"],
+@pytest.mark.parametrize("argv, rc", [
+    (["analyze", "{hlo}", "-m", IVY, "-p", "hlo-roofline"], 3),
+    (["analyze", "{hlo}", "-m", H100, "-p", "hlo-roofline", "--json"], 0),
+    (["blocking", "{hlo}", "-m", IVY], 3),
+    (["sweep", "{hlo}", "-m", IVY, "--range", "1", "2", "1"], 3),
+    (["analyze", S3D7, "-m", H100, "--frontend", "hlo"], 3),
+    (["fleet", "--all", "-m", H100, "--out", "-"], 0),
 ], ids=["hlo-source", "hlo-source-json", "blocking-hlo", "sweep-hlo",
         "frontend-hlo", "fleet"])
-def test_unported_cases_name_item_6(argv, tmp_path, capsys):
-    """Where JAX reads an HLO dump (the ``hlo`` frontend, ``hlo-roofline``,
-    ``blocking``'s X304, ``fleet``), the port exits 2 naming the item."""
+def test_hlo_cases_print_what_jax_prints(argv, rc, tmp_path, capsys):
+    """HLO dumps through ``analyze`` (``hlo-roofline``; X302 on Ivy
+    Bridge), ``blocking`` (X304) and ``sweep`` (X301), the ``hlo``
+    frontend forced onto a C file, and ``fleet``: the port's output and
+    exit code are JAX's."""
     path = tmp_path / "toy.hlo"
     path.write_text(HLO)
-    rc, out, err = run(cli.main, [str(path) if a == "{hlo}" else a
-                                  for a in argv], capsys)
-    assert rc == 2 and out == ""
-    assert "ROADMAP.md Queue 1, item 6" in err
+    ours, theirs = run_both([str(path) if a == "{hlo}" else a
+                             for a in argv], capsys)
+    assert ours == theirs
+    assert ours[0] == rc, ours[2]
+
+
+def test_hlo_source(tmp_path, capsys):
+    """JAX's ``test_hlo_source`` on v5e (by path) and on the H100 file:
+    the text report names the collective, the JSON round-trips."""
+    path = tmp_path / "toy.hlo"
+    path.write_text(HLO)
+    for machine in (V5E, H100):
+        argv = ["analyze", str(path), "-m", machine, "-p", "hlo-roofline"]
+        ours, theirs = run_both(argv, capsys)
+        assert ours == theirs and ours[0] == 0
+        assert "HLO Roofline" in ours[1] and "all-reduce" in ours[1]
+        ours, theirs = run_both(argv + ["--json"], capsys)
+        assert ours == theirs and ours[0] == 0
+        d = json.loads(ours[1])[0]
+        assert d["model"] == "hlo-roofline"
+        assert reports.result_from_dict(d).to_dict() == d
 
 
 # ----------------------------------------------------------------------

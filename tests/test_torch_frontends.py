@@ -3,11 +3,11 @@
 The paper's three C listings parse to the same ``kernel_key`` in both
 packages and give the same Listing 4 ECM line and Listing 5 layer
 conditions; detection, ``frontend=`` and ``name=`` behave as the JAX
-registry's do for the C, builder and trace frontends, and HLO sources
-detect as the JAX registry detects them, reaching the port's stand-in,
-which refuses to load them naming its ROADMAP item; the port's copies
-of the listings are byte for byte the JAX package's.
+registry's do for the C, builder, trace and hlo frontends (HLO sources
+load to the same ``HLOProgram`` identity, or fail with JAX's error); the
+port's copies of the listings are byte for byte the JAX package's.
 """
+import dataclasses
 import pathlib
 
 import pytest
@@ -21,12 +21,14 @@ from repro.core.frontends import FRONTEND_REGISTRY as JFRONTENDS  # noqa: E402,E
 from repro.core.frontends import detect_frontend as jdetect  # noqa: E402
 from repro.core.frontends import load_kernel as j_load  # noqa: E402
 from repro.core.identity import kernel_key as j_key  # noqa: E402
+from repro.core.identity import source_key as j_source_key  # noqa: E402
 
 from repro_torch.core import api, layer_conditions  # noqa: E402
 from repro_torch.core.c_parser import ParseError, parse_kernel  # noqa: E402
 from repro_torch.core.frontends import (FRONTEND_REGISTRY,  # noqa: E402
-                                        detect_frontend, load_kernel,
-                                        resolve_frontend, resolve_path)
+                                        HLOProgram, detect_frontend,
+                                        load_kernel, resolve_frontend,
+                                        resolve_path)
 from repro_torch.core.identity import kernel_key, source_key  # noqa: E402
 from repro_torch.core.kernel_ir import FlopCount, LoopKernel  # noqa: E402
 from repro_torch.kernels import stencil3d7pt  # noqa: E402
@@ -115,9 +117,12 @@ def test_registry_contents_and_lookup():
     with pytest.raises(ValueError, match=r"unknown kernel frontend.*"
                                          r"builder.*c.*hlo.*trace"):
         resolve_frontend("fortran")
-    # the hlo entry is a stand-in that refuses to load, naming its item
-    with pytest.raises(ValueError, match="Queue 1, item 6"):
-        load_kernel("HloModule m", frontend="hlo")
+    # the JAX package's registration order, and a real hlo frontend
+    assert list(FRONTEND_REGISTRY) == list(JFRONTENDS)
+    prog = load_kernel("HloModule m", frontend="hlo")
+    assert isinstance(prog, HLOProgram)
+    assert prog.cache_key() == j_load("HloModule m",
+                                      frontend="hlo").cache_key()
 
 
 def test_detection():
@@ -131,12 +136,19 @@ def test_detection():
     assert detect_frontend({"name": "x"}).name == "builder"
     with pytest.raises(ValueError, match="no registered frontend"):
         detect_frontend(12345)
-    # HLO sources detect as JAX detects them, and the stand-in refuses
+    # HLO sources detect as JAX detects them and load as JAX loads them:
+    # text to the same program, a missing dump to JAX's error
     for src in ("HloModule m\nENTRY %e () -> f32[] {\n}", "dump.hlo",
                 pathlib.Path("dump.hlo.gz"), "dump.txt"):
         assert detect_frontend(src).name == jdetect(src).name == "hlo"
-        with pytest.raises(ValueError, match="Queue 1, item 6"):
-            load_kernel(src)
+        try:
+            theirs = j_load(src).cache_key()
+        except FileNotFoundError as e:
+            with pytest.raises(FileNotFoundError) as ours:
+                load_kernel(src)
+            assert str(ours.value) == str(e)
+        else:
+            assert load_kernel(src).cache_key() == theirs
 
 
 def test_text_path_and_bare_name_agree():
@@ -245,3 +257,79 @@ def test_parse_errors():
         parse_kernel("double s = foo(); for (int i = 0; i < N; i++) "
                      "{ s = 1.0; }")
     assert issubclass(ParseError, ValueError)
+
+
+# ----------------------------------------------------------------------
+# the hlo frontend (tests/test_frontends.py::TestHLOFrontend)
+# ----------------------------------------------------------------------
+
+HLO = ("HloModule m\n\nENTRY %main (p: f32[8]) -> f32[8] {\n"
+       "  %p = f32[8]{0} parameter(0)\n"
+       "  ROOT %o = f32[8]{0} add(%p, %p)\n}\n")
+
+
+class FakeCompiled:
+    def as_text(self):
+        return HLO
+
+
+def test_hlo_text_and_compiled():
+    prog = load_kernel(HLO, name="toy")
+    assert isinstance(prog, HLOProgram) and prog.name == "toy"
+    assert dataclasses.asdict(prog) == dataclasses.asdict(
+        j_load(HLO, name="toy"))
+    prog2 = load_kernel(FakeCompiled(), name="toy")
+    assert prog2.cache_key() == prog.cache_key()
+    assert source_key(prog) == j_source_key(j_load(HLO, name="toy"))
+    opts = {"default_group": 4, "assume_rs_rewrite": False}
+    assert load_kernel(HLO, **opts).cache_key() == \
+        j_load(HLO, **opts).cache_key()
+
+
+@pytest.mark.parametrize("suffix", [".hlo", ".txt", ".hlo.gz"])
+def test_hlo_path(tmp_path, suffix):
+    import gzip
+    p = tmp_path / f"dump{suffix}"
+    if suffix == ".hlo.gz":
+        p.write_bytes(gzip.compress(HLO.encode()))
+    else:
+        p.write_text(HLO)
+    for src in (str(p), p):
+        prog = load_kernel(src)
+        assert prog.name == "dump" and prog.text == HLO
+        assert prog.cache_key() == j_load(src).cache_key()
+
+
+def test_hlo_bundled_dump_by_relative_path():
+    """``configs/hlo/<config>.hlo.gz`` resolves against each package's
+    root, to byte-identical dumps."""
+    prog = load_kernel("configs/hlo/granite-8b.hlo.gz")
+    assert prog.name == "granite-8b"
+    assert prog.cache_key() == j_load(
+        "configs/hlo/granite-8b.hlo.gz").cache_key()
+
+
+@pytest.mark.parametrize("kw, exc", [
+    ({"constants": {"N": 4}}, TypeError),
+    ({"element_bytes": 4}, TypeError),
+], ids=["constants", "unknown-option"])
+def test_hlo_options_rejected(kw, exc):
+    with pytest.raises(exc) as ours:
+        load_kernel(HLO, **kw)
+    with pytest.raises(exc) as theirs:
+        j_load(HLO, **kw)
+    assert str(ours.value) == str(theirs.value)
+    with pytest.raises(TypeError, match="expects HLO text"):
+        load_kernel(12345, frontend="hlo")
+
+
+def test_hlo_model_frontend_mismatch():
+    for src, model, match in ((HLO, "ecm", "consumes LoopKernel IR"),
+                              (C_7PT, "hlo-roofline",
+                               "consumes 'hlo' sources")):
+        kw = {} if src is HLO else {"constants": SIZES["stencil_3d7pt.c"]}
+        with pytest.raises(TypeError, match=match) as ours:
+            api.analyze(src, IVY, model=model, **kw)
+        with pytest.raises(TypeError) as theirs:
+            j_analyze(src, IVY, model=model, **kw)
+        assert str(ours.value) == str(theirs.value)

@@ -29,6 +29,7 @@ from repro.core import kernel_ir as j_ir  # noqa: E402
 from repro.core import lint as j_lint  # noqa: E402
 from repro.core import sweep as j_sweep  # noqa: E402
 from repro.core.c_parser import parse_kernel as j_parse  # noqa: E402
+from repro.core.frontends import load_kernel as j_load  # noqa: E402
 from repro.core.machine import Machine as JMachine  # noqa: E402
 from repro.service import AnalysisService as JService  # noqa: E402
 
@@ -36,6 +37,7 @@ from repro_torch import cli  # noqa: E402
 from repro_torch.core import (LintError, analyze, kernel_ir,  # noqa: E402
                               layer_conditions, lint, sweep)
 from repro_torch.core.c_parser import parse_kernel  # noqa: E402
+from repro_torch.core.frontends import load_kernel  # noqa: E402
 from repro_torch.core.machine import Machine  # noqa: E402
 from repro_torch.core.predictors import predict_volumes  # noqa: E402
 from repro_torch.service import AnalysisService  # noqa: E402
@@ -60,6 +62,8 @@ OOB = ("double a[N];\ndouble b[N];\n"
        "for (int i = 0; i < N; i++) {\n  b[i] = a[i + 1];\n}\n")
 RED = ("double s[1];\ndouble a[N];\n"
        "for (int i = 0; i < N; i++) {\n  s[0] = s[0] + a[i];\n}\n")
+HLO = ("HloModule m\n\nENTRY %main (p: f32[8]) -> f32[8] {\n"
+       "  ROOT %p = f32[8]{0} parameter(0)\n}\n")
 
 
 class Side:
@@ -68,6 +72,7 @@ class Side:
     def __init__(self, jax: bool):
         self.lint = j_lint if jax else lint
         self.parse = j_parse if jax else parse_kernel
+        self.load = j_load if jax else load_kernel
         self.ir = j_ir if jax else kernel_ir
         self.machine = (JMachine if jax else Machine).from_yaml
 
@@ -199,6 +204,27 @@ CASES = {
         lambda s, t: s.lint.lint_request(
             s.parse(pathlib.Path(LISTING["stencil_2d5pt.c"]).read_text()),
             s.machine(H100), models=["hlo-roofline"]), ["X301"], False),
+    "hlo-ecm-x301": (
+        lambda s, t: s.lint.lint_request(
+            s.load(HLO, name="toy"), s.machine(V5E), models=["ecm"]),
+        ["X301"], False),
+    "hlo-blocking-ivy-x302-x304": (
+        lambda s, t: s.lint.lint_request(
+            s.load(HLO, name="toy"), s.machine(IVY),
+            models=["hlo-roofline"], operation="blocking"),
+        ["X302", "X304"], False),
+    "hlo-fp64-h100-x302": (
+        lambda s, t: s.lint.lint_request(
+            s.load(HLO, name="toy"), s.machine(H100),
+            models=["hlo-roofline"], dtype="FP64"), ["X302"], False),
+    "hlo-roofline-v5e-clean": (
+        lambda s, t: s.lint.lint_request(
+            s.load(HLO, name="toy"), s.machine(V5E),
+            models=["hlo-roofline"]), [], True),
+    "hlo-roofline-h100-clean": (
+        lambda s, t: s.lint.lint_request(
+            s.load(HLO, name="toy"), s.machine(H100),
+            models=["hlo-roofline"], dtype="FP32"), [], True),
     "unknown-model-no-x3": (
         lambda s, t: s.lint.lint_request(
             s.parse(pathlib.Path(LISTING["stencil_2d5pt.c"]).read_text()),
@@ -294,16 +320,19 @@ def test_spans_point_at_the_source():
 
 
 def test_hlo_roofline_request_draws_jax_s_words():
-    """X301 and X302 fire for a model the port does not carry, in JAX's
-    words, while computing it still names its ROADMAP item."""
+    """X301 and X302 fire for ``hlo-roofline`` on a loop kernel, in JAX's
+    words, and computing it anyway draws JAX's TypeError."""
     k = parse_kernel(pathlib.Path(LISTING["stencil_2d5pt.c"]).read_text())
     rep = lint.lint_request(k, Machine.from_yaml(IVY),
                             models=["hlo-roofline"])
     x302 = next(d for d in rep.errors if d.code == "X302")
     assert x302.suggestion == "use -m V5E (or add the TPU fields)"
-    with pytest.raises(ValueError, match="item 6"):
-        analyze(LISTING["stencil_2d5pt.c"], IVY, model="hlo-roofline",
-                constants={"M": 8, "N": 8})
+    kw = dict(model="hlo-roofline", constants={"M": 8, "N": 8})
+    with pytest.raises(TypeError, match="consumes 'hlo' sources") as ours:
+        analyze(LISTING["stencil_2d5pt.c"], IVY, **kw)
+    with pytest.raises(TypeError) as theirs:
+        j_analyze(LISTING["stencil_2d5pt.c"], IVY, **kw)
+    assert str(ours.value) == str(theirs.value)
 
 
 # ----------------------------------------------------------------------
@@ -447,15 +476,20 @@ def test_lint_unreadable_source_is_diagnostic(capsys):
     assert ours[0] == 3 and "[K100]" in ours[1]
 
 
-def test_lint_hlo_source_names_item_6(tmp_path, capsys):
-    """An HLO dump loads in JAX; in the port its load failure is the
-    diagnostic (K100), naming the ROADMAP item it waits for."""
+@pytest.mark.parametrize("machine, rc", [(V5E, 0), (H100, 0), (IVY, 3)])
+def test_lint_hlo_source_as_jax(machine, rc, tmp_path, capsys):
+    """An HLO dump lints as in JAX: ``hlo-roofline`` is the default model
+    for it, clean on v5e and the H100, X302 on Ivy Bridge."""
     p = tmp_path / "toy.hlo"
-    p.write_text("HloModule m\n\nENTRY %main (p: f32[8]) -> f32[8] {\n"
-                 "  ROOT %p = f32[8]{0} parameter(0)\n}\n")
-    assert cli.main(["lint", str(p), "-m", V5E]) == 3
-    out = capsys.readouterr().out
-    assert "[K100]" in out and "item 6" in out
+    p.write_text(HLO)
+    outs = []
+    for fmt in ([], ["--json"]):
+        ours, theirs = run_both(["lint", str(p), "-m", machine] + fmt,
+                                capsys)
+        assert ours == theirs
+        assert ours[0] == rc
+        outs.append(ours[1])
+    assert ("[X302]" in outs[0]) == (machine == IVY)
 
 
 def test_machine_validate_all_bundled_clean(capsys):

@@ -120,8 +120,12 @@ def test_h100_machine_file_lints_clean():
 def test_unported_options_raise():
     with pytest.raises(ValueError, match="not ported"):
         trace.trace_kernel(stencil3d7pt.point, flops="jaxpr")
-    with pytest.raises(ValueError, match="unknown performance model"):
-        api.analyze(stencil3d7pt.point, "H100", model="hlo-roofline")
+    # hlo-roofline on a traced loop kernel: JAX's refusal, in its words
+    with pytest.raises(TypeError, match="consumes 'hlo' sources") as ours:
+        api.analyze(stencil3d7pt.point, H100, model="hlo-roofline")
+    with pytest.raises(TypeError) as theirs:
+        j_analyze(_jax_point("stencil3d7pt"), H100, model="hlo-roofline")
+    assert str(ours.value) == str(theirs.value)
     with pytest.raises(trace.TraceError, match="JAX package"):
         api.load_kernel("trace:repro.kernels.stencil3d7pt")
 

@@ -120,6 +120,13 @@ ANALYSIS_SLICE = ["core/reports.py", "core/lint/__init__.py",
                   "service/service.py", "tune/tuner.py", "cli.py"]
 
 
+#: and the modules of graph-level analysis (the HLO parser, the hlo
+#: frontend, the wire models and the fleet analyzer)
+GRAPH_SLICE = ["dist.py", "core/hlo_analysis.py", "core/frontends/hlo.py",
+               "fleet/__init__.py", "fleet/pricing.py", "fleet/report.py",
+               "fleet/analyzer.py"]
+
+
 def test_scans_cover_the_blocking_slice():
     scanned = {str(p.relative_to(PORT)) for p in _port_files()
                if PORT in p.parents}
@@ -127,6 +134,7 @@ def test_scans_cover_the_blocking_slice():
     assert set(LM_SLICE) <= scanned
     assert set(TRAIN_SLICE) <= scanned
     assert set(ANALYSIS_SLICE) <= scanned
+    assert set(GRAPH_SLICE) <= scanned
     assert list(PORT.rglob("*.c")) and all(
         p.parent.name == "stencils" for p in PORT.rglob("*.c"))
 
