@@ -196,11 +196,37 @@ followed by its seconds:
                flash call at the training shape timed beside plain,
                SDPA, its bound, the Function's backward and SDPA's
                forward plus backward;
+  13. dist  — distribution (``repro_torch.{dist,launch.mesh,launch.cell}``,
+               DTensor) after 10b's memory is freed: a process group of
+               one rank on NCCL over a file store under ``build/``, a
+               (1, 1) (data, model) mesh on the card.  13a,
+               ``compressed_psum_tree`` on granite-8b's wq (4096 x 4096,
+               float32): bit-exact to the local dequantised value, error
+               feedback telescoping over 8 repeats, its ms beside NCCL's
+               all_reduce of the same bytes alone; 13b, 10b's cell again
+               with ``Trainer(rule=rule_for(cfg, train_4k), mesh=...)``
+               (parameters, state and batches DTensors; the flash kernel
+               on each rank's (batch, head) shard under ``local_map``):
+               each step's loss and grad norm within ``SHARDED_TOL`` of
+               10b's, 64 wgmma launches and 32 backwards a step, the first
+               step's flash calls and backwards held as in 10b, ms a step,
+               tokens/s and peak memory beside 10b's, one step under
+               ``torch.profiler`` (host ms, the card's busy share, the
+               longest idle gaps), the flash call timed as the sharded
+               path makes it (``attention._flash_shards`` on DTensor
+               operands: ``local_map``, the layout copies, the kernel)
+               beside the kernel alone; 13c, ``gpipe`` at one stage over
+               4 microbatches of a granite-8b block at its published
+               widths against the block on the whole batch
+               (``GPIPE_TOL``), one flash launch a microbatch; 13d,
+               ``ckpt.save`` from the mesh and ``restore(...,
+               shardings=...)`` onto it for the reduced granite's
+               parameters and int8 AdamW state, bit for bit;
      Launch counters are zeroed just before each main path (4, each
      family of 4b, each tune of 8d, 5, 6, each model and type of 7, each
-     config of 9a, 9b's serving, each config of 10a and 10b's training)
-     and must be positive just after it (in 6: bf16x3, its split, simt;
-     in 8d's replay, zero);
+     config of 9a, 9b's serving, each config of 10a, 10b's training, 13b's
+     and 13c's) and must be positive just after it (in 6: bf16x3, its
+     split, simt; in 8d's replay, zero);
   11. fleet — graph-level analysis (``repro_torch.fleet``), host only, no
                launch: 11a ``fleet --all`` on the JAX package's two
                machine files (by path, as YAML) into ``build/``, whose 20
@@ -220,7 +246,8 @@ followed by its seconds:
                --json``, whose terms must equal 11b's module roofline;
   12. a JSON line naming each ported kernel (flash attention once per
      route, once per route, model and type of 7, once on 9b's serving
-     path and once on 10b's training path), then the card's line, then
+     path, once on 10b's training path and once on 13b's sharded one),
+     then the card's line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX or of the JAX package ``repro``; it needs the
@@ -231,6 +258,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -368,8 +396,7 @@ TRAIN_REDUCED = {"batch": 4, "seq": 16, "microbatches": 2, "lr": 1e-3}
 TRAIN_TOL = 2e-2
 # phase 10b: granite-8b at its published widths, depth cut from 36 to 8
 # layers (8 layers' 2.0 B parameters at 16 B each, 32.2 GB, fit one 80 GB
-# card; 36 layers' 133.7 GB do not, and sharding waits for ROADMAP.md
-# Queue 1 item 5), at SHAPES['train_4k']'s 4096 tokens with its global
+# card; 36 layers' 133.7 GB do not, sharded or not, on one card), at SHAPES['train_4k']'s 4096 tokens with its global
 # batch of 256 cut to 4, in 4 microbatches of 1: one warm-up step, then 4
 # timed
 TRAIN_ARCH = "granite-8b"
@@ -391,6 +418,18 @@ TRAIN = {"layers": 8, "seq": 4096, "batch": 4, "microbatches": 4,
 # nearly one-hot their gradient, dS = P ⊙ (dP - rowsum(P ⊙ dP)), is made
 # of those weights alone
 DROP = {"layers": 1, "seq": 256, "batch": 1}
+# phase 13: the compressed all-reduce on granite-8b's wq (4096 x 4096,
+# float32) and its error feedback over 8 repeats; 13b's steps against
+# 10b's, each loss and grad norm within SHARDED_TOL of 10b's, relative (at
+# one rank the sharded step runs the same local operations: both read 0.0
+# apart; the bound leaves room for a reduction's order only); gpipe at one
+# stage over 4 microbatches of 1024 tokens, each element of its output
+# within GPIPE_TOL of the block's on the whole batch, relative: one bf16
+# ulp, where cuBLAS picks another kernel for another row count (read 0.0)
+COMPRESS = {"shape": (4096, 4096), "repeats": 8}
+SHARDED_TOL = 1e-5
+GPIPE = {"batch": 4, "seq": 1024, "microbatches": 4}
+GPIPE_TOL = 2 ** -7
 DROP_TOL = 2e-2
 BF16_DROP_TOL = 0.9
 # heads per slice of the backward check's autograd through plain
@@ -2478,18 +2517,45 @@ def drop_check(fa, configs, common, lm, train) -> dict:
                     if any(w in k for w in ("wq", "wk", "wv"))}}
 
 
-def train_flash_timing(cfg, fa, space, measure, h100) -> dict:
+def settled_memory() -> int:
+    """Free what earlier phases left to the garbage collector, reset the
+    peak counter, and return the bytes still allocated: a training run's
+    peak counts them too."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def train_flash_timing(cfg, fa, space, measure, h100,
+                       what: str = "10b flash at the training shape",
+                       mesh=None, rule=None) -> dict:
     """The flash call of 10b's training, (1, 32, 4096, 128) bf16 causal,
     on seeded unit-normal operands: the kernel, plain, SDPA and the bound
     (the kernels line's numbers); the Function's backward beside SDPA's
-    forward plus backward, the yardstick."""
+    forward plus backward, the yardstick.  With ``mesh`` and ``rule`` the
+    call is the sharded path's: ``attention._flash_shards`` on DTensor
+    operands in the model's (b, s, h, d) layout, placed as ``rule`` places
+    q (``local_map``, the copies to heads-first and the kernel); the
+    kernel alone is timed beside it (``kernel_ms``)."""
     from repro_torch.kernels import ops
     shape = (1, cfg.n_heads, TRAIN["seq"], cfg.head_dim)
     q, k, v = qkv(shape, TRAIN["seq"], torch.bfloat16, SEED)
     do = qkv(shape, TRAIN["seq"], torch.bfloat16, SEED + 1)[0]
 
-    def kernel():
+    def bare():
         return ops.flash_attention(q, k, v, causal=True, q_offset=0)
+    kernel = bare
+    if mesh is not None:
+        from repro_torch.models import attention, common
+        place = common.placements(common.resolve(
+            rule, ("batch", None, "act_heads", None)), mesh)
+        dq, dk, dv = (common.distribute(t.transpose(1, 2).contiguous(),
+                                        mesh, place) for t in (q, k, v))
+
+        def kernel():
+            return attention._flash_shards(dq, dk, dv, 0, rule) \
+                .to_local().transpose(1, 2)
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
@@ -2501,6 +2567,8 @@ def train_flash_timing(cfg, fa, space, measure, h100) -> dict:
                                                          q_offset=0),
                      torch.bfloat16)
     t_fa = measure.time_cuda(kernel, warmup=2, iters=5, reps=5).wall_s * 1e3
+    t_bare = t_fa if mesh is None else measure.time_cuda(
+        bare, warmup=2, iters=5, reps=5).wall_s * 1e3
     t_plain = measure.time_cuda(lambda: fa.plain(q, k, v, q_offset=0),
                                 warmup=1, iters=1, reps=3).wall_s * 1e3
     t_sdpa = measure.time_cuda(sdpa, warmup=2, iters=5, reps=5).wall_s * 1e3
@@ -2518,8 +2586,10 @@ def train_flash_timing(cfg, fa, space, measure, h100) -> dict:
     bound = space.attention_bound(q, k, causal=True, q_offset=0,
                                   machine=h100)
     b_ms = bound.seconds * 1e3
-    print(f"  10b flash at the training shape {shape} bf16 causal, route "
-          f"{route}: kernel {t_fa:.4f} ms ({b_ms / t_fa:.1%} of its bound "
+    how = "kernel" if mesh is None else \
+        f"through _flash_shards on DTensors (kernel alone {t_bare:.4f} ms)"
+    print(f"  {what} {shape} bf16 causal, route "
+          f"{route}: {how} {t_fa:.4f} ms ({b_ms / t_fa:.1%} of its bound "
           f"{b_ms:.4f} ms by {bound.by}), plain {t_plain:.4f} ms, SDPA "
           f"{t_sdpa:.4f} ms; max abs err vs plain {err:.3e}")
     print(f"    the Function's backward (PyTorch, float32 scores, no "
@@ -2531,7 +2601,8 @@ def train_flash_timing(cfg, fa, space, measure, h100) -> dict:
             "replaces": REPLACES["flash_attention"], "launches": 0,
             "max_abs_err": err, "ms": t_fa, "plain_ms": t_plain,
             "bound_ms": b_ms, "bound_by": bound.by, "library_ms": t_sdpa,
-            "shape_q": list(shape), "backward_ms": t_bwd,
+            "shape_q": list(shape), "kernel_ms": t_bare,
+            "backward_ms": t_bwd,
             "sdpa_fwd_bwd_ms": t_sdpa_fb}
 
 
@@ -2560,7 +2631,7 @@ def train_granite(fa, measure, space, h100, card: str) -> tuple:
     trainer = train.Trainer(model, data, tcfg)
     rec = _timed_steps(trainer, fa)
     n_steps = TRAIN["warmup"] + TRAIN["timed"]
-    torch.cuda.reset_peak_memory_stats()
+    held = settled_memory()
     counts = fa.flash_attention.launches_by_route
     for r in counts:
         counts[r] = 0
@@ -2601,9 +2672,10 @@ def train_granite(fa, measure, space, h100, card: str) -> tuple:
           f"{bound['adamw_bytes'] / 1e9:.1f} GB at "
           f"{h100.hbm_bandwidth / 1e12:.2f} TB/s = {bound['adamw_ms']:.2f} "
           f"ms beside it")
-    print(f"    peak memory allocated {peak / 1e9:.2f} GB; {len(restarts)} "
-          f"restarts; wall {wall:.1f} s for {n_steps} steps; flash launches "
-          f"{launches}, backwards {backward_calls}")
+    print(f"    peak memory allocated {peak / 1e9:.2f} GB ({held / 1e9:.2f} "
+          f"GB of it held before the run); {len(restarts)} restarts; wall "
+          f"{wall:.1f} s for {n_steps} steps; flash launches {launches}, "
+          f"backwards {backward_calls}")
     if step != n_steps or restarts:
         raise SmokeError(f"10b: {len(restarts)} restarts, ended at step "
                          f"{step}")
@@ -2646,7 +2718,7 @@ def train_granite(fa, measure, space, h100, card: str) -> tuple:
     entry["max_abs_err"] = max(entry["max_abs_err"],
                                flash["unit_normal_max_abs_err"])
     numbers = {"step_ms": ms, "median_ms": med, "tokens_per_s": tps,
-               "peak_bytes": peak, "bound": bound,
+               "peak_bytes": peak, "held_bytes": held, "bound": bound,
                "losses": [m["loss"] for m in log],
                "grad_norms": [m["grad_norm"] for m in log],
                "lrs": [m["lr"] for m in log],
@@ -2657,6 +2729,334 @@ def train_granite(fa, measure, space, h100, card: str) -> tuple:
                            "host_s": pr["host_s"]},
                "drop_check": drop}
     return entry, numbers
+
+
+# ----------------------------------------------------------------------
+# phase 13: distribution on the card (world size 1, NCCL)
+# ----------------------------------------------------------------------
+
+@contextlib.contextmanager
+def nccl_world_one():
+    """A process group of one rank on NCCL, over a file store the script
+    makes under ``build/``; destroyed on the way out."""
+    import torch.distributed as dist
+    path = ROOT / "build" / "chip_smoke" / "nccl_store"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        path.unlink()
+    dist.init_process_group("nccl", store=dist.FileStore(str(path), 1),
+                            rank=0, world_size=1)
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+        if path.exists():
+            path.unlink()
+
+
+def compressed_on_card(dist_mod, mesh, measure) -> dict:
+    """13a: ``compressed_psum_tree`` over the mesh's `data` group on a
+    granite-sized gradient leaf: at one rank the mean is the local
+    dequantised value bit for bit and the residual ``x - deq``; over
+    COMPRESS['repeats'] repeats of the same gradient the error feedback
+    telescopes (the accumulated mean at least twice as close as one
+    shot, as JAX's test asserts).  Times it beside NCCL's ``all_reduce``
+    of the same bytes alone."""
+    group = mesh.get_group("data")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    g = torch.randn(COMPRESS["shape"], generator=gen, device="cuda")
+    err0 = dist_mod.CompressionState.zeros_like(g).error
+    mean, err = dist_mod.compressed_psum_tree(g, err0, group)
+    q, scale = dist_mod._quantize_int8(g + err0)
+    deq = q.to(g.dtype) * scale
+    if not (torch.equal(mean, deq) and torch.equal(err, g - deq)):
+        raise SmokeError("13a: the compressed mean at one rank is not the "
+                         "local dequantised value bit for bit")
+    one = ((mean - g).norm() / g.norm()).item()
+    acc, e = torch.zeros_like(g), err0
+    for _ in range(COMPRESS["repeats"]):
+        o, e = dist_mod.compressed_psum_tree(g, e, group)
+        acc += o
+    rel = ((acc / COMPRESS["repeats"] - g).norm() / g.norm()).item()
+    if not (one < 0.02 and rel < one / 2):
+        raise SmokeError(f"13a: error feedback: one shot {one:.3e}, "
+                         f"{COMPRESS['repeats']} repeats {rel:.3e}")
+    t_c = measure.time_cuda(lambda: dist_mod.compressed_psum_tree(
+        g, err0, group), warmup=2, iters=5, reps=5).wall_s * 1e3
+    buf = g.clone()
+    t_ar = measure.time_cuda(lambda: torch.distributed.all_reduce(
+        buf, group=group), warmup=2, iters=20, reps=5).wall_s * 1e3
+    nbytes = g.numel() * g.element_size()
+    print(f"  13a compressed_psum_tree on a {tuple(g.shape)} float32 leaf "
+          f"(granite-8b's wq, {nbytes / 1e6:.1f} MB): bit-exact to the "
+          f"local dequantised value; one shot {one:.3e} from exact, "
+          f"{COMPRESS['repeats']} repeats with error feedback {rel:.3e}; "
+          f"{t_c:.4f} ms a call, NCCL all_reduce of the same bytes alone "
+          f"{t_ar:.4f} ms (world size 1: no wire)")
+    return {"one_shot_rel": one, "repeats_rel": rel, "ms": t_c,
+            "all_reduce_ms": t_ar, "bytes": nbytes}
+
+
+def timeline(fn) -> dict:
+    """``torch.profiler`` over one call of ``fn``: the host seconds, the
+    card's busy share of the window from its first kernel's start to its
+    last one's end (the union of kernel spans), and the longest idle
+    gaps between kernels — where the card waited on the host."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in p.events() if _is_cuda(e)
+                   and not e.is_user_annotation)
+    if not spans:
+        raise SmokeError("13b profile: no kernel on the card's timeline")
+    busy, gaps, end = 0.0, [], spans[0][0]
+    for a, b in spans:
+        if a > end:
+            gaps.append(a - end)
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    window = end - spans[0][0]
+    return {"host_s": host_s, "window_us": window, "busy_us": busy,
+            "busy_share": busy / window, "kernels": len(spans),
+            "longest_gaps_us": sorted(gaps, reverse=True)[:5]}
+
+
+def train_sharded(fa, mesh, measure, space, h100, card: str,
+                  ref: dict) -> tuple:
+    """13b: 10b again — granite-8b at its published widths cut to
+    TRAIN['layers'], ``Trainer`` with ``TrainConfig``'s defaults, the same
+    seeds and batches — with ``rule=rule_for(cfg, train_4k)`` on the
+    (1, 1) mesh: the parameters, the optimizer state and the batches are
+    DTensors, and the flash kernel runs on each rank's (batch, head)
+    shard under ``local_map``.  One warm-up step and TRAIN['timed'] timed
+    ones (CUDA events); each step's loss and grad norm within
+    SHARDED_TOL of 10b's, the same flash launches and backwards a step;
+    then one step under ``torch.profiler`` (busy share, longest gaps)
+    and the flash call at the shard's shape.  Returns the kernels-line
+    entry and the numbers."""
+    from repro_torch import configs, train
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import cell
+    from repro_torch.models import common, lm
+    cfg = train_cfg(configs, TRAIN["layers"])
+    model = lm.LM(cfg)
+    rule = cell.rule_for(cfg, configs.SHAPES["train_4k"], multi_pod=False)
+    bound = train_bound(cfg, model, h100)
+    data = SyntheticLM(vocab=cfg.vocab, seq=TRAIN["seq"],
+                       global_batch=TRAIN["batch"], seed=SEED)
+    tcfg = train.TrainConfig(microbatches=TRAIN["microbatches"])
+    trainer = train.Trainer(model, data, tcfg, rule=rule, mesh=mesh)
+    rec = _timed_steps(trainer, fa)
+    n_steps = TRAIN["warmup"] + TRAIN["timed"]
+    held = settled_memory()
+    counts = fa.flash_attention.launches_by_route
+    for r in counts:
+        counts[r] = 0
+    fa.flash_attention.backward_calls = 0
+    t0 = time.perf_counter()
+    params, opt, step = trainer.run(
+        n_steps, generator=torch.Generator("cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(counts)
+    backward_calls = fa.flash_attention.backward_calls
+    peak = torch.cuda.max_memory_allocated()
+    log = [m for m in trainer.metrics_log if "loss" in m]
+    restarts = [m for m in trainer.metrics_log if m.get("event")]
+    ms = [s.elapsed_time(e) for s, e in rec["events"]]
+    med = statistics.median(ms[TRAIN["warmup"]:])
+    tps = bound["tokens"] / (med / 1e3)
+    per_step = 2 * cfg.n_layers * TRAIN["microbatches"]
+    dtensors = all(type(t).__name__ == "DTensor"
+                   for t in common.leaves(params) + common.leaves(opt))
+    print(f"  13b {cfg.name}, 10b's cell on a (1, 1) mesh under "
+          f"rule_for(train_4k) (params, state and batches DTensors: "
+          f"{dtensors}); mesh {mesh}")
+    worst = 0.0
+    for m, t, n, b, lw, gw in zip(log, ms, rec["launches"], rec["backward"],
+                                  ref["losses"], ref["grad_norms"]):
+        dl = abs(m["loss"] - lw) / abs(lw)
+        dg = abs(m["grad_norm"] - gw) / abs(gw)
+        worst = max(worst, dl, dg)
+        print(f"    step {m['step']}: {t:.1f} ms (CUDA events; host "
+              f"{m['dt'] * 1e3:.1f} ms), loss {m['loss']:.4f} (10b "
+              f"{lw:.4f}, {dl:.2e}), grad_norm {m['grad_norm']:.4f} (10b "
+              f"{gw:.4f}, {dg:.2e}); flash launches {n}, backwards {b}")
+    print(f"    timed steps: median {med:.1f} ms = {tps:,.0f} tokens/s (10b: "
+          f"{ref['median_ms']:.1f} ms = {ref['tokens_per_s']:,.0f} "
+          f"tokens/s; ratio {med / ref['median_ms']:.3f}); peak memory "
+          f"{peak / 1e9:.2f} GB, {held / 1e9:.2f} GB of it held before the "
+          f"run (10b {ref['peak_bytes'] / 1e9:.2f} GB, "
+          f"{ref['held_bytes'] / 1e9:.2f}); "
+          f"wall {wall:.1f} s for {n_steps} steps; {len(restarts)} "
+          f"restarts; flash launches {launches}, backwards "
+          f"{backward_calls}; on {card}")
+    if not dtensors or step != n_steps or restarts:
+        raise SmokeError(f"13b: DTensors {dtensors}, {len(restarts)} "
+                         f"restarts, ended at step {step}")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in log) or not worst <= SHARDED_TOL:
+        raise SmokeError(f"13b: a loss or grad norm {worst:.3e} from 10b's "
+                         f"(bound {SHARDED_TOL}), or not finite")
+    bad = [n for n in rec["launches"] if n["wgmma"] != per_step
+           or sum(n.values()) != per_step]
+    if bad or any(b != per_step // 2 for b in rec["backward"]):
+        raise SmokeError(f"13b: flash launches a step {rec['launches']} and "
+                         f"backwards {rec['backward']}, where each step "
+                         f"takes {per_step} wgmma launches and "
+                         f"{per_step // 2} backwards")
+    checks = rec["checks"]
+    flash = unit_normal_checks(fa, checks["flash"], "13b first step")
+    back = _backward_summary(checks["backward"])
+    print(f"    13b first step: {back['calls']} backwards held against "
+          f"autograd through plain, worst {back['worst_of_tol']:.3f} of the "
+          "tolerance")
+    batch = trainer._batch(step)
+    tl = timeline(lambda: trainer.step_fn(params, opt, batch, step))
+    print(f"    torch.profiler, one step: host {tl['host_s'] * 1e3:.1f} ms "
+          f"(10b's profiled step {ref['profile']['host_s'] * 1e3:.1f} ms); "
+          f"the card busy {tl['busy_us'] / 1e3:.1f} of "
+          f"{tl['window_us'] / 1e3:.1f} ms ({tl['busy_share']:.1%}) over "
+          f"{tl['kernels']} kernels; longest idle gaps "
+          f"{[round(g / 1e3, 2) for g in tl['longest_gaps_us']]} ms")
+    del params, opt, trainer, batch
+    torch.cuda.empty_cache()
+    entry = train_flash_timing(cfg, fa, space, measure, h100,
+                               "13b flash at a rank's (batch, head) shard",
+                               mesh=mesh, rule=rule)
+    entry["name"] = f"flash_attention[{TRAIN_ARCH} train, DTensor (1, 1)]"
+    entry["launches"] = launches["wgmma"]
+    entry["backward_calls"] = backward_calls
+    entry["max_abs_err"] = max(entry["max_abs_err"],
+                               flash["unit_normal_max_abs_err"])
+    numbers = {"step_ms": ms, "median_ms": med, "tokens_per_s": tps,
+               "peak_bytes": peak, "held_bytes": held,
+               "ratio_to_10b": med / ref["median_ms"],
+               "losses": [m["loss"] for m in log],
+               "grad_norms": [m["grad_norm"] for m in log],
+               "worst_from_10b": worst, "launches_per_step": rec["launches"],
+               "backwards_per_step": rec["backward"], "profile": tl,
+               "flash_checks": flash, "backward_checks": back}
+    return entry, numbers
+
+
+def gpipe_on_card(dist_mod, mesh_mod, fa) -> dict:
+    """13c: ``gpipe`` at one stage (a (1,) `pod` mesh: the permutation is
+    the identity) over GPIPE['microbatches'] microbatches: one granite-8b
+    block (attention and MLP) at its published widths, bf16, on a
+    seeded batch, against the block applied to the whole batch; the
+    flash kernel launches once a microbatch."""
+    from repro_torch import configs
+    from repro_torch.models import common, lm
+    cfg = train_cfg(configs, 1)
+    model = lm.LM(cfg)
+    params = common.materialize(model.param_recs(),
+                                torch.Generator("cuda").manual_seed(SEED))
+    ws = params["stages"][0]["blocks"]          # leading dim: 1 stage
+    st = model.stages[0]
+
+    def stage(w, h):
+        return model._group(st, w, h, None, None, None)
+    pmesh = mesh_mod._make_mesh((1,), ("pod",))
+    gen = torch.Generator("cuda").manual_seed(SEED + 2)
+    x = torch.randn(GPIPE["batch"], GPIPE["seq"], cfg.d_model,
+                    generator=gen, device="cuda").to(torch.bfloat16)
+    counts = fa.flash_attention.launches_by_route
+    with torch.no_grad():
+        for r in counts:
+            counts[r] = 0
+        y = dist_mod.gpipe(stage, pmesh, axis="pod",
+                           n_microbatches=GPIPE["microbatches"])(ws, x)
+        launches = dict(counts)
+        want = stage(common.take(ws, 0), x)
+    if y.shape != want.shape:
+        raise SmokeError(f"13c: gpipe gave {tuple(y.shape)}, the block "
+                         f"{tuple(want.shape)}")
+    diff = (y.float() - want.float()).abs()
+    err = diff.max().item()
+    top = want.float().abs().max().item()
+    off = int((diff > GPIPE_TOL * want.float().abs()).sum())
+    print(f"  13c gpipe at one stage, {GPIPE['microbatches']} microbatches "
+          f"of {tuple(x.shape)} bf16 through one {cfg.name} block (d "
+          f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}): max abs "
+          f"err {err:.3e} against the block on the whole batch (max |y| "
+          f"{top:.2f}); {int((diff > 0).sum())} elements differ, {off} by "
+          f"more than {GPIPE_TOL} of their value; flash launches "
+          f"{launches}")
+    if not torch.isfinite(y.float()).all() or off:
+        raise SmokeError(f"13c: gpipe at one stage is {err:.3e} from the "
+                         f"block, {off} elements past {GPIPE_TOL} of theirs")
+    if launches["wgmma"] != GPIPE["microbatches"]:
+        raise SmokeError(f"13c: flash launches {launches}, one a "
+                         "microbatch expected")
+    return {"max_abs_err": err, "max_abs": top, "launches": launches}
+
+
+def ckpt_on_card(mesh) -> dict:
+    """13d: the reduced granite's parameters and AdamW state (int8 moments)
+    placed on the (1, 1) mesh by its rule, saved from the mesh
+    (``ckpt.save`` gathers each DTensor) and restored onto it with
+    ``shardings=``: every leaf equal bit for bit, with its placements."""
+    from repro_torch import ckpt, configs, optim
+    from repro_torch.launch import cell
+    from repro_torch.models import common, lm
+    cfg = configs.reduced(configs.get_config(TRAIN_ARCH))
+    model = lm.LM(cfg)
+    recs = model.param_recs()
+    rule = cell.rule_for(cfg, configs.SHAPES["train_4k"], multi_pod=False)
+    ocfg = optim.OptConfig(quantize_state=True)
+    sh = {"params": cell.shard(mesh, common.spec_tree(recs, rule)),
+          "opt": cell.shard(mesh, cell.opt_specs(recs, rule, ocfg))}
+    params = common.materialize(recs,
+                                torch.Generator("cuda").manual_seed(SEED),
+                                shardings=sh["params"])
+    opt = common.tmap(lambda t, s: s.distribute(t),
+                      optim.adamw_init(params, ocfg), sh["opt"])
+    tree = {"params": params, "opt": opt}
+    where = ROOT / "build" / "chip_smoke" / "ckpt13"
+    shutil.rmtree(where, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save(where, 1, tree)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _ = ckpt.restore(where, 1, tree, shardings=sh)
+    t_restore = time.perf_counter() - t0
+    a, b = common.leaves(tree), common.leaves(back)
+    same = [torch.equal(x.full_tensor(), y.full_tensor())
+            and tuple(x.placements) == tuple(y.placements)
+            and x.dtype == y.dtype for x, y in zip(a, b)]
+    print(f"  13d {cfg.name} reduced: {len(a)} leaves (bf16 params, int8 "
+          f"moments) saved from the mesh in {t_save:.3f} s, restored onto "
+          f"it in {t_restore:.3f} s; equal bit for bit with their "
+          f"placements: {sum(same)} of {len(same)}")
+    if len(a) != len(b) or not all(same):
+        raise SmokeError("13d: a restored leaf differs from the saved one")
+    return {"leaves": len(a), "save_s": t_save, "restore_s": t_restore}
+
+
+def distribution(fa, measure, space, h100, card: str, ref: dict) -> tuple:
+    """Phase 13: a process group of one rank on NCCL, a (1, 1) mesh on
+    the card, then 13a-13d.  Returns 13b's kernels-line entry and the
+    numbers."""
+    from repro_torch import dist as dist_mod
+    from repro_torch.launch import mesh as mesh_mod
+    with nccl_world_one() as tdist:
+        mesh = mesh_mod.make_local_mesh(1, 1)
+        print(f"  NCCL process group, world size {tdist.get_world_size()}, "
+              f"backend {tdist.get_backend()}; mesh {mesh} on {card}")
+        out = {"compressed": compressed_on_card(dist_mod, mesh, measure)}
+        entry, out["train"] = train_sharded(fa, mesh, measure, space, h100,
+                                            card, ref)
+        torch.cuda.empty_cache()
+        out["gpipe"] = gpipe_on_card(dist_mod, mesh_mod, fa)
+        out["ckpt"] = ckpt_on_card(mesh)
+    return entry, out
 
 
 # ----------------------------------------------------------------------
@@ -3050,6 +3450,13 @@ def smoke(out_path: str | None) -> int:
         for arch in configs.ARCH_IDS}
     entry, predicted["train"] = train_granite(fa, measure, space, h100, card)
     entries.append(entry)
+    torch.cuda.empty_cache()
+
+    phase("13 distribution on the card: NCCL at world size 1")
+    entry, predicted["distribution"] = distribution(
+        fa, measure, space, h100, card, predicted["train"])
+    entries.append(entry)
+    torch.cuda.empty_cache()
 
     phase("11 graph-level analysis: the fleet on the H100 file")
     from repro_torch import cli

@@ -12,9 +12,15 @@ named ``"bfloat16"`` in the manifest.
 Writes go to a tmp directory that is renamed into place, so a crash
 mid-save never corrupts the latest complete checkpoint.  ``AsyncSaver``
 copies the tensors to the host, then writes on a background thread.
-Restoring onto a mesh (JAX's ``shardings=``) waits for the port's
-distribution slice (ROADMAP.md Queue 1, item 5); :func:`restore` takes
-a device.
+
+Sharded leaves (DTensors): each leaf is written whole.  JAX's single
+controller gathers a sharded array to the host; here every rank runs
+``save`` (SPMD), every rank gathers each leaf (``full_tensor()``, a
+collective), rank 0 writes and the others wait at a barrier.
+:func:`restore` with ``shardings`` (a tree of
+:class:`~repro_torch.models.common.Sharding`) puts each leaf onto its
+mesh and placements whatever mesh wrote it — elastic re-sharding: every
+rank reads the file and keeps its shard.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .. import device as _device
 from ..models.common import tmap
@@ -79,8 +87,35 @@ def _to_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _gathered(tree):
+    """``tree`` with each DTensor leaf gathered whole (a collective every
+    rank takes part in), and whether there was one."""
+    sharded = any(isinstance(v, DTensor) for v in flatten(tree).values())
+    return tmap(lambda v: v.full_tensor() if isinstance(v, DTensor)
+                else v, tree), sharded
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(directory, step: int, tree, extra: dict | None = None
          ) -> pathlib.Path:
+    """Write ``tree`` as step ``step``.  With DTensor leaves every rank
+    calls this: each leaf is gathered, rank 0 writes, and every rank
+    returns once the step directory is in place."""
+    tree, sharded = _gathered(tree)
+    final = pathlib.Path(directory) / f"step_{step:08d}"
+    if _writer():
+        _write(directory, step, tree, extra)
+    if sharded:
+        dist.barrier()
+    return final
+
+
+def _write(directory, step: int, tree, extra: dict | None
+           ) -> pathlib.Path:
     directory = pathlib.Path(directory)
     final = directory / f"step_{step:08d}"
     tmp = directory / f".tmp_step_{step:08d}"
@@ -110,23 +145,30 @@ def latest_step(directory) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(directory, step: int, template, device=None):
+def restore(directory, step: int, template, shardings=None, device=None):
     """Restore into the structure of ``template`` (a tree of tensors or
-    arrays keyed as at save time).  Each leaf goes to ``device``, or to
-    its template leaf's device when None (the CPU for an array).  Returns
+    arrays keyed as at save time).  With ``shardings`` (a tree of
+    :class:`~repro_torch.models.common.Sharding` matching ``template``)
+    each leaf is placed on its mesh and placements — the elastic
+    re-shard path.  Otherwise each leaf goes to ``device``, or to its
+    template leaf's device when None (the CPU for an array).  Returns
     ``(tree, manifest)``."""
     directory = pathlib.Path(directory) / f"step_{step:08d}"
     with open(directory / "manifest.json") as f:
         manifest = json.load(f)
     meta = manifest["leaves"]
+    places = flatten(shardings) if shardings is not None else {}
     values = {}
     for key, tmpl in flatten(template).items():
         if key not in meta:
             raise KeyError(f"checkpoint missing leaf {key}")
-        dev = (_device.resolve(device) if device is not None
+        sh = places.get(key)
+        dev = ("cpu" if sh is not None
+               else _device.resolve(device) if device is not None
                else tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu")
-        values[key] = _to_tensor(np.load(directory / (key + ".npy")),
-                                 meta[key]["dtype"], dev)
+        t = _to_tensor(np.load(directory / (key + ".npy")),
+                       meta[key]["dtype"], dev)
+        values[key] = sh.distribute(t) if sh is not None else t
     return _unflatten(template, values), manifest
 
 
@@ -137,19 +179,29 @@ class AsyncSaver:
     def __init__(self, directory):
         self.directory = pathlib.Path(directory)
         self._thread: threading.Thread | None = None
+        self._sharded = False
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            dist.barrier()
 
     def submit(self, step: int, tree, extra: dict | None = None):
+        """Copy ``tree`` to the host now and write it in the background.
+        With DTensor leaves every rank calls this (each leaf is gathered
+        here), rank 0 writes, and :meth:`wait` holds every rank until the
+        write has landed."""
         self.wait()
-        # copy to the host before handing to the thread: the optimizer
-        # updates the live tensors in place
+        # gather and copy to the host before handing to the thread: the
+        # optimizer updates the live tensors in place
+        tree, self._sharded = _gathered(tree)
         host_tree = tmap(lambda v: v.detach().to("cpu", copy=True)
                          if isinstance(v, torch.Tensor) else v, tree)
-        self._thread = threading.Thread(
-            target=save, args=(self.directory, step, host_tree, extra),
-            daemon=True)
-        self._thread.start()
+        if _writer():
+            self._thread = threading.Thread(
+                target=_write, args=(self.directory, step, host_tree, extra),
+                daemon=True)
+            self._thread.start()

@@ -3,15 +3,19 @@ configs, ``source`` noted per file) plus the shape grid.
 
 Counterpart of ``repro.configs``: ``get_config(name)`` resolves an arch id
 (dashes ok) to its :class:`ArchConfig`; :func:`reduced` produces the
-family-preserving smoke-test config.  ``input_specs`` (the dry-run's
-stand-in inputs) waits for the port's dry-run (ROADMAP.md Queue 1,
-item 6) and raises.  The directory also holds ``stencils/*.c``, the
-paper's listings, which the C frontend resolves by path.
+family-preserving smoke-test config; :func:`input_specs` gives one
+step's batch as meta-device tensors (shapes and types, no storage), as
+``launch.cell.build_cell`` needs them.  The dry run that lowers a cell
+against them is the rest of ROADMAP.md Queue 1 item 6.  The directory
+also holds ``stencils/*.c``, the paper's listings, which the C frontend
+resolves by path.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 from ..models.mamba2 import SSMConfig
 from ..models.moe import MoEConfig
@@ -198,8 +202,33 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     return dataclasses.replace(cfg, **kw)
 
 
+# ----------------------------------------------------------------------
+# Input specs (meta-device tensors; never allocate)
+# ----------------------------------------------------------------------
 def input_specs(cfg: ArchConfig, shape: ShapeSpec | str) -> dict:
-    """The dry-run's stand-in inputs: not ported yet."""
-    raise NotImplementedError(
-        "input_specs builds the dry-run's stand-in inputs, which wait for "
-        "the port's dry-run (ROADMAP.md Queue 1, item 6)")
+    """Batch stand-ins for one step of the given shape, on the meta
+    device with JAX's shapes and types.
+
+    Modality frontends are stubs, as in JAX: ``[vlm]`` supplies
+    precomputed patch embeddings, ``[audio]`` precomputed conv-frame
+    embeddings, both as extra batch entries.
+    """
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    b = shape.batch
+
+    def tok(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+    if shape.kind == "train":
+        out = {"tokens": tok((b, shape.seq), torch.int32),
+               "labels": tok((b, shape.seq), torch.int32)}
+    elif shape.kind == "prefill":
+        out = {"tokens": tok((b, shape.seq), torch.int32)}
+    else:  # decode: one new token against a seq-length KV cache
+        out = {"tokens": tok((b, 1), torch.int32)}
+    if cfg.n_img_tokens and shape.kind != "decode":
+        out["patch_embeds"] = tok((b, cfg.n_img_tokens, cfg.d_model),
+                                  torch.bfloat16)
+    if cfg.encdec and shape.kind != "decode":
+        out["frames"] = tok((b, cfg.enc_len, cfg.d_model), torch.bfloat16)
+    return out

@@ -340,10 +340,13 @@ def fit_blocks(seq_q: int, seq_kv: int, block_q: int, block_kv: int,
     for float32) is taken wherever one divides the lengths at
     ``head_dim`` (:func:`_tc_pair`).  Otherwise:
     clamp the blocks to the lengths, halve each until it divides its
-    length, then halve ``block_kv``, then ``block_q``, while the pair does
-    not fit :func:`launch_limits`.  With blocks of the form
-    ``GRANULE * 2**k`` and lengths that are multiples of :data:`GRANULE`
-    the result launches; raises ``ValueError`` when no pair does."""
+    length, then step ``block_kv`` down, then ``block_q``, while the pair
+    does not fit :func:`launch_limits`.  A step halves a block while it
+    stays a multiple of :data:`GRANULE`, else takes the next smaller
+    multiple of :data:`GRANULE` that divides the length (a length with
+    an odd factor, such as ``116 = 4 * 29``, leaves a block that cannot
+    halve).  With lengths that are multiples of :data:`GRANULE` the
+    result launches; raises ``ValueError`` when no pair does."""
     pair = _tc_pair(seq_q, seq_kv, block_q, block_kv, head_dim, dtype)
     if pair is not None:
         return pair
@@ -357,10 +360,16 @@ def fit_blocks(seq_q: int, seq_kv: int, block_q: int, block_kv: int,
     def fits(a: int, b: int) -> bool:
         return launch_limits(a, b, head_dim, dtype).ok
 
-    while not fits(bq, bkv) and bkv % (2 * GRANULE) == 0:
-        bkv //= 2
-    while not fits(bq, bkv) and bq % (2 * GRANULE) == 0:
-        bq //= 2
+    def down(b: int, n: int) -> int | None:
+        if b % (2 * GRANULE) == 0:
+            return b // 2
+        return max((c for c in range(GRANULE, b, GRANULE) if n % c == 0),
+                   default=None)
+
+    while not fits(bq, bkv) and (nxt := down(bkv, seq_kv)) is not None:
+        bkv = nxt
+    while not fits(bq, bkv) and (nxt := down(bq, seq_q)) is not None:
+        bq = nxt
     lim = launch_limits(bq, bkv, head_dim, dtype)
     if not lim.ok:
         raise ValueError(f"no launchable blocks for seq_q={seq_q}, "

@@ -35,6 +35,16 @@ would disagree with decode on the plain path.
 Nothing catches a failed build or launch to carry on with the plain path.
 Caches are updated in place (a layer's cache leaves are views of the
 stacked cache tensors) and returned.
+
+Under a sharding ``rule`` (DTensor activations) q, k and v are
+constrained to batch over the batch axes and heads over `model`, as in
+JAX, and :func:`flash` runs the kernel on each rank's local (batch,
+head) shard under ``local_map``: the kernel takes raw pointers, which a
+DTensor has none of, and attention is local per (batch, head), so the
+shards' results are the whole result.  The kv-head broadcast happens on
+the shard, which is exact when the `model` size divides the kv heads
+(contiguous head blocks keep query head n on kv head n // g); a mesh
+where it does not is refused.
 """
 from __future__ import annotations
 
@@ -43,8 +53,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
+
 from ..kernels import ops
-from .common import PRec, einsum, pad_heads, rms_norm, rope
+from .common import PRec, constrain, einsum, pad_heads, placements, resolve
+from .common import rms_norm, rope
 from .mlp import norm
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
@@ -193,13 +207,16 @@ def _round_rows(n: int) -> int:
     return -(-n // FLASH_ROWS) * FLASH_ROWS
 
 
-def flash(q, k, v, q_offset: int) -> torch.Tensor:
+def flash(q, k, v, q_offset: int, rule=None) -> torch.Tensor:
     """Causal attention on the flash kernel.  q: (b, sq, h, d); k, v:
     (b, skv, kvh, d) — the in-call keys (``q_offset`` 0, skv = sq) or a
     ``max_len`` cache holding them at ``q_offset`` — whose kv heads are
     broadcast to q's; q's first row sits at position ``q_offset``.  Only
     the first ``q_offset + sq`` kv rows, rounded up, reach the kernel.
-    Returns (b, sq, h, d)."""
+    Returns (b, sq, h, d).  DTensor operands (under ``rule``) run on each
+    rank's (batch, head) shard (module docstring)."""
+    if isinstance(q, DTensor):
+        return _flash_shards(q, k, v, q_offset, rule)
     b, sq, h, d = q.shape
     g = h // k.shape[2]
     dt = torch.promote_types(q.dtype, k.dtype)
@@ -217,6 +234,40 @@ def flash(q, k, v, q_offset: int) -> torch.Tensor:
     return o[:, :, :sq].transpose(1, 2)
 
 
+def _flash_shards(q, k, v, q_offset: int, rule) -> torch.Tensor:
+    """:func:`flash` on each rank's local shard under ``local_map``, with
+    the placements JAX's ``constrain`` gives q (batch, -, act_heads, -)
+    and k, v (batch, -, act_kv, -)."""
+    mesh = q.device_mesh
+    qp = placements(resolve(rule, ("batch", None, "act_heads", None)), mesh)
+    kp = placements(resolve(rule, ("batch", None, "act_kv", None)), mesh)
+    return local_map(lambda a, b_, c: flash(a, b_, c, q_offset),
+                     out_placements=list(qp), in_placements=(qp, kp, kp),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _check_heads(mesh, rule, heads: int, kv_heads: int) -> None:
+    """Refuse a mesh on which a rank's query heads would need another
+    rank's kv heads: the mesh dims that split the heads must split the kv
+    heads alike and evenly."""
+    def split(axis):
+        spec = resolve(rule, (None, axis))
+        return [i for i, pl in enumerate(placements(spec, mesh))
+                if pl.is_shard(1)]
+    dims = split("act_heads")
+    if dims != split("act_kv"):
+        raise ValueError(f"query heads split over mesh dims {dims}, kv "
+                         f"heads over {split('act_kv')}: the kv groups "
+                         "would not line up")
+    n = math.prod(mesh.size(i) for i in dims)
+    if heads % n or kv_heads % n:
+        raise ValueError(
+            f"{heads} query and {kv_heads} kv heads do not split evenly "
+            f"over {n} ranks of mesh dims "
+            f"{[mesh.mesh_dim_names[i] for i in dims]}: each rank's query "
+            "heads must read its own kv heads")
+
+
 # ----------------------------------------------------------------------
 # Cache writes (JAX's dynamic_update_slice, in place: its start is
 # clamped so the update fits)
@@ -231,10 +282,12 @@ def _write(cache_t: torch.Tensor, new: torch.Tensor, start: int) -> None:
 # GQA block
 # ----------------------------------------------------------------------
 def gqa_apply(p, x, cfg, kind: str = "causal", positions=None, cache=None,
-              pos=None, window: int = 0, use_rope: bool = True):
+              pos=None, window: int = 0, use_rope: bool = True, rule=None):
     """Returns (delta_x, cache).  cache: dict(k, v) for a ``max_len``
     cache, dict(k, v, pos) for a ring buffer of the window, or None."""
     b, s, d = x.shape
+    if isinstance(x, DTensor):
+        _check_heads(x.device_mesh, rule, p["wq"].shape[1], p["wk"].shape[1])
     xn = norm(p, x, cfg)
     q = einsum("bsd,dnh->bsnh", xn, p["wq"])
     k = einsum("bsd,dnh->bsnh", xn, p["wk"])
@@ -248,6 +301,10 @@ def gqa_apply(p, x, cfg, kind: str = "causal", positions=None, cache=None,
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    if rule is not None:
+        q = constrain(q, rule, ("batch", None, "act_heads", None))
+        k = constrain(k, rule, ("batch", None, "act_kv", None))
+        v = constrain(v, rule, ("batch", None, "act_kv", None))
 
     kv_len = None
     kv_pos = None
@@ -278,18 +335,22 @@ def gqa_apply(p, x, cfg, kind: str = "causal", positions=None, cache=None,
             k, v = ck, cv
             kv_len = int(pos) + s
     if takes_flash(kind, kv_pos, s, q.shape[-1], v.shape[-1], given):
-        o = flash(q, k, v, q_offset=0 if pos is None else int(pos))
+        o = flash(q, k, v, q_offset=0 if pos is None else int(pos),
+                  rule=rule)
     else:
         o = attend(q, k, v, kind, q_pos=q_pos, kv_pos=kv_pos, window=window,
                    kv_len=kv_len)
-    return einsum("bsnh,nhd->bsd", o, p["wo"]), cache
+    out = einsum("bsnh,nhd->bsd", o, p["wo"])
+    if rule is not None:
+        out = constrain(out, rule, ("batch", "seq", "act_embed"))
+    return out, cache
 
 
 # ----------------------------------------------------------------------
 # MLA block (DeepSeek-V3).  The cache stores the compressed latent + rope
 # key; K/V are re-expanded from the latent.
 # ----------------------------------------------------------------------
-def mla_apply(p, x, cfg, positions=None, cache=None, pos=None):
+def mla_apply(p, x, cfg, positions=None, cache=None, pos=None, rule=None):
     m = cfg.mla
     b, s, d = x.shape
     xn = rms_norm(x, p["ln"])
@@ -332,17 +393,26 @@ def mla_apply(p, x, cfg, positions=None, cache=None, pos=None):
         # TRAIN/PREFILL: expand keys/values from the latent (per head)
         k_nope = einsum("bsr,rnh->bsnh", latent, p["wk_b"])
         vv = einsum("bsr,rnh->bsnh", latent, p["wv_b"])
+        if rule is not None:
+            q_nope = constrain(q_nope, rule,
+                               ("batch", None, "act_heads", None))
+            k_nope = constrain(k_nope, rule,
+                               ("batch", None, "act_heads", None))
+            vv = constrain(vv, rule, ("batch", None, "act_heads", None))
         scores = (einsum("bqnh,bknh->bnqk", q_nope, k_nope)
                   + einsum("bqnh,bkoh->bnqk", q_rope, k_rope)) * scale
         pr = _softmax(scores, mask)
         o = einsum("bnqk,bknh->bqnh", pr.to(vv.dtype), vv)
-    return einsum("bsnh,nhd->bsd", o, p["wo"]), cache
+    out = einsum("bsnh,nhd->bsd", o, p["wo"])
+    if rule is not None:
+        out = constrain(out, rule, ("batch", "seq", "act_embed"))
+    return out, cache
 
 
 # ----------------------------------------------------------------------
 # Cross attention (whisper decoder).  Encoder K/V cached once at prefill.
 # ----------------------------------------------------------------------
-def cross_apply(p, x, enc_kv, cfg):
+def cross_apply(p, x, enc_kv, cfg, rule=None):
     q = einsum("bsd,dnh->bsnh", norm(p, x, cfg), p["wq"])
     k, v = enc_kv
     o = attend(q, k, v, "bidir")

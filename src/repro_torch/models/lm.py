@@ -28,11 +28,12 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from . import attention, mamba2, mlp, moe
-from .common import PRec, dtype_of, einsum, layer_norm, pad_heads, rms_norm
-from .common import take, tmap
+from .common import PRec, constrain, dtype_of, einsum, layer_norm, pad_heads
+from .common import on_replicas, rms_norm, sharded, take, tmap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,13 +224,13 @@ class LM:
 
     # -- forward ----------------------------------------------------------
     def _apply_block(self, blk: Block, p, x, cache=None, pos=None,
-                     shared=None, enc_out=None, x_emb=None):
+                     shared=None, enc_out=None, x_emb=None, rule=None):
         cfg = self.cfg
         if blk.kind == "attn":
             kind = blk.opts.get("kind", "causal")
             dx, c = attention.gqa_apply(
                 p, x, cfg, kind=kind if kind in ("local", "bidir")
-                else "causal", cache=cache, pos=pos,
+                else "causal", cache=cache, pos=pos, rule=rule,
                 window=cfg.local_window if kind == "local" else 0,
                 use_rope=kind != "nope")
             return x + dx, c
@@ -237,18 +238,20 @@ class LM:
             xin = einsum("bse,ed->bsd", torch.cat([x, x_emb], -1),
                          shared["w_concat"])
             dx, c = attention.gqa_apply(shared, xin, cfg, kind="causal",
-                                        cache=cache, pos=pos)
+                                        cache=cache, pos=pos, rule=rule)
             x = x + dx
-            return x + mlp.mlp_apply(shared["mlp"], x, cfg), c
+            return x + mlp.mlp_apply(shared["mlp"], x, cfg, rule=rule), c
         if blk.kind == "mla":
-            dx, c = attention.mla_apply(p, x, cfg, cache=cache, pos=pos)
+            dx, c = attention.mla_apply(p, x, cfg, cache=cache, pos=pos,
+                                        rule=rule)
             return x + dx, c
         if blk.kind == "mlp":
-            return x + mlp.mlp_apply(p, x, cfg), cache
+            return x + mlp.mlp_apply(p, x, cfg, rule=rule), cache
         if blk.kind == "moe":
-            return x + moe.moe_apply(p, x, cfg), cache
+            return x + moe.moe_apply(p, x, cfg, rule=rule), cache
         if blk.kind == "mamba":
-            dx, c = mamba2.mamba2_apply(p, x, cfg, cache=cache, pos=pos)
+            dx, c = mamba2.mamba2_apply(p, x, cfg, cache=cache, pos=pos,
+                                        rule=rule)
             return x + dx, c
         if blk.kind == "cross":
             if enc_out is not None:     # forward / prefill: encode now
@@ -258,18 +261,19 @@ class LM:
                              "cv": enc_kv[1].to(cache["cv"].dtype)}
             else:                       # decode: reuse cached encoder K/V
                 enc_kv = (cache["ck"], cache["cv"])
-            return x + attention.cross_apply(p, x, enc_kv, cfg), cache
+            return x + attention.cross_apply(p, x, enc_kv, cfg,
+                                             rule=rule), cache
         raise ValueError(blk.kind)
 
-    def _group(self, st: Stage, lp, x, shared, enc_out, x_emb):
+    def _group(self, st: Stage, lp, x, shared, enc_out, x_emb, rule=None):
         """One layer's group of blocks without caches (JAX's scan body)."""
         for bi, blk in enumerate(st.blocks):
             x, _ = self._apply_block(blk, lp[bi], x, shared=shared,
-                                     enc_out=enc_out, x_emb=x_emb)
+                                     enc_out=enc_out, x_emb=x_emb, rule=rule)
         return x
 
     def _run_stages(self, params, x, caches=None, pos=None, enc_out=None,
-                    x_emb=None, remat=False):
+                    x_emb=None, remat=False, rule=None):
         if remat and caches is not None:
             raise ValueError("remat recomputes a forward without caches "
                              "(training); a forward with caches takes none")
@@ -279,7 +283,8 @@ class LM:
             for i in range(st.repeat):
                 lp = take(pstack, i)
                 if cstack is None:
-                    args = (st, lp, x, params.get("shared"), enc_out, x_emb)
+                    args = (st, lp, x, params.get("shared"), enc_out, x_emb,
+                            rule)
                     x = (checkpoint(self._group, *args, use_reentrant=False)
                          if remat else self._group(*args))
                     continue
@@ -288,21 +293,23 @@ class LM:
                     x, nc = self._apply_block(
                         blk, lp[bi], x, cache=bc, pos=pos,
                         shared=params.get("shared"), enc_out=enc_out,
-                        x_emb=x_emb)
+                        x_emb=x_emb, rule=rule)
                     _store(cstack[bi], i, bc, nc)
         return x, caches
 
-    def _embed(self, params, tokens, batch_extra):
+    def _embed(self, params, tokens, batch_extra, rule=None):
         cfg = self.cfg
-        x = params["embed"][tokens].to(dtype_of(cfg.act_dtype))
+        x = _lookup(params["embed"], tokens).to(dtype_of(cfg.act_dtype))
         if cfg.emb_scale:
             x = x * math.sqrt(cfg.d_model)
         if cfg.n_img_tokens and "patch_embeds" in (batch_extra or {}):
             pe = batch_extra["patch_embeds"].to(x.dtype)
             x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        if rule is not None:
+            x = constrain(x, rule, ("batch", "seq", "act_embed"))
         return x
 
-    def _encoder(self, params, frames):
+    def _encoder(self, params, frames, rule=None):
         cfg = self.cfg
         enc = params["encoder"]
         x = frames.to(dtype_of(cfg.act_dtype))
@@ -310,73 +317,97 @@ class LM:
         for i in range(cfg.n_enc_layers):
             lp = take(enc["blocks"], i)
             dx, _ = attention.gqa_apply(lp["attn"], x, cfg, kind="bidir",
-                                        use_rope=False)
+                                        use_rope=False, rule=rule)
             x = x + dx
-            x = x + mlp.mlp_apply(lp["mlp"], x, cfg)
+            x = x + mlp.mlp_apply(lp["mlp"], x, cfg, rule=rule)
         return layer_norm(x, enc["ln"], enc["ln_b"])
 
-    def forward(self, params, batch, remat=False, return_hidden=False):
+    def forward(self, params, batch, remat=False, return_hidden=False, *,
+                rule=None):
         """Full forward (training, prefill without a cache): returns
         logits, optionally also the final hidden states (for the MTP
-        head); ``remat`` recomputes each layer in the backward pass."""
+        head); ``remat`` recomputes each layer in the backward pass.
+        Under ``rule`` the parameters and the batch are DTensors on one
+        mesh, and so are the results."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"], batch)
-        enc_out = (self._encoder(params, batch["frames"])
-                   if cfg.encdec else None)
-        x_emb = x if cfg.hybrid_attn_every else None
-        x, _ = self._run_stages(params, x, enc_out=enc_out, x_emb=x_emb,
-                                remat=remat)
-        logits = self._head(params, x)
+        with sharded(rule):
+            x = self._embed(params, batch["tokens"], batch, rule)
+            enc_out = (self._encoder(params, batch["frames"], rule)
+                       if cfg.encdec else None)
+            x_emb = x if cfg.hybrid_attn_every else None
+            x, _ = self._run_stages(params, x, enc_out=enc_out, x_emb=x_emb,
+                                    remat=remat, rule=rule)
+            logits = self._head(params, x, rule)
         return (logits, x) if return_hidden else logits
 
-    def mtp_forward(self, params, hidden, next_tokens):
+    def mtp_forward(self, params, hidden, next_tokens, rule=None):
         """DeepSeek-V3 multi-token-prediction module (depth 1): the main
         model's final hidden state with the embedding of the *next* token,
         one extra block, the shared head — token t+2 at position t."""
         cfg = self.cfg
         mtp = params["mtp"]
-        emb = params["embed"][next_tokens].to(hidden.dtype)
-        comb = torch.cat([rms_norm(hidden, mtp["ln_h"]),
-                          rms_norm(emb, mtp["ln_e"])], dim=-1)
-        x = einsum("bse,ed->bsd", comb, mtp["proj"])
-        if cfg.mla:
-            dx, _ = attention.mla_apply(mtp["attn"], x, cfg)
-        else:
-            dx, _ = attention.gqa_apply(mtp["attn"], x, cfg)
-        x = x + dx
-        x = x + mlp.mlp_apply(mtp["mlp"], x, cfg)
-        return self._head(params, x)
+        with sharded(rule):
+            emb = _lookup(params["embed"], next_tokens).to(hidden.dtype)
+            comb = torch.cat([rms_norm(hidden, mtp["ln_h"]),
+                              rms_norm(emb, mtp["ln_e"])], dim=-1)
+            x = einsum("bse,ed->bsd", comb, mtp["proj"])
+            if cfg.mla:
+                dx, _ = attention.mla_apply(mtp["attn"], x, cfg, rule=rule)
+            else:
+                dx, _ = attention.gqa_apply(mtp["attn"], x, cfg, rule=rule)
+            x = x + dx
+            x = x + mlp.mlp_apply(mtp["mlp"], x, cfg, rule=rule)
+            return self._head(params, x, rule)
 
-    def _head(self, params, x):
+    def _head(self, params, x, rule=None):
         cfg = self.cfg
         x = (rms_norm(x, params["final_ln"]) if cfg.norm == "rmsnorm"
              else layer_norm(x, params["final_ln"], params["final_ln_b"]))
         logits = einsum("bsd,vd->bsv", x, params["embed"])
         if self.padded_vocab != cfg.vocab:   # mask vocab-padding entries
-            logits[..., cfg.vocab:] = -2.0 ** 30
+            if isinstance(logits, DTensor):  # no in-place write to a shard
+                pad = torch.arange(self.padded_vocab,
+                                   device=x.device) >= cfg.vocab
+                logits = torch.where(pad, -2.0 ** 30, logits)
+            else:
+                logits[..., cfg.vocab:] = -2.0 ** 30
+        if rule is not None:
+            logits = constrain(logits, rule, ("batch", None, "act_vocab"))
         return logits
 
     # -- serving ----------------------------------------------------------
-    def prefill(self, params, batch, caches):
+    def prefill(self, params, batch, caches, rule=None):
         """Run the prompt into ``caches`` (from position 0); returns the
         last position's logits and the caches."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"], batch)
-        enc_out = (self._encoder(params, batch["frames"])
-                   if cfg.encdec else None)
-        x_emb = x if cfg.hybrid_attn_every else None
-        x, caches = self._run_stages(params, x, caches=caches, pos=0,
-                                     enc_out=enc_out, x_emb=x_emb)
-        return self._head(params, x[:, -1:]), caches
+        with sharded(rule):
+            x = self._embed(params, batch["tokens"], batch, rule)
+            enc_out = (self._encoder(params, batch["frames"], rule)
+                       if cfg.encdec else None)
+            x_emb = x if cfg.hybrid_attn_every else None
+            x, caches = self._run_stages(params, x, caches=caches, pos=0,
+                                         enc_out=enc_out, x_emb=x_emb,
+                                         rule=rule)
+            return self._head(params, x[:, -1:], rule), caches
 
-    def decode_step(self, params, caches, tokens, pos: int):
+    def decode_step(self, params, caches, tokens, pos: int, rule=None):
         """tokens: (b, 1); pos: the position of these tokens."""
         cfg = self.cfg
-        x = self._embed(params, tokens, None)
-        x_emb = x if cfg.hybrid_attn_every else None
-        x, caches = self._run_stages(params, x, caches=caches, pos=int(pos),
-                                     x_emb=x_emb)
-        return self._head(params, x), caches
+        with sharded(rule):
+            x = self._embed(params, tokens, None, rule)
+            x_emb = x if cfg.hybrid_attn_every else None
+            x, caches = self._run_stages(params, x, caches=caches,
+                                         pos=int(pos), x_emb=x_emb,
+                                         rule=rule)
+            return self._head(params, x, rule), caches
+
+
+def _lookup(table, tokens):
+    """Rows ``tokens`` of ``table``.  A DTensor table (vocab over `model`,
+    embed over `data`) is gathered whole first: DTensor has no sharding
+    strategy for an index into sharded rows.  Each rank looks up its own
+    rows of the batch."""
+    return on_replicas(lambda t, i: t[i], table, tokens, rows=(1,))
 
 
 def _store(stack: dict, i: int, old: dict, new: dict) -> None:

@@ -5,6 +5,9 @@ Counterpart of ``repro.models.mamba2``, in plain PyTorch as the JAX
 package computes it outside any kernel: within a chunk the dual quadratic
 (attention-like) form, across chunks a loop carrying the (heads, headdim,
 state) recurrent state in float32; decode is the one-step recurrence.
+Under a sharding rule the chunked scan runs on plain tensors, each rank
+on its own rows of the batch with every head
+(:func:`~repro_torch.models.common.on_replicas`).
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .common import PRec, einsum, rms_norm
+from .common import PRec, constrain, einsum, on_replicas, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +85,7 @@ def _split_proj(p, xn, s: SSMConfig, d):
     return z, xin, bc, dt, gn
 
 
-def mamba2_apply(p, x, cfg, cache=None, pos=None):
+def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
     """Returns (delta_x, new_cache); cache = {'ssm': (b,h,p,n), 'conv':
     (b, W-1, ch)}.  Training/prefill runs the chunked SSD scan (the length
     must be a multiple of the chunk, or shorter than one); decode the
@@ -102,6 +105,8 @@ def mamba2_apply(p, x, cfg, cache=None, pos=None):
     B = bc[..., :gn].reshape(b, L, s.n_groups, N)[:, :, 0]     # g=1: (b,L,N)
     C = bc[..., gn:].reshape(b, L, s.n_groups, N)[:, :, 0]
     xh = xin.reshape(b, L, h, P)
+    if rule is not None:
+        xh = constrain(xh, rule, ("batch", None, "act_heads", None))
     A = -torch.exp(p["A_log"].float())                          # (h,)
     l_t = A[None, None, :] * dt                                 # (b,L,h)
     Dp = p["D"].float()[:, None]
@@ -119,43 +124,60 @@ def mamba2_apply(p, x, cfg, cache=None, pos=None):
     else:  # ---------------- chunked SSD ------------------------------
         Q = min(s.chunk, L)
         assert L % Q == 0, (L, Q)
-        nc = L // Q
-        xc = xh.reshape(b, nc, Q, h, P)
-        Bc = B.reshape(b, nc, Q, N)
-        Cc = C.reshape(b, nc, Q, N)
-        dtc = dt.reshape(b, nc, Q, h)
-        Lcum = l_t.reshape(b, nc, Q, h).cumsum(dim=2)            # (b,nc,Q,h)
-        mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool,
-                                     device=x.device))
         state = (torch.zeros(b, h, P, N, dtype=torch.float32,
                              device=x.device) if cache is None
                  else cache["ssm"])
-        ys = []
-        for c in range(nc):
-            xq, Bq, Cq = xc[:, c], Bc[:, c], Cc[:, c]
-            dtq, Lq = dtc[:, c], Lcum[:, c]
-            scores = einsum("bln,bmn->blm", Cq, Bq).float()
-            gamma = torch.exp(torch.clamp(
-                Lq[:, :, None, :] - Lq[:, None, :, :], -60.0, 0.0))
-            gamma = torch.where(mask[None, :, :, None], gamma, 0.0)
-            M = scores[..., None] * gamma * dtq[:, None, :, :]  # (b,l,m,h)
-            xf = xq.float()
-            y_intra = einsum("blmh,bmhp->blhp", M, xf)
-            y_inter = einsum("blh,bln,bhpn->blhp", torch.exp(Lq),
-                             Cq.float(), state)
-            w = dtq * torch.exp(Lq[:, -1:, :] - Lq)              # (b,l,h)
-            s_chunk = einsum("blh,blhp,bln->bhpn", w, xf, Bq.float())
-            state = state * torch.exp(Lq[:, -1])[..., None, None] + s_chunk
-            ys.append(y_intra + y_inter)
-        y = torch.stack(ys, dim=1).reshape(b, L, h, P)
-        y = y + Dp * xh.float()
+        # on each rank's rows, heads gathered, under a rule: DTensor has
+        # no sharding strategy for the scan's three-operand einsums on
+        # every torch version
+        y, state = on_replicas(lambda *a: _ssd(*a, Q), xh, B, C, dt, l_t,
+                               Dp, state, rows=(0, 1, 2, 3, 4, 6))
         y = y.reshape(b, L, h * P).to(x.dtype)
         if cache is not None:
             cache = {"ssm": state, "conv": conv_state}
 
     y = y * F.silu(z)
     y = rms_norm(y, p["gate_ln"])
-    return einsum("bse,ed->bsd", y, p["w_out"]), cache
+    out = einsum("bse,ed->bsd", y, p["w_out"])
+    if rule is not None:
+        out = constrain(out, rule, ("batch", "seq", "act_embed"))
+    return out, cache
+
+
+def _ssd(xh, B, C, dt, l_t, Dp, state, Q: int):
+    """The chunked SSD scan: xh (b, L, h, P), B and C (b, L, N), dt and
+    the log-decays l_t (b, L, h), ``Dp`` (h, 1), the carried state
+    (b, h, P, N) in float32.  Within a chunk of ``Q`` the dual quadratic
+    form, across chunks the recurrence.  Returns y (b, L, h, P) in
+    float32 and the final state."""
+    b, L, h, P = xh.shape
+    N = B.shape[-1]
+    nc = L // Q
+    xc = xh.reshape(b, nc, Q, h, P)
+    Bc = B.reshape(b, nc, Q, N)
+    Cc = C.reshape(b, nc, Q, N)
+    dtc = dt.reshape(b, nc, Q, h)
+    Lcum = l_t.reshape(b, nc, Q, h).cumsum(dim=2)                # (b,nc,Q,h)
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xh.device))
+    ys = []
+    for c in range(nc):
+        xq, Bq, Cq = xc[:, c], Bc[:, c], Cc[:, c]
+        dtq, Lq = dtc[:, c], Lcum[:, c]
+        scores = einsum("bln,bmn->blm", Cq, Bq).float()
+        gamma = torch.exp(torch.clamp(
+            Lq[:, :, None, :] - Lq[:, None, :, :], -60.0, 0.0))
+        gamma = torch.where(mask[None, :, :, None], gamma, 0.0)
+        M = scores[..., None] * gamma * dtq[:, None, :, :]      # (b,l,m,h)
+        xf = xq.float()
+        y_intra = einsum("blmh,bmhp->blhp", M, xf)
+        y_inter = einsum("blh,bln,bhpn->blhp", torch.exp(Lq),
+                         Cq.float(), state)
+        w = dtq * torch.exp(Lq[:, -1:, :] - Lq)                  # (b,l,h)
+        s_chunk = einsum("blh,blhp,bln->bhpn", w, xf, Bq.float())
+        state = state * torch.exp(Lq[:, -1])[..., None, None] + s_chunk
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(b, L, h, P)
+    return y + Dp * xh.float(), state
 
 
 def mamba2_cache_shape(cfg, batch: int):

@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import PRec, einsum, layer_norm, rms_norm
+from .common import PRec, constrain, einsum, layer_norm, rms_norm
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -42,7 +42,7 @@ def norm(p, x: torch.Tensor, cfg) -> torch.Tensor:
             else layer_norm(x, p["ln"], p["ln_b"]))
 
 
-def mlp_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, cfg, rule=None) -> torch.Tensor:
     xn = norm(p, x, cfg)
     act = _ACTS[cfg.act]
     if cfg.act in ("swiglu", "geglu"):
@@ -51,7 +51,11 @@ def mlp_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
         h = act(g) * u
     else:
         h = act(einsum("bsd,df->bsf", xn, p["w_up"]) + p["b_up"])
+    if rule is not None:
+        h = constrain(h, rule, ("batch", None, "act_ff"))
     out = einsum("bsf,fd->bsd", h, p["w_out"])
     if "b_out" in p:
         out = out + p["b_out"]
+    if rule is not None:
+        out = constrain(out, rule, ("batch", "seq", "act_embed"))
     return out

@@ -10,14 +10,21 @@ order.  The state is a tree shaped like JAX's (``step``, ``m``, ``v``,
 :func:`adamw_update` writes the new values into the parameter and state
 tensors it is given, under ``torch.no_grad()``, and returns them: at full
 width a second copy of the state would not fit beside the first.
+
+DTensor leaves (a sharded step) take the same arithmetic: each moment
+keeps its parameter's placements, and a quantized moment's per-row
+``scale`` the parameter's placements with the last dim replicated
+(``launch.cell.opt_specs``); the row maxima over a sharded last dim are
+exact, so ``q`` equals the unsharded one for equal inputs.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
-from ..models.common import leaves, tmap
+from ..models.common import distribute, leaves, tmap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,11 +66,25 @@ def _is_q(x) -> bool:
 
 def _moment_zeros(p: torch.Tensor, quantize: bool):
     if quantize:
-        return {"q": torch.zeros(p.shape, dtype=torch.int8, device=p.device),
-                "scale": torch.full(p.shape[:-1] + (1,) if p.dim() else (1,),
-                                    1e-12, dtype=torch.float32,
-                                    device=p.device)}
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"q": torch.zeros_like(p, dtype=torch.int8),
+                "scale": _like_rows(p, torch.full(
+                    p.shape[:-1] + (1,) if p.dim() else (1,), 1e-12,
+                    dtype=torch.float32, device=_local_device(p)))}
+    return torch.zeros_like(p, dtype=torch.float32)
+
+
+def _local_device(p: torch.Tensor) -> torch.device:
+    return p.to_local().device if isinstance(p, DTensor) else p.device
+
+
+def _like_rows(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (one entry a row of ``p``) placed as ``p`` is, with ``p``'s
+    last dim replicated: the rows' ``scale``."""
+    if not isinstance(p, DTensor):
+        return t
+    return distribute(t, p.device_mesh, [
+        Replicate() if pl.is_shard(p.dim() - 1) or not p.dim() else pl
+        for pl in p.placements])
 
 
 def _up_to(template, tree) -> list:
@@ -87,10 +108,16 @@ def global_norm(tree) -> torch.Tensor:
 def adamw_init(params, cfg: OptConfig) -> dict:
     """Zero moments (int8 ones when ``cfg.quantize_state``), step 0 and,
     with ``cfg.master_fp32``, float32 copies of the parameters, each on
-    its parameter's device."""
-    dev = leaves(params)[0].device
+    its parameter's device — or, for DTensor parameters, its mesh and
+    placements (the step replicated, a ``scale`` with the last dim
+    replicated)."""
+    first = leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=_local_device(first))
+    if isinstance(first, DTensor):                   # replicated, P()
+        step = distribute(step, first.device_mesh,
+                          [Replicate()] * first.device_mesh.ndim)
     state = {
-        "step": torch.zeros((), dtype=torch.int32, device=dev),
+        "step": step,
         "m": tmap(lambda p: _moment_zeros(p, cfg.quantize_state), params),
         "v": tmap(lambda p: _moment_zeros(p, cfg.quantize_state), params),
     }

@@ -18,6 +18,16 @@ also raises as ``RuntimeError``: out of device memory, a kernel that does
 not build or launch (:class:`repro_torch.kernels._build.KernelError`) and
 a sticky CUDA error (an illegal address, a cuBLAS status) are raised,
 never replayed (:func:`is_card_fault`).
+
+Sharded training: ``Trainer(rule=..., mesh=...)``.  Under JAX's ``jit``
+the inputs carry their mesh; here ``mesh`` is where the leaves go (the
+counterpart of JAX's ``device_put``): :meth:`Trainer.init_state` places
+the parameters by ``shard(mesh, spec_tree(recs, rule))`` and the
+optimizer state by ``opt_specs``, each batch goes by ``batch_specs``,
+and a restore lands on the same shardings.  Every rank runs the loop
+(SPMD) and draws the same full parameters and batches from the same
+seeds, keeping its own shard of each (``Sharding.distribute``): the
+values do not depend on the mesh, and no rank waits on a scatter.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ import torch
 from .. import ckpt
 from .. import device as _device
 from ..kernels._build import KernelError
-from ..models.common import materialize
+from ..models.common import materialize, spec_tree, tmap
 from ..optim import adamw_init
 from .step import TrainConfig, make_train_step
 
@@ -75,8 +85,12 @@ class Trainer:
                  ckpt_dir: str | None = None, ckpt_every: int = 50,
                  failure_hook: Callable[[int], None] | None = None,
                  max_restarts: int = 3, log_path: str | None = None,
-                 device=None):
+                 device=None, mesh=None):
+        if mesh is not None and rule is None:
+            raise ValueError("a mesh places the leaves by a rule: pass "
+                             "rule= too")
         self.model, self.data, self.tcfg, self.rule = model, data, tcfg, rule
+        self.mesh = mesh
         self.device = _device.resolve(device)
         self.ckpt_dir = pathlib.Path(ckpt_dir) if ckpt_dir else None
         self.ckpt_every = ckpt_every
@@ -94,10 +108,24 @@ class Trainer:
         device when None) and a fresh optimizer state."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
+        sh = self._shardings()
         params = materialize(self.model.param_recs(), generator,
-                             device=self.device)
+                             device=self.device,
+                             shardings=sh and sh["params"])
         opt = adamw_init(params, self.tcfg.opt)
+        if sh:
+            opt = tmap(lambda t, s: s.distribute(t), opt, sh["opt"])
         return params, opt, 0
+
+    def _shardings(self) -> dict | None:
+        """The leaves' shardings on the mesh (None without one)."""
+        if self.mesh is None:
+            return None
+        from ..launch.cell import opt_specs, shard
+        recs = self.model.param_recs()
+        return {"params": shard(self.mesh, spec_tree(recs, self.rule)),
+                "opt": shard(self.mesh, opt_specs(recs, self.rule,
+                                                  self.tcfg.opt))}
 
     def restore_state(self):
         """The latest checkpoint's (params, opt, step), or None where
@@ -109,13 +137,23 @@ class Trainer:
         if step is None:
             return None
         params, opt, _ = self.init_state()
-        tree, manifest = ckpt.restore(self.ckpt_dir, step,
-                                      {"params": params, "opt": opt})
+        tree, manifest = ckpt.restore(
+            self.ckpt_dir, step, {"params": params, "opt": opt},
+            shardings=self._shardings())
         return tree["params"], tree["opt"], manifest["step"]
 
     def _batch(self, step: int) -> dict:
-        return {k: torch.from_numpy(v).to(self.device, torch.long)
-                for k, v in self.data.batch(step).items()}
+        batch = {k: torch.from_numpy(v).to(self.device, torch.long)
+                 for k, v in self.data.batch(step).items()}
+        if self.mesh is None:
+            return batch
+        from .. import configs
+        from ..launch.cell import batch_specs, shard
+        shape = configs.ShapeSpec("trainer", "train", self.data.seq,
+                                  self.data.global_batch)
+        specs = shard(self.mesh, batch_specs(self.model.cfg, shape,
+                                             self.rule))
+        return {k: specs[k].distribute(v) for k, v in batch.items()}
 
     # ------------------------------------------------------------------
     def run(self, n_steps: int, generator: torch.Generator | None = None,

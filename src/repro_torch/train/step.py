@@ -7,17 +7,28 @@ eagerly: each slice's gradients (``loss.backward()`` on the parameters'
 leaves) are added in float32 to an accumulator, ``acc + g.float()``, and
 divided by their count; the loss and metrics are averaged as the scan's
 are.  The optimizer then updates the parameters and its state in place
-(:func:`repro_torch.optim.adamw_update`).  Sharding constraints on the
-gradients (JAX's ``rule`` and ``_pin``) wait for the port's distribution
-slice (ROADMAP.md Queue 1, item 5).
+(:func:`repro_torch.optim.adamw_update`).
+
+Under a sharding ``rule`` the parameters, the optimizer state and the
+batch are DTensors on one mesh (``launch.cell.shard``; every rank runs
+this step on its shards, SPMD).  ``_pin`` redistributes each gradient,
+and each microbatch's float32 accumulator, to its parameter's
+placements: a ``Partial`` gradient (summed over the ranks that shared a
+weight's rows) becomes a reduce-scatter into the shards, not an
+all-reduce — JAX's AR->RS rewrite.  The step runs inside
+:func:`~repro_torch.models.common.sharded`, so the backward's plain
+tensors meet DTensors as replicated too.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from ..models.common import tmap
+from ..models.common import on_replicas, row_shards, sharded, spec_tree, tmap
+from ..models.common import with_sharding
 from ..optim import OptConfig, adamw_update, cosine_schedule
 
 
@@ -32,31 +43,62 @@ class TrainConfig:
     total_steps: int = 10_000
 
 
-def _no_rule(rule) -> None:
-    if rule is not None:
-        raise NotImplementedError(
-            "a sharding rule waits for the port's distribution slice "
-            "(ROADMAP.md Queue 1, item 5)")
-
-
 def _xent(logits, labels, z_coef: float):
     """fp32 softmax cross-entropy with z-loss; returns (loss, zloss) means."""
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    ll = _label_logits(lg, labels)
     ce = lse - ll
     z = torch.square(lse)
     return ce.mean(), z.mean() * z_coef
 
 
+def _take(t, i):
+    return torch.gather(t, -1, i.long()[..., None])[..., 0]
+
+
+def _label_logits(lg, labels):
+    """``lg[..., labels]``, (b, s).  Logits split evenly over vocab on one
+    mesh dim (the head's `model`) pick on each rank's vocab slice under
+    ``local_map`` (a label outside it adds 0) and are summed over that
+    dim: a (b, s) all-reduce, where DTensor's own vocab-parallel gather
+    leaves a masked partial it fails to reduce.  Other DTensor logits run
+    on each rank's rows with the vocab gathered
+    (:func:`~repro_torch.models.common.on_replicas`)."""
+    if not isinstance(lg, DTensor):
+        return _take(lg, labels)
+    mesh, V = lg.device_mesh, lg.shape[-1]
+    vocab = [d for d, p in enumerate(lg.placements)
+             if p == Shard(lg.ndim - 1)]
+    rows = tuple(p if p == Shard(0) else Replicate() for p in lg.placements)
+    if len(vocab) != 1 or V % mesh.size(vocab[0]) or \
+            lg.shape[0] % row_shards(lg):
+        return on_replicas(_take, lg, labels, rows=(0, 1))
+    (vd,) = vocab
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+
+    def pick(t, i):
+        j = i.long() - mesh.get_local_rank(vd) * t.shape[-1]
+        inside = (j >= 0) & (j < t.shape[-1])
+        return torch.where(inside, _take(t, j.clamp(0, t.shape[-1] - 1)),
+                           0.0)
+    summed = tuple(Partial() if d == vd else p for d, p in enumerate(rows))
+    return local_map(pick, out_placements=list(summed),
+                     in_placements=(lg.placements, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(lg, labels) \
+        .redistribute(mesh, rows)
+
+
 def loss_fn(model, params, batch, rule=None, tcfg: TrainConfig | None = None,
             remat: bool = True):
     """Returns (scalar loss, metrics dict)."""
-    _no_rule(rule)
     tcfg = tcfg or TrainConfig()
     cfg = model.cfg
     labels = batch["labels"]
-    out = model.forward(params, batch, remat=remat, return_hidden=cfg.mtp)
+    out = model.forward(params, batch, remat=remat, return_hidden=cfg.mtp,
+                        rule=rule)
     if cfg.mtp:
         logits, hidden = out
     else:
@@ -65,7 +107,7 @@ def loss_fn(model, params, batch, rule=None, tcfg: TrainConfig | None = None,
     loss = ce + z
     metrics = {"ce": ce, "z_loss": z}
     if cfg.mtp:
-        mtp_logits = model.mtp_forward(params, hidden, labels)
+        mtp_logits = model.mtp_forward(params, hidden, labels, rule=rule)
         mtp_labels = torch.roll(labels, -1, dims=1)
         mtp_ce, _ = _xent(mtp_logits[:, :-2], mtp_labels[:, :-2], 0.0)
         loss = loss + tcfg.mtp_weight * mtp_ce
@@ -78,47 +120,67 @@ def make_train_step(model, tcfg: TrainConfig, rule=None):
     """Build ``step_fn(params, opt_state, batch, step) -> (params,
     opt_state, metrics)``.  The global batch is split into
     ``tcfg.microbatches`` slices along its first axis; ``params`` and
-    ``opt_state`` are updated in place and returned."""
-    _no_rule(rule)
+    ``opt_state`` are updated in place and returned.  Under ``rule`` they
+    are DTensors (module docstring); the metrics are plain scalars on
+    every rank."""
     k = tcfg.microbatches
+
+    # grad sharding constraints: pin every gradient leaf to its parameter's
+    # sharding so the reduction is a reduce-scatter into the shards
+    # instead of a full all-reduce (the AR->RS rewrite)
+    gspecs = spec_tree(model.param_recs(), rule) if rule is not None \
+        else None
+
+    def _pin(grads):
+        if gspecs is None:
+            return grads
+        return tmap(lambda g, s: with_sharding(g, *s), grads, gspecs)
 
     def grads_of(params, mb):
         """(loss, metrics, grads): grads in the parameters' types, zeros
         for a leaf the loss does not reach."""
         live = tmap(lambda p: p.detach().requires_grad_(), params)
-        loss, metrics = loss_fn(model, live, mb, tcfg=tcfg,
+        loss, metrics = loss_fn(model, live, mb, rule=rule, tcfg=tcfg,
                                 remat=tcfg.remat)
         loss.backward()
         grads = tmap(lambda p: p.grad if p.grad is not None
                      else torch.zeros_like(p), live)
         return loss.detach(), {n: m.detach() for n, m in metrics.items()}, \
-            grads
+            _pin(grads)
 
     def step_fn(params, opt_state, batch, step):
-        if k == 1:
-            loss, metrics, grads = grads_of(params, batch)
-        else:
-            grads = tmap(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
-            loss_sum, ms = 0.0, []
-            for i in range(k):
-                mb = {n: x[i * (x.shape[0] // k):(i + 1) * (x.shape[0] // k)]
-                      for n, x in batch.items()}
-                l, m, g = grads_of(params, mb)
-                tmap(lambda a, g_: a.add_(g_), grads, g)   # acc + g.float()
-                del g
-                loss_sum = loss_sum + l
-                ms.append(m)
-            tmap(lambda a: a.div_(k), grads)
-            loss = loss_sum / k
-            metrics = {n: torch.stack([m[n] for m in ms]).mean()
-                       for n in ms[0]}
-        lr = cosine_schedule(step, peak_lr=tcfg.opt.lr,
-                             warmup_steps=tcfg.warmup_steps,
-                             total_steps=tcfg.total_steps)
-        params, opt_state, om = adamw_update(grads, params, opt_state,
-                                             tcfg.opt, lr)
-        metrics = dict(metrics, **om, lr=lr, loss=loss)
-        return params, opt_state, metrics
+        with sharded(rule):
+            if k == 1:
+                loss, metrics, grads = grads_of(params, batch)
+            else:
+                grads = tmap(
+                    lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
+                loss_sum, ms = 0.0, []
+                for i in range(k):
+                    mb = {n: x[i * (x.shape[0] // k):
+                               (i + 1) * (x.shape[0] // k)]
+                          for n, x in batch.items()}
+                    l, m, g = grads_of(params, mb)
+                    # acc + g.float()
+                    tmap(lambda a, g_: a.add_(g_), grads, g)
+                    del g
+                    grads = _pin(grads)
+                    loss_sum = loss_sum + l
+                    ms.append(m)
+                tmap(lambda a: a.div_(k), grads)
+                loss = loss_sum / k
+                metrics = {n: torch.stack([m[n] for m in ms]).mean()
+                           for n in ms[0]}
+            lr = cosine_schedule(step, peak_lr=tcfg.opt.lr,
+                                 warmup_steps=tcfg.warmup_steps,
+                                 total_steps=tcfg.total_steps)
+            params, opt_state, om = adamw_update(grads, params, opt_state,
+                                                 tcfg.opt, lr)
+            metrics = dict(metrics, **om, lr=lr, loss=loss)
+            # scalars every rank holds whole, as JAX's replicated metrics
+            metrics = {n: v.full_tensor() if isinstance(v, DTensor) else v
+                       for n, v in metrics.items()}
+            return params, opt_state, metrics
 
     return step_fn

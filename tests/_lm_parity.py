@@ -113,11 +113,12 @@ def train_batch(cfg, b: int = 2, s: int = 16):
     return jb, tb
 
 
-def port_grads(model, params, batch, remat: bool = True):
+def port_grads(model, params, batch, remat: bool = True, rule=None):
     """The port's loss, metrics and every leaf's gradient (zeros where
     the loss does not reach), in ``leaves`` order."""
     live = tmap(lambda t: t.detach().requires_grad_(), params)
-    loss, metrics = tstep.loss_fn(model, live, batch, remat=remat)
+    loss, metrics = tstep.loss_fn(model, live, batch, rule=rule,
+                                  remat=remat)
     loss.backward()
     return loss.detach(), metrics, [
         t.grad if t.grad is not None else torch.zeros_like(t)

@@ -349,13 +349,13 @@ def test_moe_capacity_drops_the_same_tokens_as_jax():
 
 
 def test_moe_group_local_matches_global():
-    """Four groups with ample capacity == one group; JAX's groups come
-    from ``rule['moe_groups']``, the port's from ``groups``."""
+    """Four groups with ample capacity == one group; both packages take
+    the groups from ``rule['moe_groups']``."""
     cfg, jcfg, p = _moe("deepseek-v3-671b", capacity_factor=8.0)
     x = _x((4, 16, cfg.d_model), 5)
     tp, xt = _t(p), torch.from_numpy(x)
     o1 = tmoe.moe_apply(tp, xt, cfg)
-    o4 = tmoe.moe_apply(tp, xt, cfg, groups=4)
+    o4 = tmoe.moe_apply(tp, xt, cfg, rule={"moe_groups": 4})
     j4 = jmoe.moe_apply(jax.tree.map(jnp.asarray, p), jnp.asarray(x), jcfg,
                         rule={"moe_groups": 4})
     np.testing.assert_allclose(lp.np32(o4), lp.np32(o1), rtol=2e-3,

@@ -4,8 +4,9 @@ a trainer's tree — bf16 params, a float32 master, int8 moments with
 float32 scales, an int32 step — written by one package restores in the
 other bit for bit, with the same keys, dtype strings and manifest.
 
-Elastic re-sharding (``test_elastic_reshard``) waits for the port's
-distribution slice (ROADMAP.md Queue 1, item 5).
+Elastic re-sharding (``test_elastic_reshard``: save from one mesh,
+restore onto others with ``restore(..., shardings=...)``) runs on gloo
+ranks in ``tests/test_torch_dist.py``, across packages both ways.
 """
 import ast
 import json

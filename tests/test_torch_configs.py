@@ -108,8 +108,16 @@ def test_granite_at_published_widths():
 
 
 def test_input_specs_waits_for_its_item():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tconfigs.input_specs(tconfigs.get_config("granite-8b"), "train_4k")
+    """Named when ``input_specs`` raised; it is ported now (every arch ×
+    shape: ``tests/test_torch_sharding.py``): granite-8b's train_4k batch
+    on the meta device with JAX's shapes and types."""
+    j = jconfigs.input_specs(jconfigs.get_config("granite-8b"), "train_4k")
+    t = tconfigs.input_specs(tconfigs.get_config("granite-8b"), "train_4k")
+    assert sorted(t) == sorted(j)
+    for k in j:
+        assert t[k].device.type == "meta"
+        assert tuple(t[k].shape) == tuple(j[k].shape) == (256, 4096)
+        assert t[k].dtype == torch.int32 and str(j[k].dtype) == "int32"
 
 
 def test_configs_package_keeps_the_stencil_listings():

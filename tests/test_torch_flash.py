@@ -373,6 +373,21 @@ def test_default_and_advisor_blocks_launch(sq, skv, d, dtype):
         assert t_fa.launch_limits(bq, bkv, d, dtype).ok
 
 
+@pytest.mark.parametrize("sq, skv, d, dtype", [
+    (116, 260, 256, "float32"), (116, 260, 256, "bfloat16"),
+    (348, 116, 256, "float32"), (92, 4 * 97, 256, "float32")])
+def test_fit_blocks_steps_past_a_block_that_cannot_halve(sq, skv, d,
+                                                         dtype):
+    """A length with an odd factor (116 = 4 * 29) leaves a block equal to
+    the length that cannot halve; fit_blocks steps it down to a smaller
+    divisor instead of refusing, and the pair launches."""
+    for want in ((128, 128), (256, 64), (64, 256)):
+        bq, bkv = t_fa.fit_blocks(sq, skv, *want, d, dtype)
+        assert sq % bq == 0 and skv % bkv == 0
+        lim = t_fa.launch_limits(bq, bkv, d, dtype)
+        assert lim.ok, lim.reason
+
+
 @settings(max_examples=60, deadline=None)
 @given(sq=st.integers(1, 512), skv=st.integers(1, 1024),
        d=st.sampled_from([4, 32, 64, 96, 100, 112, 128, 256]),

@@ -127,6 +127,11 @@ GRAPH_SLICE = ["dist.py", "core/hlo_analysis.py", "core/frontends/hlo.py",
                "fleet/analyzer.py"]
 
 
+#: and the modules of distribution (the sharding layer is in
+#: models/common.py, already listed)
+DIST_SLICE = ["dist.py", "launch/mesh.py", "launch/cell.py"]
+
+
 def test_scans_cover_the_blocking_slice():
     scanned = {str(p.relative_to(PORT)) for p in _port_files()
                if PORT in p.parents}
@@ -135,6 +140,7 @@ def test_scans_cover_the_blocking_slice():
     assert set(TRAIN_SLICE) <= scanned
     assert set(ANALYSIS_SLICE) <= scanned
     assert set(GRAPH_SLICE) <= scanned
+    assert set(DIST_SLICE) <= scanned
     assert list(PORT.rglob("*.c")) and all(
         p.parent.name == "stencils" for p in PORT.rglob("*.c"))
 

@@ -2,8 +2,8 @@
 metrics and the gradient of every parameter leaf against
 ``jax.value_and_grad`` on six reduced configs (granite-8b on the flash
 path, deepseek-v3's MLA, MoE and MTP, llama4's local attention and MoE,
-Mamba-2, Zamba2's shared block, whisper's encoder-decoder), and the
-sharding rule's refusal.  The step itself, remat and the launcher:
+Mamba-2, Zamba2's shared block, whisper's encoder-decoder), and
+granite's under a sharding rule on one process.  The step itself, remat and the launcher:
 ``tests/test_torch_train_step.py``.
 
 JAX's float32 parameters are carried across by ``convert.lm_params`` and
@@ -56,6 +56,26 @@ def test_loss_and_every_gradient_match_jax(arch):
 
 
 def test_sharding_rule_waits_for_distribution():
+    """Named when the port refused a rule; the rule now threads through.
+    On one process (plain tensors, no mesh) the port's constraints change
+    nothing, and the loss and every gradient under ``rule_for(granite,
+    train_4k)`` equal JAX's under the same rule on a (1, 1) mesh; the
+    sharded step itself: ``tests/test_torch_dist.py``."""
+    from repro.launch import cell as jcell
+    from repro.launch import mesh as jmesh
+    from repro_torch.launch import cell as tcell
     p = lp.pair("granite-8b")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tstep.make_train_step(p.tmodel, tstep.TrainConfig(), rule=object())
+    jb, tb = lp.train_batch(p.jcfg)
+    jrule = jcell.rule_for(p.jcfg, jcell.configs.SHAPES["train_4k"], False)
+    trule = tcell.rule_for(p.tcfg, tcell.configs.SHAPES["train_4k"], False)
+    assert trule == jrule
+    with jmesh.make_local_mesh(1, 1):
+        (jl, jm), jg = jax.jit(jax.value_and_grad(
+            lambda pp: jstep.loss_fn(p.jmodel, pp, jb, rule=jrule,
+                                     remat=True), has_aux=True))(p.jparams)
+    tl, tm, tg = lp.port_grads(p.tmodel, p.tparams, tb, rule=trule)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=lp.LOSS_RTOL)
+    for a, b in zip(jax.tree.leaves(jg), tg):
+        lp.leaf_close(a, b, lp.GRAD_TOL)
+    assert callable(tstep.make_train_step(p.tmodel, tstep.TrainConfig(),
+                                          rule=trule))
