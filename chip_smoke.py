@@ -244,6 +244,32 @@ followed by its seconds:
                same output, cold and warm host seconds; 11d ``analyze
                configs/hlo/granite-8b.hlo.gz -m H100 -p hlo-roofline
                --json``, whose terms must equal 11b's module roofline;
+  14. graph  — graph-level analysis of the port's own programs
+               (``repro_torch.core.graph_analysis``, ``launch.dryrun``,
+               the ``graph`` frontend), after 11: the names it relies on
+               checked in this torch first, and the host microseconds
+               to enqueue a flash call through the operator and through
+               the wrapper at 9b's served shape; 14a the dry run of
+               ``tests/test_dryrun.py``'s four cells (granite-8b
+               ``train_4k``, deepseek-v3-671b ``decode_32k``, mamba2-2.7b
+               ``long_500k``, whisper-small ``prefill_32k``) on
+               ``pod16x16`` and ``pod2x16x16``, each cell in a child
+               process with its own fake process group (this one holds
+               13's NCCL group), all started at once under
+               ``DRYRUN_TIMEOUT``: per cell and mesh the three terms on
+               the H100 file, the dominant one, GiB a device, the
+               collective kinds and the host seconds; 14b, while they
+               run, one untimed step of 10b's cell and one prefill of
+               9b's first bucket recorded on the card (every flash call
+               one ``repro_torch::flash_attention`` operator: 64 in the
+               step, 36 in the prefill), priced on the H100 file: the
+               predicted ms (each op's roofline summed, and serial)
+               beside 10b's and 9b's measured ms, the five costliest
+               (operator, shape) groups, and the step's predicted ms by
+               10b's profile classes beside the profile's; 14c ``fleet
+               --config graph:<arch>`` for the ten reduced configs in a
+               fresh process, each report conserving, beside the bundled
+               dumps' reports (flops over JAX's, collective kinds);
   12. a JSON line naming each ported kernel (flash attention once per
      route, once per route, model and type of 7, once on 9b's serving
      path, once on 10b's training path and once on 13b's sharded one),
@@ -3207,6 +3233,381 @@ def fleet_tier(cli) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 14: graph-level analysis of the port's own programs (the torch
+# graph frontend, the dry run on the production meshes, the fleet over
+# captured programs), priced on the H100 file
+# ----------------------------------------------------------------------
+
+# tests/test_dryrun.py's four cells, each on both production meshes
+DRYRUN_CELLS = [("granite-8b", "train_4k"), ("deepseek-v3-671b", "decode_32k"),
+                ("mamba2-2.7b", "long_500k"), ("whisper-small", "prefill_32k")]
+DRYRUN_TIMEOUT = 600
+# calls a turn of the flash operator's host-cost measurement
+OP_CALLS = 300
+# names phase 14 needs from torch (2.11 on the card machine, 2.13 where the
+# port was written), checked before anything relies on them
+TORCH_NAMES = ("torch.library.Library", "torch.library.register_fake",
+               "torch.ops._dtensor.shard_dim_alltoall",
+               "torch.distributed.tensor.placement_types.shard_dim_alltoall",
+               "torch._C._current_graph_task_id",
+               "torch._subclasses.fake_tensor.FakeTensorMode",
+               "torch.utils._python_dispatch.TorchDispatchMode")
+# 14b's classes, as 10b's profile names them
+STEP_CLASSES = ("GEMM", "flash forward", "attention backward",
+                "elementwise", "optimizer")
+
+
+def torch_names() -> None:
+    """Fail loudly when a name phase 14 relies on is missing from this
+    torch, or the fake process group cannot be imported."""
+    import importlib
+    missing = []
+    for name in TORCH_NAMES:
+        parts = name.split(".")
+        obj = None
+        for i in range(len(parts), 0, -1):
+            try:
+                obj = importlib.import_module(".".join(parts[:i]))
+            except ImportError:
+                continue
+            for attr in parts[i:]:
+                obj = getattr(obj, attr, None)
+            break
+        if obj is None:
+            missing.append(name)
+    try:
+        from torch.testing._internal.distributed import fake_pg
+        fake_pg.FakeStore
+    except (ImportError, AttributeError) as e:
+        missing.append(f"fake_pg.FakeStore ({e})")
+    print(f"  torch {torch.__version__}: {len(TORCH_NAMES) + 1 - len(missing)}"
+          f" of {len(TORCH_NAMES) + 1} names phase 14 relies on present"
+          f"{'; missing ' + str(missing) if missing else ''}")
+    if missing:
+        raise SmokeError(f"14: this torch lacks {missing}")
+
+
+def operator_cost(fa) -> dict:
+    """The host cost of the flash operator: microseconds to enqueue one
+    call at 9b's served shape through ``fa.flash_op`` and straight
+    through the wrapper at the same blocks, OP_CALLS calls each, in turns
+    (three each), with the wall microseconds a call once the card has
+    run them."""
+    from repro_torch.core import blocking
+    q, k, v = (torch.randn(4, 32, 1024, 128, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    tiles = blocking.attention_cta_tiles(1024, 1024, 128, q.dtype)
+    bq, bkv = fa.fit_blocks(1024, 1024, tiles.bq, tiles.bkv, 128, q.dtype)
+    calls = {
+        "operator": lambda: fa.flash_op(q, k, v, True, bq, bkv, 0),
+        "wrapper": lambda: fa.flash_attention(q, k, v, causal=True,
+                                              block_q=bq, block_kv=bkv,
+                                              q_offset=0)}
+    got = {n: {"host_us": [], "wall_us": []} for n in calls}
+    for _ in range(3):
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(OP_CALLS):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            got[name]["host_us"].append((t1 - t0) / OP_CALLS * 1e6)
+            got[name]["wall_us"].append((t2 - t0) / OP_CALLS * 1e6)
+    med = {n: {k: statistics.median(v) for k, v in r.items()}
+           for n, r in got.items()}
+    print(f"  the flash operator at (4, 32, 1024, 128) bf16, blocks "
+          f"({bq}, {bkv}): host us to enqueue a call "
+          + ", ".join(f"{n} {[round(x, 1) for x in r['host_us']]}"
+                      for n, r in got.items())
+          + "; wall us a call " + ", ".join(
+              f"{n} {med[n]['wall_us']:.1f}" for n in med))
+    return {"runs": got, "median": med}
+
+
+def start_dryruns(out: pathlib.Path) -> list:
+    """14a's children: ``python -m repro_torch.launch.dryrun --arch A
+    --shape S --mesh both`` for each of DRYRUN_CELLS, all started at
+    once (each holds its own fake process group)."""
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log = open(out / f"{arch}__{shape}.log", "w+")
+        procs.append((arch, shape, log, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "both", "--out", str(out)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def finish_dryruns(procs: list, out: pathlib.Path) -> dict:
+    """Wait for 14a's children (DRYRUN_TIMEOUT in all; a child still
+    running then is killed and fails the phase) and print each cell's
+    report."""
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT
+    failed, rows = [], {}
+    for arch, shape, log, t0, proc in procs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        wall = time.perf_counter() - t0
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if proc.returncode != 0:
+            failed.append((arch, shape, proc.returncode, text[-1500:]))
+            continue
+        for mesh in ("pod16x16", "pod2x16x16"):
+            rep = json.loads((out / f"{arch}__{shape}__{mesh}.json")
+                             .read_text())
+            gib = rep["memory"]["total_per_device"] / 2 ** 30
+            print(f"  14a {arch} x {shape} x {mesh} ({rep['chips']} ranks): "
+                  f"compute {rep['t_compute'] * 1e3:.3f}, memory "
+                  f"{rep['t_memory'] * 1e3:.3f}, collective "
+                  f"{rep['t_collective'] * 1e3:.3f} ms -> {rep['dominant']};"
+                  f" {gib:.2f} GiB a device (arguments "
+                  f"{rep['memory']['argument_bytes'] / 2 ** 30:.2f}); "
+                  f"collectives {sorted(rep['collective_by_kind'])} "
+                  f"({rep['n_collectives']}); {rep['n_ops']} costed ops of "
+                  f"{rep['dispatched']} dispatched; host {rep['host_s']:.1f}"
+                  f" s in the cell (child {wall:.1f} s)")
+            rows[f"{arch}__{shape}__{mesh}"] = {
+                k: rep[k] for k in ("t_compute", "t_memory", "t_collective",
+                                    "dominant", "memory", "n_collectives",
+                                    "collective_by_kind", "mxu_flops",
+                                    "vpu_flops", "hbm_bytes", "host_s")}
+    if failed or len(rows) != 2 * len(DRYRUN_CELLS):
+        raise SmokeError(f"14a: {len(rows)} of {2 * len(DRYRUN_CELLS)} "
+                         f"dry-run reports; failed {failed}")
+    return rows
+
+
+def step_class(rec) -> str:
+    """A priced record's class among STEP_CLASSES, as 10b's profile
+    classes a kernel: the scope it ran in, else its operator."""
+    from repro_torch.core import graph_analysis as ga
+    if rec.computation in ("attention backward", "optimizer"):
+        return rec.computation
+    if rec.opcode == "flash_attention":
+        return "flash forward"
+    if rec.opcode in ga.GEMMS:
+        return "GEMM"
+    return "elementwise"
+
+
+def priced_capture(what: str, cap, rates, measured_ms: float,
+                   profile: dict | None) -> dict:
+    """Print a capture's predicted ms (per-op roofline summed, and serial)
+    beside its measured ms, the five costliest (operator, shape) groups,
+    and, for a train step, the predicted ms by class beside 10b's
+    profile."""
+    from repro_torch.fleet.pricing import price_ops
+    ana = cap.analysis
+    priced = price_ops(ana.ops, rates)
+    t_graph = sum(p.t_pred for p in priced) * 1e3
+    t_serial = sum(p.t_serial for p in priced) * 1e3
+    module = max(ana.mxu_flops / rates.mxu_peak, ana.vpu_flops /
+                 rates.vpu_peak, ana.hbm_bytes / rates.mem_bandwidth) * 1e3
+    print(f"  14b {what}: {len(ana.ops)} costed ops of {cap.n_dispatched} "
+          f"dispatched ({cap.seconds:.2f} s recorded); tensor-core "
+          f"{ana.mxu_flops / 1e12:.3f} TFLOP, CUDA-core "
+          f"{ana.vpu_flops / 1e12:.3f} TFLOP, HBM {ana.hbm_bytes / 1e9:.2f}"
+          f" GB; peak {cap.peak_bytes / 1e9:.2f} GB (arguments "
+          f"{cap.argument_bytes / 1e9:.2f})")
+    print(f"    predicted {t_graph:.1f} ms overlapped (each op's roofline, "
+          f"summed), {t_serial:.1f} ms serial, {module:.1f} ms the module's "
+          f"roofline; measured {measured_ms:.1f} ms: measured/predicted "
+          f"{measured_ms / t_graph:.3f} (overlapped), "
+          f"{measured_ms / t_serial:.3f} (serial)")
+    groups: dict = {}
+    for p in priced:
+        g = groups.setdefault((p.op.opcode, p.op.shape, p.op.computation),
+                              {"ms": 0.0, "n": 0, "bound": p.bound})
+        g["ms"] += p.t_pred * 1e3
+        g["n"] += 1
+    top = sorted(groups.items(), key=lambda kv: -kv[1]["ms"])[:5]
+    for (op, shape, comp), g in top:
+        print(f"      {g['ms']:9.3f} ms predicted  x{g['n']:<5d} "
+              f"[{g['bound']}] {op} {shape} ({comp})")
+    out = {"predicted_ms": t_graph, "predicted_serial_ms": t_serial,
+           "module_ms": module, "measured_ms": measured_ms,
+           "ratio": measured_ms / t_graph, "ops": len(ana.ops),
+           "top": [{"op": k[0], "shape": k[1], "computation": k[2], **v}
+                   for k, v in top]}
+    if profile:
+        by = {c: 0.0 for c in STEP_CLASSES}
+        for p in priced:
+            by[step_class(p.op)] += p.t_pred * 1e3
+        print("    by class, predicted against 10b's torch.profiler device "
+              "ms: " + ", ".join(
+                  f"{c} {by[c]:.1f}/{profile.get(c, 0.0) / 1e3:.1f}"
+                  for c in STEP_CLASSES))
+        out["by_class_ms"] = by
+    return out
+
+
+def graph_of_train_step(fa, rates, measured_ms: float, profile: dict
+                        ) -> dict:
+    """14b: one untimed step of 10b's cell (granite-8b, published widths,
+    TRAIN['layers'] layers, 4 microbatches of 4096 tokens) recorded on
+    the card, ``attention_backward`` and ``adamw_update`` in scopes of
+    10b's class names."""
+    from repro_torch import configs, train
+    from repro_torch.core import graph_analysis as ga
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train import step as step_mod
+    cfg = train_cfg(configs, TRAIN["layers"])
+    data = SyntheticLM(vocab=cfg.vocab, seq=TRAIN["seq"],
+                       global_batch=TRAIN["batch"], seed=SEED)
+    trainer = train.Trainer(lm.LM(cfg), data, train.TrainConfig(
+        microbatches=TRAIN["microbatches"]))
+    params, opt, step = trainer.init_state(
+        torch.Generator("cuda").manual_seed(SEED))
+    batch = trainer._batch(step)
+    real_bwd, real_upd = fa.attention_backward, step_mod.adamw_update
+
+    def bwd(*a, **kw):
+        with ga.scope("attention backward"):
+            return real_bwd(*a, **kw)
+
+    def upd(*a, **kw):
+        with ga.scope("optimizer"):
+            return real_upd(*a, **kw)
+    fa.attention_backward, step_mod.adamw_update = bwd, upd
+    try:
+        _, cap = ga.capture(trainer.step_fn, params, opt, batch, step)
+        torch.cuda.synchronize()
+    finally:
+        fa.attention_backward, step_mod.adamw_update = real_bwd, real_upd
+    flash = sum(1 for r in cap.analysis.ops
+                if r.opcode == "flash_attention")
+    per_step = cfg.n_layers * TRAIN["microbatches"]
+    if flash != 2 * per_step:      # forward and remat's re-forward
+        raise SmokeError(f"14b: {flash} flash operators recorded in a step "
+                         f"of {per_step} layer-microbatches")
+    out = priced_capture(f"granite-8b train step, {cfg.n_layers} layers, "
+                         f"{TRAIN['microbatches']} x {TRAIN['seq']} tokens "
+                         f"({flash} flash operators)", cap, rates,
+                         measured_ms, profile)
+    del params, opt, trainer, batch, cap
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_of_prefill(rates, measured_ms: float) -> dict:
+    """14b: one untimed prefill of 9b's first bucket (granite-8b at
+    published widths and full depth, its padded prompts) recorded on the
+    card."""
+    from repro_torch.core import graph_analysis as ga
+    from repro_torch.models import common
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import make_caches
+    cfg, prompts = serve_case()
+    model = LM(cfg)
+    params = common.materialize(model.param_recs(),
+                                torch.Generator("cuda").manual_seed(SEED),
+                                default_dtype=common.dtype_of(cfg.act_dtype))
+    toks = bucket_tokens(prompts[:SERVE["batch_size"]])
+    caches = make_caches(model, len(toks), SERVE["max_len"], "cuda")
+    with torch.inference_mode():
+        _, cap = ga.capture(model.prefill, params, {"tokens": toks}, caches)
+        torch.cuda.synchronize()
+    flash = sum(1 for r in cap.analysis.ops
+                if r.opcode == "flash_attention")
+    if flash != cfg.n_layers:
+        raise SmokeError(f"14b: {flash} flash operators in a prefill of "
+                         f"{cfg.n_layers} layers")
+    out = priced_capture(f"granite-8b served prefill, bucket 0 "
+                         f"{tuple(toks.shape)}, {cfg.n_layers} layers",
+                         cap, rates, measured_ms, None)
+    del params, caches, cap
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_of_graphs() -> dict:
+    """14c: ``python -m repro_torch fleet --config graph:<arch>`` for the
+    ten reduced configs on the H100 file in a fresh process (each capture
+    starts its own fake 4-rank process group), beside the bundled dumps'
+    reports: the port's tensor-core and CUDA-core flops over JAX's
+    lowering's, and each one's collective kinds."""
+    from repro_torch import configs, fleet
+    out = ROOT / "build" / "chip_smoke" / "fleet_graph"
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["fleet", "-m", "H100", "--out", str(out), "--json"]
+    for arch in configs.ARCH_IDS:
+        argv += ["--config", f"graph:{arch}"]
+    text, counters, wall = fleet_child(argv)
+    reps = {d["config"]: d for d in json.loads(text)}
+    rows = {}
+    for arch in configs.ARCH_IDS:
+        ours = reps.get(f"graph:{arch}")
+        theirs = fleet.FleetAnalyzer().analyze(arch, "H100").to_dict()
+        if ours is None or not ours["conserved"]:
+            raise SmokeError(f"14c: graph:{arch}: no conserving report")
+        mxu = ours["totals"]["mxu_flops"] / theirs["totals"]["mxu_flops"]
+        flops = ((ours["totals"]["mxu_flops"] + ours["totals"]["vpu_flops"])
+                 / (theirs["totals"]["mxu_flops"]
+                    + theirs["totals"]["vpu_flops"]))
+        kinds = sorted(ours["module"]["collective_by_kind"])
+        jkinds = sorted(theirs["module"]["collective_by_kind"])
+        print(f"  14c graph:{arch}: tensor-core flops / JAX's {mxu:.4f}, all "
+              f"flops / JAX's {flops:.4f}; predicted "
+              f"{ours['t_graph'] * 1e6:.1f} us against the dump's "
+              f"{theirs['t_graph'] * 1e6:.1f} us; "
+              f"bound {ours['bottleneck']} (JAX's {theirs['bottleneck']}); "
+              f"collectives {kinds} (JAX's {jkinds})")
+        rows[arch] = {"mxu_ratio": mxu, "flops_ratio": flops,
+                      "kinds": kinds, "jax_kinds": jkinds,
+                      "t_graph": ours["t_graph"],
+                      "jax_t_graph": theirs["t_graph"]}
+    print(f"  14c host seconds: {counters['seconds']:.2f} in the command, "
+          f"{wall:.2f} in the process")
+    return {"configs": rows, "host_s": counters["seconds"], "wall_s": wall}
+
+
+def graph_level(fa, h100, card: str, predicted: dict) -> dict:
+    """Phase 14: the flash operator's host cost; 14a the dry run of
+    DRYRUN_CELLS on both production meshes in child processes (started
+    before 14b; this process holds an NCCL group), 14b 10b's train step
+    and 9b's first prefill recorded on the card and priced beside their
+    measured ms, 14c the fleet over the captured reduced configs beside
+    the bundled dumps."""
+    from repro_torch.fleet.pricing import MachineRates
+    torch_names()
+    cost = operator_cost(fa)      # before the children share the host
+    out = ROOT / "build" / "chip_smoke" / "dryrun"
+    procs = start_dryruns(out)
+    rates = MachineRates.from_machine(h100)
+    print(f"  14b on {card}, priced on {rates.machine}: tensor cores "
+          f"{rates.mxu_peak / 1e12:.0f}, CUDA cores "
+          f"{rates.vpu_peak / 1e12:.1f} TFLOP/s, HBM "
+          f"{rates.mem_bandwidth / 1e12:.2f} TB/s; TF32 "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}")
+    try:
+        train = predicted["train"]
+        step = graph_of_train_step(fa, rates, train["median_ms"],
+                                   train["profile"]["classes"])
+        prefill = graph_of_prefill(rates,
+                                   predicted["serve"]["prefill_ms"][0])
+    except BaseException:
+        for *_, proc in procs:
+            proc.kill()
+        raise
+    dry = finish_dryruns(procs, out)
+    fleet = fleet_of_graphs()
+    return {"dryrun": dry, "train_step": step, "prefill": prefill,
+            "fleet": fleet, "operator": cost}
+
+
 def smoke(out_path: str | None) -> int:
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is False: this smoke "
@@ -3462,6 +3863,10 @@ def smoke(out_path: str | None) -> int:
     from repro_torch import cli
     print(f"  host only, no launch; card: {card}")
     predicted["fleet"] = fleet_tier(cli)
+
+    phase("14 graph-level analysis of the port's own programs")
+    predicted["graph"] = graph_level(fa, h100, card, predicted)
+    torch.cuda.empty_cache()
 
     phase("12 result")
     result = {"kernels": entries}

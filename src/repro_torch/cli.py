@@ -239,7 +239,10 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--config", action="append", default=None,
                     metavar="NAME",
                     help="bundled config name (src/repro_torch/configs/hlo/"
-                         "<NAME>.hlo.gz) or an HLO dump path; repeatable")
+                         "<NAME>.hlo.gz), an HLO dump path, or "
+                         "graph:<arch>[:<shape>] (the port's own step, "
+                         "captured on a fake 4-rank process group); "
+                         "repeatable")
     sp.add_argument("--all", action="store_true",
                     help="analyze every config with a checked-in HLO dump "
                          "(default when no --config is given; overrides "

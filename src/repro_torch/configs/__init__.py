@@ -5,8 +5,9 @@ Counterpart of ``repro.configs``: ``get_config(name)`` resolves an arch id
 (dashes ok) to its :class:`ArchConfig`; :func:`reduced` produces the
 family-preserving smoke-test config; :func:`input_specs` gives one
 step's batch as meta-device tensors (shapes and types, no storage), as
-``launch.cell.build_cell`` needs them.  The dry run that lowers a cell
-against them is the rest of ROADMAP.md Queue 1 item 6.  The directory
+``launch.cell.build_cell`` needs them; the dry run
+(``repro_torch.launch.dryrun``) runs a cell on fake tensors of those
+shapes, placed on a production mesh, and prices it.  The directory
 also holds ``stencils/*.c``, the paper's listings, which the C frontend
 resolves by path.
 """

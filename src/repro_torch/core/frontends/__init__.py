@@ -13,10 +13,13 @@ consume, and every frontend registers itself by name so the unified
     builder   LoopKernel / ``make_stencil`` kwargs     LoopKernel
     trace     Python ``@kernel_spec`` point function   LoopKernel
     hlo       HLO text / path / compiled executable    HLOProgram
+    graph     ``graph:<arch>[:<shape>]``               GraphProgram
     ========  =======================================  ==========
 
 The ``trace`` frontend is :mod:`repro_torch.core.trace`, registered here;
-``hlo`` is :mod:`.hlo`.
+``hlo`` is :mod:`.hlo`; ``graph`` (:mod:`.graph`, the port's own
+programs, captured by :mod:`repro_torch.core.graph_analysis`) has no JAX
+counterpart and registers after ``hlo``.
 
 The contract is :class:`KernelFrontend`: ``load(source, **opts)`` returns a
 kernel object whose ``produces`` kind ("loop" or "hlo") tells the model
@@ -89,7 +92,7 @@ def resolve_frontend(name: str) -> KernelFrontend:
 
 # detection order: specific object types first, ambiguous strings last
 # (HLO before C, as in the JAX package)
-_DETECT_ORDER = ("builder", "trace", "hlo", "c")
+_DETECT_ORDER = ("builder", "trace", "graph", "hlo", "c")
 
 
 def detect_frontend(source: Any) -> KernelFrontend:
@@ -134,8 +137,9 @@ def load_kernel(source: Any, frontend: str | None = None, **opts):
 
 
 # importing the implementations registers them, in the JAX package's
-# order (builder, c, hlo, trace)
-from . import builder, c, hlo  # noqa: E402,F401
+# order (builder, c, hlo, trace), with the port's graph after hlo
+from . import builder, c, hlo, graph  # noqa: E402,F401
+from .graph import GraphProgram  # noqa: E402,F401
 from .hlo import HLOProgram  # noqa: E402,F401
 
 

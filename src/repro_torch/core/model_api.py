@@ -121,11 +121,12 @@ class HLORooflineModel(PerformanceModel):
     """Kerncraft-for-XLA roofline over a compiled HLO module.
 
     Consumes the ``hlo`` frontend's :class:`~repro_torch.core.frontends.hlo
-    .HLOProgram` instead of a loop kernel; machine constants come from the
-    accelerator fields of the machine description (``peak flops``, ``hbm
-    bandwidth``, ``ici link bandwidth``: the TPU fields of ``tpu_v5e.yaml``,
-    which ``h100_sxm.yaml`` carries too).  A machine with none of those
-    fields (an x86 cache machine like IVY) is rejected rather than silently
+    .HLOProgram` (or the ``graph`` frontend's ``GraphProgram``, priced
+    from its recorded analysis) instead of a loop kernel; machine constants
+    come from the accelerator fields of the machine description (``peak
+    flops``, ``hbm bandwidth``, ``ici link bandwidth``: the TPU fields of
+    ``tpu_v5e.yaml``, which ``h100_sxm.yaml`` carries too).  A machine
+    with none of those fields (an x86 cache machine like IVY) is rejected rather than silently
     costed with v5e numbers, as is a ``dtype`` the machine has no peak for.
     The words of the errors are the JAX package's.
     """
@@ -138,7 +139,8 @@ class HLORooflineModel(PerformanceModel):
         if opts:
             raise TypeError(
                 f"hlo-roofline got unknown options {sorted(opts)}")
-        if not hasattr(program, "text"):
+        if not hasattr(program, "text") and \
+                not hasattr(program, "analysis"):
             raise TypeError(
                 "hlo-roofline consumes an HLOProgram (use the 'hlo' "
                 f"frontend), got {type(program).__name__}")
@@ -155,9 +157,7 @@ class HLORooflineModel(PerformanceModel):
                     f"{dtype!r}; available: {sorted(machine.peak_flops)}")
         else:                         # hbm given, peak table absent
             peak = _hlo.PEAK_FLOPS_BF16
-        ana = _hlo.analyze_hlo_text(
-            program.text, default_group=program.default_group,
-            assume_rs_rewrite=program.assume_rs_rewrite)
+        ana = program_analysis(program)
         vpu_peak = machine.peak_flops.get("FP32") or _hlo.PEAK_FLOPS_FP32
         return _hlo.roofline_result(
             ana, program=program.name, machine_name=machine.name,
@@ -165,6 +165,17 @@ class HLORooflineModel(PerformanceModel):
             hbm_bandwidth=machine.hbm_bandwidth or _hlo.HBM_BW,
             ici_bandwidth=machine.ici_link_bandwidth or _hlo.ICI_LINK_BW,
             vpu_peak_flops=vpu_peak)
+
+
+def program_analysis(program, per_op: bool = False) -> _hlo.HLOAnalysis:
+    """The analysis ``hlo-roofline`` prices: a
+    :class:`~repro_torch.core.frontends.graph.GraphProgram` carries its
+    own (per-op records included); an HLO program's text is walked."""
+    if hasattr(program, "analysis"):
+        return program.analysis
+    return _hlo.analyze_hlo_text(
+        program.text, default_group=program.default_group,
+        assume_rs_rewrite=program.assume_rs_rewrite, per_op=per_op)
 
 
 def resolve_model(name: str) -> PerformanceModel:

@@ -1,7 +1,8 @@
 """The ``trace`` frontend: Python point functions as loop kernels.
 
-A copy of ``repro.core.frontends.trace`` without the frontend registry and
-without the jaxpr flop recount.  The CUDA kernels in
+A copy of ``repro.core.frontends.trace`` without the frontend registry;
+the JAX package's jaxpr flop recount is ``flops="fx"`` here, through
+torch's ``make_fx``.  The CUDA kernels in
 :mod:`repro_torch.kernels` express a stencil as tiled plane arithmetic —
 opaque to the analyses.  This frontend closes that gap: the kernel author
 writes the *point function*
@@ -24,6 +25,9 @@ parameter is a :class:`ScalarBag` of register-resident coefficients.
 Arithmetic on traced values builds an expression DAG; flops are counted
 over that DAG (each shared subexpression once — a Python local like
 ``lap`` is "computed once, reused", exactly like a scalar temporary in C).
+With ``flops="fx"`` the DAG is instead re-evaluated under torch's
+``make_fx`` and flops are counted from the aten calls of the graph — same
+numbers, but derived from a real operator stream.
 
 Limits (DESIGN.md §7): the point function must be straight-line scalar
 code — no data-dependent branches, no slicing, no reductions over loop
@@ -117,6 +121,62 @@ def _dag_flops(roots: Sequence[TraceValue]) -> FlopCount:
         total = total + _OP_FLOPS[node.op]
         stack.extend(a for a in node.args if isinstance(a, TraceValue))
     return total
+
+
+def _fx_flops(roots: Sequence[TraceValue]) -> FlopCount:
+    """Re-derive the flop count from the FX graph of the captured body:
+    the port's counterpart of the JAX package's jaxpr recount.
+
+    Evaluates the DAG (memoized, so shared subexpressions stay shared)
+    over 0-dim float32 placeholders under ``make_fx`` and counts the aten
+    calls as the jaxpr recount maps its primitives: ``add``, ``sub`` and
+    ``rsub`` are adds, ``mul`` and ``div`` themselves; ``neg`` counts
+    nothing."""
+    import torch
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    leaves: list[TraceValue] = []
+    seen: set[int] = set()
+    stack = [r for r in roots if isinstance(r, TraceValue)]
+    while stack:
+        node = stack.pop()
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        if node.op == "leaf":
+            leaves.append(node)
+        stack.extend(a for a in node.args if isinstance(a, TraceValue))
+
+    def body(*vals):
+        env = {id(l): v for l, v in zip(leaves, vals)}
+
+        def ev(node):
+            if not isinstance(node, TraceValue):
+                return node
+            got = env.get(id(node))
+            if got is not None:
+                return got
+            a = [ev(x) for x in node.args]
+            out = {"+": lambda: a[0] + a[1], "-": lambda: a[0] - a[1],
+                   "*": lambda: a[0] * a[1], "/": lambda: a[0] / a[1],
+                   "neg": lambda: -a[0]}[node.op]()
+            env[id(node)] = out
+            return out
+
+        return [ev(r) for r in roots]
+
+    placeholders = [torch.zeros((), dtype=torch.float32)
+                    for _ in range(max(1, len(leaves)))]
+    graph = make_fx(body)(*placeholders).graph
+    aten = torch.ops.aten
+    kinds = {aten.add: "add", aten.sub: "add", aten.rsub: "add",
+             aten.mul: "mul", aten.div: "div"}
+    counts = {"add": 0, "mul": 0, "div": 0}
+    for node in graph.nodes:
+        packet = getattr(node.target, "overloadpacket", None)
+        if node.op == "call_function" and packet in kinds:
+            counts[kinds[packet]] += 1
+    return FlopCount(**counts)
 
 
 class ScalarBag:
@@ -213,9 +273,9 @@ def trace_kernel(fn: Callable, spec: TraceSpec | None = None,
                  flops: str = "dag") -> LoopKernel:
     """Trace ``fn`` into a :class:`LoopKernel`.
 
-    ``flops`` selects the counting path.  Only ``"dag"`` (direct capture)
-    exists here; the JAX package's ``"jaxpr"`` recount through
-    ``jax.make_jaxpr`` is not ported and raises.
+    ``flops`` selects the counting path: ``"dag"`` (direct capture) or
+    ``"fx"`` (the recount through ``make_fx``, the counterpart of the JAX
+    package's ``"jaxpr"``, which the port refuses by name).
     """
     spec = spec or getattr(fn, "__kernel_spec__", None)
     if spec is None:
@@ -256,12 +316,12 @@ def trace_kernel(fn: Callable, spec: TraceSpec | None = None,
 
     if flops == "jaxpr":
         raise ValueError(
-            "flops='jaxpr' (the jax.make_jaxpr recount) is not ported to "
-            "repro_torch (ROADMAP.md Queue 1, item 6); use flops='dag', "
-            "which yields the same counts")
-    if flops != "dag":
-        raise ValueError(f"flops must be 'dag', got {flops!r}")
-    fc = _dag_flops(rec.roots)
+            "flops='jaxpr' (the jax.make_jaxpr recount) is the JAX "
+            "package's; the port's recount of the same body is flops='fx' "
+            "(torch's make_fx), and flops='dag' yields the same counts")
+    if flops not in ("dag", "fx"):
+        raise ValueError(f"flops must be 'dag' or 'fx', got {flops!r}")
+    fc = _fx_flops(rec.roots) if flops == "fx" else _dag_flops(rec.roots)
 
     # dedupe identical refs (register reuse within one iteration), reads
     # first then writes — byte-compatible with the C frontend

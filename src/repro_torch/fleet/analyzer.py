@@ -7,10 +7,13 @@ The pipeline for one (config, machine) pair:
    (``repro_torch/configs/hlo/<config>.hlo.gz``, byte copies of the JAX
    package's, which ``scripts/gen_fleet_hlo.py`` lowers from the reduced
    config models on a forced-host-device mesh), an explicit dump path, or
-   raw HLO text — through the ``hlo`` frontend;
+   raw HLO text — through the ``hlo`` frontend; or ``graph:<arch>``, the
+   port's own step for the same cell, captured through the ``graph``
+   frontend;
 2. walk it with ``analyze_hlo_text(per_op=True)`` so every instruction
    gets an :class:`~repro_torch.core.hlo_analysis.OpCost` record
-   accumulated at the same points as the module totals;
+   accumulated at the same points as the module totals (a captured
+   program carries such records already);
 3. get the module-level roofline: machines with accelerator fields
    (``peak flops``/``hbm bandwidth``: v5e, the H100) route through the
    pooled :class:`~repro_torch.service.AnalysisService` session
@@ -37,7 +40,9 @@ import re
 
 from ..core import api as _api
 from ..core import hlo_analysis
+from ..core.frontends.graph import GraphFrontend, GraphProgram
 from ..core.frontends.hlo import HLOFrontend, HLOProgram
+from ..core.model_api import program_analysis
 from ..core.machine import Machine
 from ..service import AnalysisService
 
@@ -77,11 +82,15 @@ def machine_label(spec) -> str:
     return name
 
 
-def load_program(spec) -> tuple[HLOProgram, str]:
+def load_program(spec) -> tuple[HLOProgram | GraphProgram, str]:
     """Resolve a fleet source: bundled config name, dump path, HLO text,
-    or compiled executable.  Returns (program, source label)."""
-    if isinstance(spec, HLOProgram):
+    compiled executable, or ``graph:<arch>[:<shape>]`` (the port's own
+    program, captured by the ``graph`` frontend).  Returns (program,
+    source label)."""
+    if isinstance(spec, (HLOProgram, GraphProgram)):
         return spec, spec.name
+    if GraphFrontend().matches(spec):
+        return GraphFrontend().load(spec), spec
     if isinstance(spec, str) and "\n" not in spec:
         dump = DUMP_DIR / f"{spec}.hlo.gz"
         if dump.is_file():
@@ -135,9 +144,7 @@ class FleetAnalyzer:
     def _build(self, program: HLOProgram, source: str,
                mach: Machine) -> FleetReport:
         rates = MachineRates.from_machine(mach, self.dtype)
-        ana = hlo_analysis.analyze_hlo_text(
-            program.text, default_group=program.default_group,
-            assume_rs_rewrite=program.assume_rs_rewrite, per_op=True)
+        ana = program_analysis(program, per_op=True)
         if rates.kind == "tpu":       # peak flops / hbm bandwidth fields
             module = self.service.analyze(program, mach, "hlo-roofline",
                                           dtype=self.dtype)
@@ -211,7 +218,8 @@ class FleetAnalyzer:
         paths = []
         for i, rep in enumerate(reports):
             label = labels[i % len(labels)] if labels else "machine"
-            path = out / f"{rep.config}__{label}.json"
+            # a captured program's name, graph:<arch>, as graph-<arch>
+            path = out / f"{rep.config.replace(':', '-')}__{label}.json"
             path.write_text(json.dumps(rep.to_dict(), indent=1,
                                        sort_keys=True) + "\n")
             paths.append(path)

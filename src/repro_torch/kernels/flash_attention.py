@@ -573,6 +573,42 @@ flash_attention.launches_by_route = {r: 0 for r in SOURCES}
 #: of its own; see :func:`attention_backward`)
 flash_attention.backward_calls = 0
 
+
+# The operator ``repro_torch::flash_attention``, defined through
+# ``torch.library.Library``: its kernel serves every device (the wrapper
+# picks the route, or the plain version on the CPU), and it has no
+# autograd kernel (``FlashAttentionFn`` calls it under no_grad).  The
+# ``custom_op`` decorator would add an autograd layer in Python to the
+# host time of every call.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int block_q, int block_kv, int q_offset) -> Tensor")
+_LIB.impl("flash_attention",
+          lambda q, k, v, causal, block_q, block_kv, q_offset:
+          flash_attention(q, k, v, causal=causal, block_q=block_q,
+                          block_kv=block_kv, q_offset=q_offset),
+          "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("repro_torch::flash_attention", lib=_LIB)
+def _flash_fake(q, k, v, causal, block_q, block_kv, q_offset):
+    return torch.empty_like(q)
+
+
+def flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, block_q: int, block_kv: int,
+             q_offset: int) -> torch.Tensor:
+    """:func:`flash_attention` at a fitted block pair and a resolved
+    ``q_offset``, as one operator (``repro_torch::flash_attention``) that
+    the dispatcher sees whole: a dispatch mode records it as one op (the
+    graph analysis prices it by the flash formula), and on meta or fake
+    tensors it runs its fake, which launches nothing.  On real tensors it
+    is the wrapper: the kernel of the pair's route on the card, or a
+    raise; the plain version on the CPU."""
+    return torch.ops.repro_torch.flash_attention.default(
+        q, k, v, causal, block_q, block_kv, q_offset)
+
+
 #: the float32 transient :func:`attention_backward` may hold at once:
 #: about four score-sized tensors per head
 BACKWARD_TRANSIENT_BYTES = 2 << 30
@@ -630,7 +666,8 @@ def attention_backward(q, k, v, grad_out, causal: bool = True,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """:func:`flash_attention` under autograd.  The forward is the kernel's
+    """:func:`flash_attention` under autograd.  The forward is
+    :func:`flash_op` (fitted blocks, a resolved ``q_offset``): the kernel's
     launch on the card and :func:`plain` on the CPU, as the wrapper
     chooses, run without a graph; it saves q, k and v.  The backward is
     :func:`attention_backward` (no kernel; counted in
@@ -639,8 +676,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_kv, q_offset):
         with torch.no_grad():
-            out = flash_attention(q, k, v, causal=causal, block_q=block_q,
-                                  block_kv=block_kv, q_offset=q_offset)
+            out = flash_op(q, k, v, causal, block_q, block_kv, q_offset)
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.q_offset = causal, q_offset
         return out

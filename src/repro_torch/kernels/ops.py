@@ -39,8 +39,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int | None = None) -> torch.Tensor:
     """Attention with blocks from the shared-memory advisor, fitted to the
     lengths (a tensor-core pair wherever one divides them); kv heads
-    broadcast by GQA callers.  With grad mode on and an operand that
-    requires grad, the call goes through
+    broadcast by GQA callers.  The call is the operator
+    :func:`~repro_torch.kernels.flash_attention.flash_op`
+    (``repro_torch::flash_attention``); with grad mode on and an operand
+    that requires grad, it goes through
     :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn` (the
     same forward, on either device, and its backward)."""
     if q.dim() != 4 or k.dim() != 4:
@@ -49,7 +51,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     skv = int(k.shape[2])
     tiles = blocking.attention_cta_tiles(sq, skv, d, q.dtype)
     bq, bkv = _fa.fit_blocks(sq, skv, tiles.bq, tiles.bkv, d, q.dtype)
+    q_offset = skv - sq if q_offset is None else int(q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _fa.FlashAttentionFn.apply(q, k, v, causal, bq, bkv, q_offset)
-    return _fa.flash_attention(q, k, v, causal=causal, block_q=bq,
-                               block_kv=bkv, q_offset=q_offset)
+    return _fa.flash_op(q, k, v, causal, bq, bkv, q_offset)

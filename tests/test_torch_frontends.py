@@ -8,6 +8,7 @@ load to the same ``HLOProgram`` identity, or fail with JAX's error); the
 port's copies of the listings are byte for byte the JAX package's.
 """
 import dataclasses
+import importlib
 import pathlib
 
 import pytest
@@ -111,14 +112,19 @@ def test_listing5_layer_conditions_from_c(level):
 # ----------------------------------------------------------------------
 
 def test_registry_contents_and_lookup():
-    assert set(FRONTEND_REGISTRY) == set(JFRONTENDS) == {
-        "c", "builder", "trace", "hlo"}
+    # JAX's four, and the port's graph frontend (its own programs), which
+    # has no JAX counterpart
+    assert set(JFRONTENDS) == {"c", "builder", "trace", "hlo"}
+    assert set(FRONTEND_REGISTRY) == set(JFRONTENDS) | {"graph"}
     assert resolve_frontend("C") is FRONTEND_REGISTRY["c"]
     with pytest.raises(ValueError, match=r"unknown kernel frontend.*"
-                                         r"builder.*c.*hlo.*trace"):
+                                         r"builder.*c.*graph.*hlo.*trace"):
         resolve_frontend("fortran")
-    # the JAX package's registration order, and a real hlo frontend
-    assert list(FRONTEND_REGISTRY) == list(JFRONTENDS)
+    # the JAX package's registration order, graph after hlo, and a real
+    # hlo frontend
+    order = list(JFRONTENDS)
+    order.insert(order.index("hlo") + 1, "graph")
+    assert list(FRONTEND_REGISTRY) == order
     prog = load_kernel("HloModule m", frontend="hlo")
     assert isinstance(prog, HLOProgram)
     assert prog.cache_key() == j_load("HloModule m",
@@ -333,3 +339,39 @@ def test_hlo_model_frontend_mismatch():
         with pytest.raises(TypeError) as theirs:
             j_analyze(src, IVY, model=model, **kw)
         assert str(ours.value) == str(theirs.value)
+
+
+# ----------------------------------------------------------------------
+# the flop recount: flops="fx" (make_fx) against JAX's flops="jaxpr"
+# ----------------------------------------------------------------------
+
+def _counts(fc) -> tuple:
+    return dataclasses.astuple(fc)
+
+
+@pytest.mark.parametrize("name", ["stencil3d7pt", "longrange3d"])
+def test_fx_recount_equals_jaxpr(name):
+    from repro.core.frontends.trace import trace_kernel as j_trace
+    from repro_torch.core.trace import trace_kernel
+    ours = importlib.import_module(f"repro_torch.kernels.{name}").point
+    theirs = importlib.import_module(f"repro.kernels.{name}").point
+    fx = trace_kernel(ours, flops="fx").flops
+    assert _counts(fx) == _counts(j_trace(theirs, flops="jaxpr").flops)
+    assert fx == trace_kernel(ours, flops="dag").flops
+
+
+def test_fx_recount_shared_subexpression_equals_jaxpr():
+    from repro.core.frontends.trace import kernel_spec as j_spec
+    from repro.core.frontends.trace import trace_kernel as j_trace
+    from repro_torch.core.trace import kernel_spec, trace_kernel
+
+    def body(a, b, s, i):
+        t = a[i] * 2.0          # one mul, reused twice
+        u = -t                  # a sign: counts nothing
+        b[i] = (t + t) / s.c - u + 1.0 - a[i + 1]
+    geometry = dict(name="shared", arrays={"a": ("N",), "b": ("N",)},
+                    loops=[("i", 0, "N-1")])
+    fx = trace_kernel(kernel_spec(**geometry)(body), flops="fx").flops
+    assert _counts(fx) == _counts(
+        j_trace(j_spec(**geometry)(body), flops="jaxpr").flops)
+    assert fx == FlopCount(add=4, mul=1, div=1)

@@ -118,7 +118,8 @@ def test_h100_machine_file_lints_clean():
 
 
 def test_unported_options_raise():
-    with pytest.raises(ValueError, match="not ported"):
+    # the jaxpr recount is JAX's; the refusal names the port's, "fx"
+    with pytest.raises(ValueError, match="flops='fx'"):
         trace.trace_kernel(stencil3d7pt.point, flops="jaxpr")
     # hlo-roofline on a traced loop kernel: JAX's refusal, in its words
     with pytest.raises(TypeError, match="consumes 'hlo' sources") as ours:
