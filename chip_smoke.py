@@ -212,8 +212,12 @@ followed by its seconds:
                step's flash calls and backwards held as in 10b, ms a step,
                tokens/s and peak memory beside 10b's, one step under
                ``torch.profiler`` (host ms, the card's busy share, the
-               longest idle gaps), the flash call timed as the sharded
-               path makes it (``attention._flash_shards`` on DTensor
+               longest idle gaps), the loss's vocab-parallel bodies on
+               one microbatch's float32 logits with the split forced
+               onto `model` (a one-rank mesh dim, which the step itself
+               runs unsharded) against ``torch.logsumexp`` and
+               ``gather`` within ``VOCAB_TOL``, the flash call timed as
+               the sharded path makes it (``attention._flash_shards`` on DTensor
                operands: ``local_map``, the layout copies, the kernel)
                beside the kernel alone; 13c, ``gpipe`` at one stage over
                4 microbatches of a granite-8b block at its published
@@ -247,7 +251,10 @@ followed by its seconds:
   14. graph  — graph-level analysis of the port's own programs
                (``repro_torch.core.graph_analysis``, ``launch.dryrun``,
                the ``graph`` frontend), after 11: the names it relies on
-               checked in this torch first, and the host microseconds
+               checked in this torch first, the recorder on a new op of
+               a fake (2, 2) mesh in a child (``META_PROBE``: the local
+               shard's ops alone, DTensor's global-shape metadata run
+               skipped), and the host microseconds
                to enqueue a flash call through the operator and through
                the wrapper at 9b's served shape; 14a the dry run of
                ``tests/test_dryrun.py``'s four cells (granite-8b
@@ -258,7 +265,8 @@ followed by its seconds:
                13's NCCL group), all started at once under
                ``DRYRUN_TIMEOUT``: per cell and mesh the three terms on
                the H100 file, the dominant one, GiB a device, the
-               collective kinds and the host seconds; 14b, while they
+               collective kinds, the host seconds and the three ops that
+               move the most bytes (``top_traffic``); 14b, while they
                run, one untimed step of 10b's cell and one prefill of
                9b's first bucket recorded on the card (every flash call
                one ``repro_torch::flash_attention`` operator: 64 in the
@@ -270,6 +278,21 @@ followed by its seconds:
                --config graph:<arch>`` for the ten reduced configs in a
                fresh process, each report conserving, beside the bundled
                dumps' reports (flops over JAX's, collective kinds);
+  15. examples — the port's five examples (``examples/torch_*.py``), each
+               a child process from the checkout's root, as a user runs
+               them: ``torch_quickstart`` (the 7-point kernel),
+               ``torch_stencil_modeling`` (the long-range kernel; the
+               §3 case study from the C file and the traced point
+               function), ``torch_serve_batched`` and ``torch_train_100m``
+               (flash attention on the wgmma route) on the card, and
+               ``torch_multipod_pipeline --device cpu --ranks 8`` on gloo
+               ranks (one card here); each must exit 0 (the stencil
+               examples hold their kernel against the plain version at
+               the reference tolerances, serving and training the
+               model's flash call against the plain attention at
+               bfloat16's 2e-2, the pipeline against the sequential
+               model) and print its route line; its wall seconds
+               printed;
   12. a JSON line naming each ported kernel (flash attention once per
      route, once per route, model and type of 7, once on 9b's serving
      path, once on 10b's training path and once on 13b's sharded one),
@@ -454,6 +477,12 @@ DROP = {"layers": 1, "seq": 256, "batch": 1}
 # ulp, where cuBLAS picks another kernel for another row count (read 0.0)
 COMPRESS = {"shape": (4096, 4096), "repeats": 8}
 SHARDED_TOL = 1e-5
+# 13b's vocab-shard check: the loss's vocab-parallel bodies
+# (``train.step._vocab_logsumexp``, ``_vocab_label_logits``) on one
+# microbatch's float32 logits, the split forced onto the mesh's `model`
+# dim, against ``torch.logsumexp`` and ``gather`` on the whole tensor:
+# the values and the gradient each within VOCAB_TOL of the largest
+VOCAB_TOL = 1e-5
 GPIPE = {"batch": 4, "seq": 1024, "microbatches": 4}
 GPIPE_TOL = 2 ** -7
 DROP_TOL = 2e-2
@@ -2853,6 +2882,60 @@ def timeline(fn) -> dict:
             "longest_gaps_us": sorted(gaps, reverse=True)[:5]}
 
 
+def vocab_shards_on_card(model, params, batch: dict, rule, mesh) -> dict:
+    """13b: the vocab-parallel loss on the card's torch and NCCL.  At one
+    rank ``train.step._vocab_split`` sends the loss down the unsharded
+    ops, so 13b's steps do not run its vocab-shard bodies; here they run
+    with the split forced onto the (1, 1) mesh's `model` dim (each
+    all-reduce over one rank), on the float32 logits of one microbatch
+    from 13b's trained parameters, each row weighted by a seeded normal
+    ``w``.  The log-sum-exp, the label pick and the gradient of
+    ``sum(w * (lse - picked))`` are held against ``torch.logsumexp`` and
+    ``gather`` on the whole tensor within VOCAB_TOL, relative to the
+    largest entry."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.models.common import sharded
+    from repro_torch.train import step as step_mod
+    mb = {n: x[:1] for n, x in batch.items()}
+    with torch.no_grad(), sharded(rule):
+        logits = model.forward(params, mb, remat=False, rule=rule)
+    given = logits.placements
+    vd, rows = 1, (Shard(0), Replicate())        # (data, model)
+    lg = logits[:, :-1].float().redistribute(mesh, (Shard(0), Shard(2))) \
+        .detach().requires_grad_()
+    del logits
+    labels = mb["labels"][:, :-1]
+    w = torch.randn(tuple(lg.shape[:2]), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED))
+    with sharded(rule):
+        lse = step_mod._vocab_logsumexp(lg, vd, rows)
+        picked = step_mod._vocab_label_logits(lg, labels, vd, rows)
+        (distribute_tensor(w, mesh, rows) * (lse - picked)).sum().backward()
+    full = lg.full_tensor().detach().requires_grad_()
+    if isinstance(labels, DTensor):
+        labels = labels.full_tensor()
+    want_lse = torch.logsumexp(full, -1)
+    want_pick = torch.gather(full, -1, labels.long()[..., None])[..., 0]
+    (w * (want_lse - want_pick)).sum().backward()
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+    errs = {"logsumexp": rel(lse.full_tensor(), want_lse),
+            "label_pick": rel(picked.full_tensor(), want_pick),
+            "grad": rel(lg.grad.full_tensor(), full.grad)}
+    print(f"    13b vocab shards forced on `model` (logits "
+          f"{tuple(full.shape)} float32, the rule's placements {given}; "
+          f"torch {torch.__version__}): log-sum-exp "
+          f"{errs['logsumexp']:.2e}, label pick {errs['label_pick']:.2e}, "
+          f"gradient {errs['grad']:.2e} from the whole tensor's, relative "
+          f"(bound {VOCAB_TOL})")
+    if not all(e <= VOCAB_TOL for e in errs.values()):
+        raise SmokeError(f"13b: the vocab-parallel loss {errs} from "
+                         f"torch.logsumexp and gather (bound {VOCAB_TOL})")
+    return errs
+
+
 def train_sharded(fa, mesh, measure, space, h100, card: str,
                   ref: dict) -> tuple:
     """13b: 10b again — granite-8b at its published widths cut to
@@ -2951,6 +3034,7 @@ def train_sharded(fa, mesh, measure, space, h100, card: str,
           f"{tl['window_us'] / 1e3:.1f} ms ({tl['busy_share']:.1%}) over "
           f"{tl['kernels']} kernels; longest idle gaps "
           f"{[round(g / 1e3, 2) for g in tl['longest_gaps_us']]} ms")
+    vocab = vocab_shards_on_card(model, params, batch, rule, mesh)
     del params, opt, trainer, batch
     torch.cuda.empty_cache()
     entry = train_flash_timing(cfg, fa, space, measure, h100,
@@ -2968,7 +3052,8 @@ def train_sharded(fa, mesh, measure, space, h100, card: str,
                "grad_norms": [m["grad_norm"] for m in log],
                "worst_from_10b": worst, "launches_per_step": rec["launches"],
                "backwards_per_step": rec["backward"], "profile": tl,
-               "flash_checks": flash, "backward_checks": back}
+               "flash_checks": flash, "backward_checks": back,
+               "vocab_shards": vocab}
     return entry, numbers
 
 
@@ -3252,7 +3337,32 @@ TORCH_NAMES = ("torch.library.Library", "torch.library.register_fake",
                "torch.distributed.tensor.placement_types.shard_dim_alltoall",
                "torch._C._current_graph_task_id",
                "torch._subclasses.fake_tensor.FakeTensorMode",
-               "torch.utils._python_dispatch.TorchDispatchMode")
+               "torch.utils._python_dispatch.TorchDispatchMode",
+               "torch.distributed.tensor._sharding_prop.ShardingPropagator."
+               "_propagate_tensor_meta_non_cached")
+# an op DTensor has not run before on a fake 4-rank (2, 2) mesh: DTensor
+# runs it once on fake tensors of the global (16, 32, 32) shape for its
+# result's metadata, which the recorder must skip, then on the local
+# (8, 16, 32) shard (tests/test_torch_graph_analysis.py); printed as JSON
+META_PROBE = (
+    "import json, torch\n"
+    "from torch.distributed.tensor import DTensor, Shard\n"
+    "from torch._subclasses.fake_tensor import FakeTensorMode\n"
+    "from repro_torch.core import graph_analysis as ga\n"
+    "from repro_torch.launch import dryrun\n"
+    "from repro_torch.launch.mesh import make_local_mesh\n"
+    "with dryrun.fake_world(4):\n"
+    "    mesh = make_local_mesh(2, 2, device='cpu')\n"
+    "    with FakeTensorMode():\n"
+    "        sh = DTensor.from_local(torch.empty(8, 16, 32), mesh,\n"
+    "                                [Shard(0), Shard(1)], run_check=False)\n"
+    "        _, cap = ga.capture(lambda: torch.exp(sh) * sh)\n"
+    "print(json.dumps({'ops': [r.opcode for r in cap.analysis.ops],\n"
+    "                  'shapes': sorted({r.shape\n"
+    "                                    for r in cap.analysis.ops}),\n"
+    "                  'temp': cap.peak_bytes - cap.argument_bytes}))\n")
+META_WANT = {"ops": ["exp", "mul"], "shapes": ["f32[8,16,32]"],
+             "temp": 2 * 4 * 8 * 16 * 32}
 # 14b's classes, as 10b's profile names them
 STEP_CLASSES = ("GEMM", "flash forward", "attention backward",
                 "elementwise", "optimizer")
@@ -3328,6 +3438,40 @@ def operator_cost(fa) -> dict:
     return {"runs": got, "median": med}
 
 
+def start_meta_probe() -> subprocess.Popen:
+    """META_PROBE in a fresh process (its own fake process group)."""
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    return subprocess.Popen([sys.executable, "-c", META_PROBE], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_meta_probe(proc: subprocess.Popen) -> dict:
+    """META_PROBE's result on this torch, held to META_WANT: the recorder
+    counts the local-shard ops alone, so DTensor still routes its
+    metadata runs through the method the recorder patches."""
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeError(f"14: the metadata-run probe ran past "
+                         f"{DRYRUN_TIMEOUT} s")
+    if proc.returncode:
+        raise SmokeError(f"14: the metadata-run probe exited "
+                         f"{proc.returncode}: {err[-1500:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    print(f"  14 recorder on torch {torch.__version__}, a new op on a fake "
+          f"(2, 2) mesh: ops {got['ops']} at {got['shapes']}, "
+          f"{got['temp']} B live (want {META_WANT})")
+    if got != META_WANT:
+        raise SmokeError(f"14: the recorder counted {got} for the probe, "
+                         f"not the local shard's {META_WANT}: DTensor's "
+                         "metadata runs no longer pass through "
+                         f"{TORCH_NAMES[-1]}")
+    return got
+
+
 def start_dryruns(out: pathlib.Path) -> list:
     """14a's children: ``python -m repro_torch.launch.dryrun --arch A
     --shape S --mesh both`` for each of DRYRUN_CELLS, all started at
@@ -3378,11 +3522,17 @@ def finish_dryruns(procs: list, out: pathlib.Path) -> dict:
                   f"({rep['n_collectives']}); {rep['n_ops']} costed ops of "
                   f"{rep['dispatched']} dispatched; host {rep['host_s']:.1f}"
                   f" s in the cell (child {wall:.1f} s)")
+            top = rep["top_traffic"][:3]
+            print(f"      peak {gib:.2f} GiB a device; top traffic "
+                  + "; ".join(f"{t['op']} {t['bytes'] / 2 ** 30:.2f} GiB"
+                              for t in top))
             rows[f"{arch}__{shape}__{mesh}"] = {
-                k: rep[k] for k in ("t_compute", "t_memory", "t_collective",
-                                    "dominant", "memory", "n_collectives",
-                                    "collective_by_kind", "mxu_flops",
-                                    "vpu_flops", "hbm_bytes", "host_s")}
+                **{k: rep[k] for k in ("t_compute", "t_memory",
+                                       "t_collective", "dominant", "memory",
+                                       "n_collectives", "collective_by_kind",
+                                       "mxu_flops", "vpu_flops", "hbm_bytes",
+                                       "host_s")},
+                "top_traffic": top}
     if failed or len(rows) != 2 * len(DRYRUN_CELLS):
         raise SmokeError(f"14a: {len(rows)} of {2 * len(DRYRUN_CELLS)} "
                          f"dry-run reports; failed {failed}")
@@ -3586,6 +3736,7 @@ def graph_level(fa, h100, card: str, predicted: dict) -> dict:
     cost = operator_cost(fa)      # before the children share the host
     out = ROOT / "build" / "chip_smoke" / "dryrun"
     procs = start_dryruns(out)
+    probe = start_meta_probe()
     rates = MachineRates.from_machine(h100)
     print(f"  14b on {card}, priced on {rates.machine}: tensor cores "
           f"{rates.mxu_peak / 1e12:.0f}, CUDA cores "
@@ -3601,11 +3752,78 @@ def graph_level(fa, h100, card: str, predicted: dict) -> dict:
     except BaseException:
         for *_, proc in procs:
             proc.kill()
+        probe.kill()
+        raise
+    try:
+        meta = finish_meta_probe(probe)
+    except BaseException:
+        for *_, proc in procs:
+            proc.kill()
         raise
     dry = finish_dryruns(procs, out)
     fleet = fleet_of_graphs()
     return {"dryrun": dry, "train_step": step, "prefill": prefill,
-            "fleet": fleet, "operator": cost}
+            "fleet": fleet, "operator": cost, "metadata_probe": meta}
+
+
+# ----------------------------------------------------------------------
+# phase 15: the port's examples, each a child process as a user runs it
+# ----------------------------------------------------------------------
+#: (script, its arguments, the route line it must print: a regular
+#: expression); the four card examples run on the card, the pipeline on 8
+#: gloo ranks on the CPU (the card machine has one card)
+EXAMPLES = [
+    ("torch_quickstart", [],
+     r"route: cuda \(src/repro_torch/csrc/stencil3d7pt\.cu\), 1 launch"),
+    ("torch_stencil_modeling", [],
+     r"route: cuda \(src/repro_torch/csrc/longrange3d\.cu\), 1 launch"),
+    ("torch_serve_batched", [], r"route: flash attention \{'wgmma': \d+"),
+    ("torch_train_100m", ["--ckpt-dir", "CKPT"],
+     r"route: flash attention \{'wgmma': \d+"),
+    ("torch_multipod_pipeline", ["--device", "cpu", "--ranks", "8"],
+     r"GPipe over 8 pods == sequential forward .*max abs err"),
+]
+EXAMPLE_TIMEOUT = 240
+
+
+def run_examples(card: str) -> dict:
+    """Phase 15: each of EXAMPLES in turn as a child process from the
+    checkout's root (``PYTHONPATH=src``; the libraries phase 2 built are
+    loaded, not rebuilt), under EXAMPLE_TIMEOUT: it must exit 0 (each
+    holds its kernel, or the pipeline its result, against the plain
+    version and raises otherwise) and print its route line.  Prints each one's wall seconds and its last
+    lines."""
+    work = ROOT / "build" / "chip_smoke" / "examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    rows, failed = {}, []
+    for name, argv, route in EXAMPLES:
+        argv = [str(work / "train_100m") if a == "CKPT" else a for a in argv]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+                 *argv], cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=EXAMPLE_TIMEOUT)
+            rc, out, err = proc.returncode, proc.stdout, proc.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out, err = "timeout", str(e.stdout or ""), str(e.stderr or "")
+        wall = time.perf_counter() - t0
+        found = re.search(route, out)
+        print(f"  15 {name} {' '.join(argv)}: exit {rc} in {wall:.1f} s; "
+              f"{found.group(0) if found else 'no route line'}")
+        for line in out.strip().splitlines()[-5:]:
+            print(f"      {line}")
+        rows[name] = {"rc": rc, "seconds": wall,
+                      "route": found.group(0) if found else None,
+                      "tail": out.strip().splitlines()[-12:]}
+        if rc != 0 or not found:
+            failed.append((name, rc, err[-1500:]))
+    print(f"  card: {card}")
+    if failed:
+        raise SmokeError(f"15: examples failed: {failed}")
+    return rows
 
 
 def smoke(out_path: str | None) -> int:
@@ -3867,6 +4085,9 @@ def smoke(out_path: str | None) -> int:
     phase("14 graph-level analysis of the port's own programs")
     predicted["graph"] = graph_level(fa, h100, card, predicted)
     torch.cuda.empty_cache()
+
+    phase("15 the port's examples as a user runs them")
+    predicted["examples"] = run_examples(card)
 
     phase("12 result")
     result = {"kernels": entries}

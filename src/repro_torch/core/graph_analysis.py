@@ -9,7 +9,10 @@ operands and results.  An op whose operands include a DTensor is handed
 back to DTensor (the mode returns ``NotImplemented``), so the recorder
 sees what DTensor runs on each rank: the *local-shard* ops and the
 collectives of its redistributions.  The counts are therefore per device,
-as the per-device HLO's are.  The result is the same
+as the per-device HLO's are.  DTensor also runs each op it has not seen
+before once on fake tensors of the *global* shape, to learn its result's
+shape and strides (``ShardingPropagator._propagate_tensor_meta_non_cached``);
+no rank runs those, and the recorder skips them.  The result is the same
 :class:`~repro_torch.core.hlo_analysis.HLOAnalysis`, with one
 :class:`~repro_torch.core.hlo_analysis.OpCost` record per op that costs
 anything, and every module total is accumulated at the point its record
@@ -129,6 +132,9 @@ _COLLECTIVES = {
     "shard_dim_alltoall": "all-to-all",
 }
 _FLASH = "flash_attention"
+#: DTensor's run of an op on global-shape fake tensors, for its result's
+#: metadata (module docstring)
+_META_RUN = "_propagate_tensor_meta_non_cached"
 
 
 def shape_str(t: torch.Tensor) -> str:
@@ -261,6 +267,29 @@ class Recorder(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._alive: dict[int, int] = {}
+        self._meta_runs = 0
+        self._saved = None
+
+    # -- DTensor's metadata runs ----------------------------------------
+    def __enter__(self):
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator
+        run = self._saved = ShardingPropagator.__dict__[_META_RUN]
+
+        def skipped(prop, op_schema):
+            self._meta_runs += 1
+            try:
+                return run(prop, op_schema)
+            finally:
+                self._meta_runs -= 1
+        setattr(ShardingPropagator, _META_RUN, skipped)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator
+        setattr(ShardingPropagator, _META_RUN, self._saved)
+        return super().__exit__(*exc)
 
     # -- memory -------------------------------------------------------
     def _allocated(self, t: torch.Tensor) -> None:
@@ -279,6 +308,8 @@ class Recorder(TorchDispatchMode):
     # -- dispatch -----------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._meta_runs:
+            return func(*args, **kwargs)   # no rank runs it
         if any(isinstance(t, DTensor)
                for t in _pytree.tree_leaves((args, kwargs))):
             return NotImplemented     # DTensor runs it as local-shard ops

@@ -46,7 +46,7 @@ class TrainConfig:
 def _xent(logits, labels, z_coef: float):
     """fp32 softmax cross-entropy with z-loss; returns (loss, zloss) means."""
     lg = logits.float()
-    lse = torch.logsumexp(lg, dim=-1)
+    lse = _row_logsumexp(lg)
     ll = _label_logits(lg, labels)
     ce = lse - ll
     z = torch.square(lse)
@@ -55,6 +55,64 @@ def _xent(logits, labels, z_coef: float):
 
 def _take(t, i):
     return torch.gather(t, -1, i.long()[..., None])[..., 0]
+
+
+def _vocab_split(lg):
+    """``(vd, rows)`` when DTensor logits ``lg`` are split evenly over
+    vocab on exactly one mesh dim ``vd`` of more than one rank and their
+    rows split evenly; ``rows`` is their placements with dim 0's split
+    kept and every other mesh dim replicated.  ``vd`` is None otherwise:
+    a vocab "split" over one rank runs whole on each rank's rows, the
+    same local ops as the unsharded loss."""
+    mesh, V = lg.device_mesh, lg.shape[-1]
+    vocab = [d for d, p in enumerate(lg.placements)
+             if p == Shard(lg.ndim - 1) and mesh.size(d) > 1]
+    rows = tuple(p if p == Shard(0) else Replicate() for p in lg.placements)
+    if len(vocab) != 1 or V % mesh.size(vocab[0]) or \
+            lg.shape[0] % row_shards(lg):
+        return None, rows
+    return vocab[0], rows
+
+
+def _row_logsumexp(lg):
+    """``logsumexp(lg, -1)``, (b, s).  Logits split evenly over vocab on
+    one mesh dim reduce on each rank's vocab slice: the row max, detached
+    (the result does not depend on the shift), all-reduced with ``max``
+    over that dim, then the sum of ``exp(lg - max)`` all-reduced with
+    ``sum`` — two (b, s) all-reduces, the rows kept on their batch
+    shards.  The backward is each rank's ``softmax · g`` on its own
+    slice, where DTensor's own ``logsumexp`` gathers the whole vocab for
+    a rank's rows.  Other DTensor logits run on each rank's rows with the
+    vocab gathered (:func:`~repro_torch.models.common.on_replicas`)."""
+    if not isinstance(lg, DTensor):
+        return torch.logsumexp(lg, -1)
+    vd, rows = _vocab_split(lg)
+    if vd is None:
+        return on_replicas(lambda t: torch.logsumexp(t, -1), lg, rows=(0,))
+    return _vocab_logsumexp(lg, vd, rows)
+
+
+def _vocab_logsumexp(lg, vd: int, rows: tuple):
+    """:func:`_row_logsumexp` of DTensor logits split over vocab on mesh
+    dim ``vd``, with the result on ``rows``' placements
+    (:func:`_vocab_split`)."""
+    mesh = lg.device_mesh
+    split = tuple(Shard(lg.ndim - 1) if d == vd else p
+                  for d, p in enumerate(rows))
+
+    def over_vocab(op):
+        return tuple(Partial(op) if d == vd else p
+                     for d, p in enumerate(rows))
+    m = local_map(lambda t: t.amax(-1),
+                  out_placements=list(over_vocab("max")),
+                  in_placements=(split,), device_mesh=mesh,
+                  redistribute_inputs=True)(lg.detach()) \
+        .redistribute(mesh, rows)
+    s = local_map(lambda t, m_: torch.exp(t - m_[..., None]).sum(-1),
+                  out_placements=list(over_vocab("sum")),
+                  in_placements=(split, rows), device_mesh=mesh,
+                  redistribute_inputs=True)(lg, m).redistribute(mesh, rows)
+    return m + torch.log(s)
 
 
 def _label_logits(lg, labels):
@@ -67,14 +125,17 @@ def _label_logits(lg, labels):
     (:func:`~repro_torch.models.common.on_replicas`)."""
     if not isinstance(lg, DTensor):
         return _take(lg, labels)
-    mesh, V = lg.device_mesh, lg.shape[-1]
-    vocab = [d for d, p in enumerate(lg.placements)
-             if p == Shard(lg.ndim - 1)]
-    rows = tuple(p if p == Shard(0) else Replicate() for p in lg.placements)
-    if len(vocab) != 1 or V % mesh.size(vocab[0]) or \
-            lg.shape[0] % row_shards(lg):
+    vd, rows = _vocab_split(lg)
+    if vd is None:
         return on_replicas(_take, lg, labels, rows=(0, 1))
-    (vd,) = vocab
+    return _vocab_label_logits(lg, labels, vd, rows)
+
+
+def _vocab_label_logits(lg, labels, vd: int, rows: tuple):
+    """:func:`_label_logits` of DTensor logits split over vocab on mesh
+    dim ``vd``, with the result on ``rows``' placements
+    (:func:`_vocab_split`)."""
+    mesh = lg.device_mesh
     if not isinstance(labels, DTensor):
         labels = DTensor.from_local(labels, mesh, (Replicate(),) * mesh.ndim,
                                     run_check=False)
@@ -108,7 +169,9 @@ def loss_fn(model, params, batch, rule=None, tcfg: TrainConfig | None = None,
     metrics = {"ce": ce, "z_loss": z}
     if cfg.mtp:
         mtp_logits = model.mtp_forward(params, hidden, labels, rule=rule)
-        mtp_labels = torch.roll(labels, -1, dims=1)
+        # row by row: torch 2.11's DTensor has no strategy for roll
+        mtp_labels = on_replicas(lambda t: torch.roll(t, -1, dims=1),
+                                 labels, rows=(0,))
         mtp_ce, _ = _xent(mtp_logits[:, :-2], mtp_labels[:, :-2], 0.0)
         loss = loss + tcfg.mtp_weight * mtp_ce
         metrics["mtp_ce"] = mtp_ce

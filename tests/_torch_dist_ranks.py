@@ -341,9 +341,12 @@ def escapes() -> dict:
     over `data` (a plain tensor among them cut to this rank's rows), the
     rest gathered, and the gradients of a whole argument summed over the
     rows; rows that do not split evenly, and no ``rows``, run whole.
-    Then the loss's label pick on vocab shards and the embedding lookup.
-    Each case: max abs differences of the value and the gradients, the
-    result's placements and its local rows."""
+    Then the loss's label pick and its log-sum-exp on vocab shards (10
+    split over `model`; 9, which does not split, on each rank's rows), the
+    loss on a (4, 1) mesh against the unsharded one in float32 (its `model`
+    of one rank runs the same local ops: the rows' log-sum-exp and the
+    logits' gradient equal bit for bit) and the embedding lookup.  Each case: max abs differences of the value
+    and the gradients, the result's placements and its local rows."""
     mesh = _mesh()
     g = torch.Generator().manual_seed(3)
     out = {}
@@ -383,6 +386,37 @@ def escapes() -> dict:
                              float((_t(live.grad) - ref.grad).abs().max())],
                      "placements": _placed(got),
                      "local_rows": got.to_local().shape[0]}
+    for case, V in (("logsumexp", 10), ("logsumexp uneven", 9)):
+        lg = torch.randn(4, 6, V, generator=g, dtype=torch.float64)
+        ref = lg.clone().requires_grad_()
+        want = torch.logsumexp(ref, -1)
+        wt = torch.randn(4, 6, generator=g, dtype=torch.float64)
+        (want * wt).sum().backward()
+        live = common.distribute(lg, mesh, (Shard(0), Shard(2))) \
+            .requires_grad_()
+        got = step_mod._row_logsumexp(live)
+        (got * common.distribute(wt, mesh, got.placements)).sum().backward()
+        out[case] = {"err": [float((_t(got) - want).detach().abs().max()),
+                             float((_t(live.grad) - ref.grad).abs().max())],
+                     "placements": _placed(got),
+                     "local_rows": got.to_local().shape[0]}
+    # `model` of one rank: the loss runs the unsharded loss's local ops,
+    # so a sharded step on one card equals the unsharded one bit for bit
+    lg = torch.randn(4, 6, 10, generator=g)
+    labels = torch.randint(0, 10, (4, 6), generator=g)
+    ref = lg.clone().requires_grad_()
+    want = sum(step_mod._xent(ref, labels, 1e-4))
+    want.backward()
+    m41 = _mesh(4, 1)
+    live = common.distribute(lg, m41, (Shard(0), Shard(2))).requires_grad_()
+    got = step_mod._xent(live, common.distribute(
+        labels, m41, (Shard(0), Replicate())), 1e-4)
+    sum(got).backward()
+    lse = step_mod._row_logsumexp(live)
+    out["one-rank vocab"] = {
+        "err": [float((_t(lse) - torch.logsumexp(lg, -1)).abs().max()),
+                float((_t(live.grad) - ref.grad).abs().max())],
+        "placements": _placed(lse), "local_rows": lse.to_local().shape[0]}
     cfg = _granite()
     table = common.distribute(torch.randn(cfg.vocab, 8, generator=g), mesh,
                               (Shard(1), Shard(0)))
@@ -393,6 +427,81 @@ def escapes() -> dict:
                      "placements": _placed(got),
                      "local_rows": got.to_local().shape[0]}
     return out
+
+
+def _numel(shape: str) -> int:
+    """Elements of a recorded result type such as ``f32[4,6,5]``."""
+    dims = shape[shape.index("[") + 1:-1]
+    return int(np.prod([int(d) for d in dims.split(",") if d]))
+
+
+def loss_ops() -> dict:
+    """The loss (``_xent`` with its z-loss) forward and backward on the
+    (2, 2) mesh under ``graph_analysis.Recorder``, on float32 logits
+    (16, 8, 64) split (data, model), against a rank's logits shard: the
+    most elements any op of the backward (and of the whole call) touches,
+    and the ops' names, beside the shard's elements."""
+    from repro_torch.core import graph_analysis
+    mesh = _mesh()
+    g = torch.Generator().manual_seed(5)
+    lg = common.distribute(torch.randn(16, 8, 64, generator=g), mesh,
+                           (Shard(0), Shard(2))).requires_grad_()
+    labels = common.distribute(torch.randint(0, 64, (16, 8), generator=g),
+                               mesh, (Shard(0), Replicate()))
+
+    def loss():
+        ce, z = step_mod._xent(lg, labels, 1e-4)
+        (ce + z).backward()
+    _, cap = graph_analysis.capture(loss)
+    ops = cap.analysis.ops
+    back = [o for o in ops if o.computation == "backward"]
+    return {"shard": lg.to_local().numel(),
+            "backward": max(_numel(o.shape) for o in back),
+            "all": max(_numel(o.shape) for o in ops),
+            "n_backward": len(back),
+            "widest": max(ops, key=lambda o: _numel(o.shape)).name}
+
+
+def mtp_loss() -> dict:
+    """``loss_fn`` of the reduced deepseek-v3 (MLA, MoE and the MTP head,
+    whose logits go through the same ``_xent``) in float32 on the (2, 2)
+    mesh under ``rule_for(cfg, train_4k)``, against the unsharded call
+    from the same parameters and batch: the loss, each metric, which
+    leaves the backward reached in each, and each reached parameter's
+    gradient (max abs difference over the leaf's largest entry)."""
+    cfg = dataclasses.replace(
+        configs.reduced(configs.get_config("deepseek-v3-671b")),
+        act_dtype="float32")
+    model = F32LM(cfg)
+    recs = model.param_recs()
+    params = common.materialize(recs, torch.Generator().manual_seed(0),
+                                default_dtype=torch.float32)
+    batch = _forward_batch(cfg)
+    batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+    live = common.tmap(lambda p: p.clone().requires_grad_(), params)
+    loss, metrics = step_mod.loss_fn(model, live, batch)
+    loss.backward()
+    mesh = _mesh()
+    rule = cell.rule_for(cfg, SHAPE, multi_pod=False)
+    sh = cell.shard(mesh, common.spec_tree(recs, rule))
+    dlive = common.tmap(lambda t, s: s.distribute(t).requires_grad_(),
+                        params, sh)
+    bspecs = cell.shard(mesh, cell.batch_specs(cfg, SHAPE, rule))
+    dbatch = {k: bspecs[k].distribute(v) for k, v in batch.items()}
+    with common.sharded(rule):
+        dloss, dmetrics = step_mod.loss_fn(model, dlive, dbatch, rule=rule)
+        dloss.backward()
+    grads, reached = [], []
+    for d, r in zip(common.leaves(dlive), common.leaves(live)):
+        reached.append((r.grad is not None, d.grad is not None))
+        if r.grad is None or d.grad is None:
+            continue
+        want, got = r.grad.detach(), _t(d.grad).detach()
+        grads.append(float((got - want).abs().max() /
+                           max(float(want.abs().max()), 1e-30)))
+    return {"metrics": {n: (float(_t(dmetrics[n])), float(m))
+                        for n, m in metrics.items()},
+            "grads": grads, "reached": reached}
 
 
 def refuses_model_4() -> str:
@@ -429,7 +538,9 @@ def group4(jdir: str, npz: str, jax_ckpt: str, work: str,
              "trainer": lambda: trainer_on_mesh(str(work / "trainer")),
              "refusal": refuses_model_4,
              "einsums": einsums,
-             "escapes": escapes}
+             "escapes": escapes,
+             "loss_ops": loss_ops,
+             "mtp_loss": mtp_loss}
     out, seconds = {}, {}
     for name, run in parts.items():
         t0 = time.perf_counter()

@@ -20,8 +20,10 @@ fixtures:
   re-sharding onto (2, 2), (4, 1) and (1, 4) (JAX's checkpoint too),
   ``Trainer(rule=..., mesh=...)`` with a failure and a restore, the
   shard-local einsum and the escapes (``on_replicas`` on a rank's rows,
-  the label pick on vocab shards, the lookup), and the flash path's
-  refusal of a (1, 4) mesh;
+  the label pick and log-sum-exp on vocab shards, the lookup), the
+  loss's recorded ops against a rank's logits shard, the reduced
+  deepseek-v3's loss with its MTP head sharded against unsharded, and
+  the flash path's refusal of a (1, 4) mesh;
 * JAX on 4 devices: the port's sharded checkpoint restored onto a JAX
   (2, 2) mesh.
 
@@ -43,7 +45,9 @@ sharded contractions sum in another order, and this init's softmax
 amplifies the last bits, as between XLA and torch).  The trainer on the
 mesh in float32: losses within ``STEP_RTOL_F32`` and each master's move
 within ``MOVED_TOL`` of the single-process trainer's.  The shard-local
-einsum and the escapes against full float64 tensors within 1e-12.
+einsum and the escapes against full float64 tensors within 1e-12.  The
+sharded MTP loss in float32: metrics within ``STEP_RTOL_F32``, gradients
+within ``MTP_GRAD_TOL``.
 """
 import concurrent.futures
 
@@ -76,6 +80,10 @@ GRAD_NORM_RTOL = 1e-4
 #: average within MOVED_MEAN_TOL (measured 1.4e-5)
 MOVED_TOL = 3e-2
 MOVED_MEAN_TOL = 1e-3
+#: the reduced deepseek-v3's sharded gradients against its unsharded ones,
+#: each leaf's max difference over its largest entry (float32; measured
+#: 1.8e-5, the sums' order)
+MTP_GRAD_TOL = 1e-4
 
 JAX_ORACLE = r"""
 import sys
@@ -416,16 +424,23 @@ def test_sharded_einsum_matches_full_tensors(ranks4, case):
     ("uneven rows", [("Replicate", None)] * 2, 3),
     ("no rows", [("Replicate", None)] * 2, 4),
     ("labels", [("Shard", 0), ("Replicate", None)], 2),
+    ("logsumexp", [("Shard", 0), ("Replicate", None)], 2),
+    ("logsumexp uneven", [("Shard", 0), ("Replicate", None)], 2),
+    ("one-rank vocab", [("Shard", 0), ("Replicate", None)], 1),
     ("lookup", [("Shard", 0), ("Replicate", None)], 2)])
 def test_escapes_keep_the_batch_split(ranks4, case, placed, rows):
     """``on_replicas`` (the escape for ops DTensor cannot shard) against
     full float64 tensors: with ``rows`` each rank computes its own rows of
     the batch only, and the result stays split over `data`; the loss's
-    label pick on vocab shards and the embedding lookup keep the batch's
-    split."""
+    label pick and log-sum-exp on vocab shards (and on a vocab that does
+    not split, through ``on_replicas``) and the embedding lookup keep the
+    batch's split; on a `model` of one rank the loss equals the unsharded
+    loss exactly."""
     for r in ranks4:
         got = r["escapes"][case]
         assert max(got["err"]) < 1e-12, got["err"]
+        if case == "one-rank vocab":
+            assert got["err"] == [0.0, 0.0]
         assert got["placements"] == placed
         assert got["local_rows"] == rows
 
@@ -436,3 +451,34 @@ def test_flash_refuses_a_model_size_that_splits_kv_heads(ranks4):
     head, and the flash path refuses rather than compute garbage."""
     for r in ranks4:
         assert "do not split evenly" in r["refusal"], r["refusal"]
+
+
+def test_loss_backward_stays_on_the_logits_shard(ranks4):
+    """The loss recorded by ``graph_analysis.Recorder`` on the (2, 2)
+    mesh: no op of its forward or backward touches more elements than a
+    rank's logits shard (the vocab-parallel log-sum-exp and label pick
+    reduce (b, s) rows over `model`; DTensor's own ``logsumexp`` gathered
+    the vocab)."""
+    for r in ranks4:
+        got = r["loss_ops"]
+        assert got["n_backward"] > 0
+        assert got["backward"] <= got["shard"], got
+        assert got["all"] <= got["shard"], got
+
+
+def test_sharded_mtp_loss_matches_unsharded(ranks4):
+    """``loss_fn`` of the reduced deepseek-v3, whose MTP head's logits go
+    through the same vocab-parallel ``_xent``, on the (2, 2) mesh against
+    the unsharded call in float32: every metric within ``STEP_RTOL_F32``
+    and every gradient within ``MTP_GRAD_TOL`` of its leaf's largest
+    entry; the backward reaches the same leaves."""
+    out = ranks4[0]["mtp_loss"]
+    assert set(out["metrics"]) == {"ce", "z_loss", "mtp_ce", "loss"}
+    for name, (got, want) in out["metrics"].items():
+        assert abs(got - want) <= STEP_RTOL_F32 * abs(want), (name, got,
+                                                                want)
+    assert all(a == b for a, b in out["reached"])
+    assert sum(a for a, _ in out["reached"]) == len(out["grads"]) > 40
+    assert max(out["grads"]) < MTP_GRAD_TOL, max(out["grads"])
+    for r in ranks4[1:]:
+        assert r["mtp_loss"]["metrics"] == out["metrics"]

@@ -42,6 +42,12 @@ def test_granite_train_cell_on_pod16x16(tmp_path):
     shape = configs.SHAPES["train_4k"]
     assert rep["model_flops"] == 6.0 * cfg.active_param_count() * \
         shape.batch * shape.seq / 256
+    # the step fits an 80 GB card, and the loss reduces over vocab shards:
+    # no op among the costliest spans the whole vocab
+    assert rep["memory"]["total_per_device"] < 80 * 2 ** 30
+    whole_vocab = [t for t in rep["top_traffic"]
+                   if t["op"].endswith(f",{cfg.vocab}]")]
+    assert whole_vocab == [], whole_vocab
 
 
 def test_list_equals_the_cells(capsys):

@@ -237,13 +237,19 @@ with dryrun.fake_world(4):
             return a, b, c, d
         with dryrun.device_collectives():
             _, cap = ga.capture(moves)
+        # ops DTensor has not run before: each runs once on global-shape
+        # fake tensors, for its result's metadata, then on the local shard
+        _, meta = ga.capture(lambda: torch.exp(sh) * sh)
 ana = cap.analysis
 collectives = {
     "ops": [r.to_dict() for r in ana.ops],
     "schedule": [[r.kind, r.result_bytes, r.wire_bytes, r.group_size]
                  for r in ana.schedule],
     "by_kind": dict(ana.collective_by_kind),
-    "wire": ana.collective_wire_bytes, "dispatched": cap.n_dispatched}
+    "wire": ana.collective_wire_bytes, "dispatched": cap.n_dispatched,
+    "meta": {"shapes": sorted({r.shape for r in meta.analysis.ops}),
+             "ops": [r.opcode for r in meta.analysis.ops],
+             "temp": meta.peak_bytes - meta.argument_bytes}}
 """
 
 
@@ -291,6 +297,17 @@ def test_wait_tensor_costs_nothing(collectives):
     coll = [r for r in ops if r["collective"]]
     assert len(coll) == 4
     assert all(r["hbm_bytes"] > 0 and r["group_size"] == 2 for r in coll)
+
+
+def test_dtensor_metadata_runs_are_not_recorded(collectives):
+    """DTensor runs an op it has not seen once on fake tensors of the
+    global (16, 32, 32) shape to learn its result's metadata; no rank runs
+    that, so the recorder counts the local (8, 16, 32) ops alone: their
+    bytes, and as live memory the two local results."""
+    meta = collectives["meta"]
+    assert meta["ops"] == ["exp", "mul"]
+    assert meta["shapes"] == ["f32[8,16,32]"]
+    assert meta["temp"] == 2 * 4 * 8 * 16 * 32
 
 
 # ----------------------------------------------------------------------
