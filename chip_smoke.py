@@ -232,8 +232,9 @@ followed by its seconds:
      and 13c's) and must be positive just after it (in 6: bf16x3, its
      split, simt; in 8d's replay, zero);
   11. fleet — graph-level analysis (``repro_torch.fleet``), host only, no
-               launch: 11a ``fleet --all`` on the JAX package's two
-               machine files (by path, as YAML) into ``build/``, whose 20
+               launch: 11a ``fleet --all -m IVY -m V5E`` (the port's
+               copies of the JAX package's two machine files, by alias)
+               into ``build/``, whose 20
                artifacts ``scripts/fleet_gate.py``'s ``compare`` (loaded
                by path; it imports only the standard library) holds
                against ``benchmarks/golden/fleet/``: 20 pairs, no
@@ -260,13 +261,17 @@ followed by its seconds:
                ``tests/test_dryrun.py``'s four cells (granite-8b
                ``train_4k``, deepseek-v3-671b ``decode_32k``, mamba2-2.7b
                ``long_500k``, whisper-small ``prefill_32k``) on
-               ``pod16x16`` and ``pod2x16x16``, each cell in a child
+               ``pod16x16`` and ``pod2x16x16``, and of zamba2-7b,
+               mamba2-2.7b and whisper-small ``train_4k`` on
+               ``pod16x16`` (``TRAIN_CELLS``), each cell in a child
                process with its own fake process group (this one holds
                13's NCCL group), all started at once under
                ``DRYRUN_TIMEOUT``: per cell and mesh the three terms on
                the H100 file, the dominant one, GiB a device, the
                collective kinds, the host seconds and the three ops that
-               move the most bytes (``top_traffic``); 14b, while they
+               move the most bytes (``top_traffic``), each training cell
+               beside the JAX package's own figure for it and failing
+               the phase at ``CARD_GIB`` or more; 14b, while they
                run, one untimed step of 10b's cell and one prefill of
                9b's first bucket recorded on the card (every flash call
                one ``repro_torch::flash_attention`` operator: 64 in the
@@ -3175,7 +3180,6 @@ def distribution(fa, measure, space, h100, card: str, ref: dict) -> tuple:
 # fleet analyzer), priced on the H100 file and held to the JAX goldens
 # ----------------------------------------------------------------------
 
-J_MACHINES = SRC / "repro" / "configs" / "machines"
 GOLDENS = ROOT / "benchmarks" / "golden" / "fleet"
 # ``python -m repro_torch ARGV`` run by runpy, with the fleet analyzer's
 # module walks counted and its service counters written to stderr
@@ -3222,15 +3226,15 @@ def fleet_child(argv: list) -> tuple[str, dict, float]:
 
 
 def fleet_goldens(cli, out: pathlib.Path) -> dict:
-    """11a: the 20 artifacts on the JAX package's machine files against
-    the goldens, through the gate's own ``compare``."""
+    """11a: the 20 artifacts on the paper's and the v5e machine files
+    (the port's copies, by alias) against the goldens, through the gate's
+    own ``compare``."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "fleet_gate", ROOT / "scripts" / "fleet_gate.py")
     gate = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(gate)
-    machines = [str(J_MACHINES / "ivybridge_ep.yaml"),
-                str(J_MACHINES / "tpu_v5e.yaml")]
+    machines = ["IVY", "V5E"]
     argv = ["fleet", "--all", "--out", str(out)]
     for m in machines:
         argv += ["-m", m]
@@ -3243,7 +3247,7 @@ def fleet_goldens(cli, out: pathlib.Path) -> dict:
              for n in sorted(set(arts) & set(golds))}
     fails = {n: f for n, f in fails.items() if f}
     pairs = len(set(arts) & set(golds))
-    print(f"  11a fleet --all on ivybridge_ep.yaml and tpu_v5e.yaml: exit "
+    print(f"  11a fleet --all -m IVY -m V5E: exit "
           f"{rc}, {pairs} pairs against benchmarks/golden/fleet, "
           f"{len(fails)} failing, missing {missing}, {secs:.3f} s")
     if rc != 0 or pairs != 20 or fails or missing:
@@ -3328,6 +3332,16 @@ def fleet_tier(cli) -> dict:
 DRYRUN_CELLS = [("granite-8b", "train_4k"), ("deepseek-v3-671b", "decode_32k"),
                 ("mamba2-2.7b", "long_500k"), ("whisper-small", "prefill_32k")]
 DRYRUN_TIMEOUT = 600
+# the training cells whose escapes once gathered a rank's heads (the SSD
+# scan) or kept every chunk of the grouped attention alive, on pod16x16
+# only, each beside the JAX package's own figure for it: ``total_per_device``
+# of ``repro.launch.dryrun.run_cell(arch, "train_4k", multi_pod=False)``
+# (jax 0.9.0 on a host's CPU, 256 forced devices), in GiB; the reference
+# counts compiled arguments, outputs and temporaries less aliased bytes,
+# the port rank 0's peak of live bytes
+TRAIN_CELLS = {"zamba2-7b": 49.68, "mamba2-2.7b": 8.59, "whisper-small": 8.15}
+# an H100's memory: a training cell must read below it
+CARD_GIB = 80
 # calls a turn of the flash operator's host-cost measurement
 OP_CALLS = 300
 # names phase 14 needs from torch (2.11 on the card machine, 2.13 where the
@@ -3474,17 +3488,21 @@ def finish_meta_probe(proc: subprocess.Popen) -> dict:
 
 def start_dryruns(out: pathlib.Path) -> list:
     """14a's children: ``python -m repro_torch.launch.dryrun --arch A
-    --shape S --mesh both`` for each of DRYRUN_CELLS, all started at
-    once (each holds its own fake process group)."""
+    --shape S --mesh both`` for each of DRYRUN_CELLS, and ``--shape
+    train_4k --mesh single`` for each of TRAIN_CELLS, all started at once
+    (each holds its own fake process group)."""
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
     procs = []
-    for arch, shape in DRYRUN_CELLS:
-        log = open(out / f"{arch}__{shape}.log", "w+")
-        procs.append((arch, shape, log, time.perf_counter(), subprocess.Popen(
+    for arch, shape, mesh in ([(a, s, "both") for a, s in DRYRUN_CELLS]
+                              + [(a, "train_4k", "single")
+                                 for a in TRAIN_CELLS]):
+        log = open(out / f"{arch}__{shape}__{mesh}.log", "w+")
+        procs.append((arch, shape, mesh, log, time.perf_counter(),
+                      subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", "both", "--out", str(out)],
+             arch, "--shape", shape, "--mesh", mesh, "--out", str(out)],
             cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)))
     return procs
 
@@ -3492,10 +3510,11 @@ def start_dryruns(out: pathlib.Path) -> list:
 def finish_dryruns(procs: list, out: pathlib.Path) -> dict:
     """Wait for 14a's children (DRYRUN_TIMEOUT in all; a child still
     running then is killed and fails the phase) and print each cell's
-    report."""
+    report; each of TRAIN_CELLS beside the reference's figure, failing
+    the phase at CARD_GIB or more."""
     deadline = time.perf_counter() + DRYRUN_TIMEOUT
-    failed, rows = [], {}
-    for arch, shape, log, t0, proc in procs:
+    failed, rows, over = [], {}, []
+    for arch, shape, which, log, t0, proc in procs:
         try:
             proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
         except subprocess.TimeoutExpired:
@@ -3508,7 +3527,9 @@ def finish_dryruns(procs: list, out: pathlib.Path) -> dict:
         if proc.returncode != 0:
             failed.append((arch, shape, proc.returncode, text[-1500:]))
             continue
-        for mesh in ("pod16x16", "pod2x16x16"):
+        meshes = ("pod16x16",) if which == "single" else ("pod16x16",
+                                                          "pod2x16x16")
+        for mesh in meshes:
             rep = json.loads((out / f"{arch}__{shape}__{mesh}.json")
                              .read_text())
             gib = rep["memory"]["total_per_device"] / 2 ** 30
@@ -3526,6 +3547,15 @@ def finish_dryruns(procs: list, out: pathlib.Path) -> dict:
             print(f"      peak {gib:.2f} GiB a device; top traffic "
                   + "; ".join(f"{t['op']} {t['bytes'] / 2 ** 30:.2f} GiB"
                               for t in top))
+            if which == "single":
+                ref = TRAIN_CELLS[arch]
+                print(f"      {arch} train_4k on {mesh}: the port "
+                      f"{gib:.2f} GiB a device against the reference's "
+                      f"(the JAX package's run_cell) {ref:.2f} GiB: "
+                      f"{gib / ref:.3f}x; under {CARD_GIB} GiB: "
+                      f"{gib < CARD_GIB}")
+                if gib >= CARD_GIB:
+                    over.append((arch, round(gib, 2)))
             rows[f"{arch}__{shape}__{mesh}"] = {
                 **{k: rep[k] for k in ("t_compute", "t_memory",
                                        "t_collective", "dominant", "memory",
@@ -3533,9 +3563,13 @@ def finish_dryruns(procs: list, out: pathlib.Path) -> dict:
                                        "mxu_flops", "vpu_flops", "hbm_bytes",
                                        "host_s")},
                 "top_traffic": top}
-    if failed or len(rows) != 2 * len(DRYRUN_CELLS):
-        raise SmokeError(f"14a: {len(rows)} of {2 * len(DRYRUN_CELLS)} "
-                         f"dry-run reports; failed {failed}")
+    want = 2 * len(DRYRUN_CELLS) + len(TRAIN_CELLS)
+    if failed or len(rows) != want:
+        raise SmokeError(f"14a: {len(rows)} of {want} dry-run reports; "
+                         f"failed {failed}")
+    if over:
+        raise SmokeError(f"14a: training cells at {CARD_GIB} GiB a device "
+                         f"or more: {over}")
     return rows
 
 
@@ -3726,7 +3760,8 @@ def fleet_of_graphs() -> dict:
 
 def graph_level(fa, h100, card: str, predicted: dict) -> dict:
     """Phase 14: the flash operator's host cost; 14a the dry run of
-    DRYRUN_CELLS on both production meshes in child processes (started
+    DRYRUN_CELLS on both production meshes and of TRAIN_CELLS on pod16x16
+    in child processes (started
     before 14b; this process holds an NCCL group), 14b 10b's train step
     and 9b's first prefill recorded on the card and priced beside their
     measured ms, 14c the fleet over the captured reduced configs beside

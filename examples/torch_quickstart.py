@@ -24,8 +24,8 @@ from repro_torch.kernels import stencil3d7pt as s7
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 STENCILS = ROOT / "src" / "repro_torch" / "configs" / "stencils"
-#: the paper's machine; its description ships with the reference package
-IVY = ROOT / "src" / "repro" / "configs" / "machines" / "ivybridge_ep.yaml"
+#: the paper's machine (``repro_torch/machines/ivybridge_ep.yaml``)
+IVY = "IVY"
 SHAPE = (10, 64, 64)
 
 
@@ -38,7 +38,7 @@ def main(argv=None) -> int:
     # 1. parse the kernel (paper Listing 1) and bind sizes (-D M ... -D N ...)
     kernel = parse_kernel((STENCILS / "stencil_3d7pt.c").read_text(),
                           constants={"M": 300, "N": 1000})
-    machine = load_machine(str(IVY))
+    machine = load_machine(IVY)
 
     # 2. ECM model with layer-condition cache prediction
     res = ecm.model(kernel, machine, predictor="LC")

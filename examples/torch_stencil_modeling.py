@@ -11,7 +11,6 @@ The kernel runs on the card unless ``--device cpu`` is named; on the CPU
 the kernel's wrapper runs the plain version (no launch).
 """
 import argparse
-import pathlib
 
 import numpy as np
 import torch
@@ -23,10 +22,8 @@ from repro_torch.core.frontends.graph import GraphProgram
 from repro_torch.kernels import longrange3d as lr
 from repro_torch.kernels import ops, ref
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-#: the paper's machine; its description ships with the reference package
-IVY = str(ROOT / "src" / "repro" / "configs" / "machines" /
-          "ivybridge_ep.yaml")
+#: the paper's machine (``repro_torch/machines/ivybridge_ep.yaml``)
+IVY = "IVY"
 C_FILE = "stencil_3d_long_range.c"      # resolves in the port's stencils
 SIZES = {"M": 130, "N": 1015}
 SHAPE = (12, 64, 64)

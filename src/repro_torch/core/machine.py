@@ -6,9 +6,15 @@ description carries three parts, mirroring the paper:
   2. memory hierarchy (per-level caches + inter-level transfer throughput),
   3. streaming-benchmark results (measured bandwidths per level/core-count).
 
-The port bundles one machine in ``repro_torch/machines``:
-  * ``h100_sxm.yaml`` — an NVIDIA H100 SXM with one SM modeled as one
-    core: L1/shared memory per SM <- shared L2 <- HBM3.
+The port bundles four machines in ``repro_torch/machines``, each loaded
+by alias (:data:`ALIASES`):
+  * ``h100_sxm.yaml`` (``H100``) — an NVIDIA H100 SXM with one SM
+    modeled as one core: L1/shared memory per SM <- shared L2 <- HBM3;
+  * ``ivybridge_ep.yaml`` (``IVY``), ``ivybridge_ep_sec122.yaml``
+    (``IVY122``, the same machine with the paper's §1.2 parameters) and
+    ``tpu_v5e.yaml`` (``V5E``) — byte copies of the JAX package's files:
+    the paper's Ivy Bridge-EP machine and the TPU v5e the JAX package
+    models.  They are inputs the analysis models, not the port's card.
 Any other machine file of the same dialect loads by path.
 """
 from __future__ import annotations
@@ -24,6 +30,13 @@ import yaml
 from . import identity as _identity
 
 _MACHINE_DIR = pathlib.Path(__file__).resolve().parent.parent / "machines"
+#: short names of the bundled machine files (JAX's three, and the card)
+ALIASES = {
+    "IVY": "ivybridge_ep.yaml",
+    "IVY122": "ivybridge_ep_sec122.yaml",
+    "V5E": "tpu_v5e.yaml",
+    "H100": "h100_sxm.yaml",
+}
 
 INF = float("inf")
 
@@ -458,13 +471,10 @@ class Machine:
 
 @functools.lru_cache(maxsize=64)
 def load(name: str) -> Machine:
-    """Load a bundled machine description by short name (``H100``), by
-    bundled file name, or by path.
+    """Load a bundled machine description by short name (``H100``,
+    ``IVY``, ``IVY122``, ``V5E``), by bundled file name, or by path.
 
     Memoized: Machine is frozen, and warm ``analyze(src, "H100", ...)``
     loops must not re-read YAML per call.
     """
-    aliases = {
-        "H100": "h100_sxm.yaml",
-    }
-    return Machine.from_yaml(aliases.get(name.upper(), name))
+    return Machine.from_yaml(ALIASES.get(name.upper(), name))

@@ -43,20 +43,16 @@ from ..core import hlo_analysis
 from ..core.frontends.graph import GraphFrontend, GraphProgram
 from ..core.frontends.hlo import HLOFrontend, HLOProgram
 from ..core.model_api import program_analysis
-from ..core.machine import Machine
+from ..core.machine import ALIASES, Machine
 from ..service import AnalysisService
 
 from .pricing import BOUND_CLASSES, MachineRates, price_ops
 from .report import SCHEMA, FleetReport
 
 DUMP_DIR = pathlib.Path(__file__).resolve().parent.parent / "configs" / "hlo"
-# the port bundles one machine, its own card; JAX's defaults (IVY, V5E)
-# are files of the JAX package, which the port reaches only by path
+# the port's default is its own card; JAX's defaults (IVY, V5E) load by
+# alias too
 DEFAULT_MACHINES = ("H100",)
-# artifact-name labels for the bundled machine aliases (path- and
-# alias-stable: a file passed by path labels as its stem, as JAX's goldens
-# are named)
-_ALIAS_LABELS = {"H100": "h100_sxm"}
 # conservation: per-op sums repeat the exact additions of the module
 # totals, so drift beyond float noise means the invariant broke
 _CONSERVE_TOL = 1e-9
@@ -74,7 +70,9 @@ def machine_label(spec) -> str:
     """Stable artifact-filename label for a machine spec."""
     if isinstance(spec, Machine):
         return re.sub(r"[^\w.+-]+", "_", spec.name.strip()).strip("_").lower()
-    s = _ALIAS_LABELS.get(str(spec), str(spec))
+    # an alias labels as its file's stem, as a file passed by path does
+    # (the goldens' names)
+    s = ALIASES.get(str(spec), str(spec))
     name = pathlib.Path(s).name
     for suffix in (".yaml", ".yml"):
         if name.endswith(suffix):

@@ -48,10 +48,12 @@ where it does not is refused.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import local_map
@@ -166,7 +168,10 @@ def _mask(kind: str, q_pos, kv_pos, window: int, kv_len=None):
 def attend(q, k, v, kind: str, q_pos=None, kv_pos=None, window: int = 0,
            kv_len=None, chunk_q: int = 512):
     """Dense or q-chunked grouped attention with positional masking (the
-    chunks give the same rows; they bound the score tile's memory)."""
+    chunks give the same rows; they bound the score tile's memory).  Under
+    autograd each chunk is recomputed in the backward, as JAX's scan body
+    is (``jax.checkpoint``): otherwise every chunk's float32 score and
+    probability tiles would stay alive until the backward."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     if q_pos is None:
@@ -181,7 +186,11 @@ def attend(q, k, v, kind: str, q_pos=None, kv_pos=None, window: int = 0,
 
     if sq <= max(chunk_q, 1024) or sq % chunk_q != 0:
         return blockless(q, q_pos)
-    return torch.cat([blockless(q[:, i:i + chunk_q], q_pos[i:i + chunk_q])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        chunk = functools.partial(checkpoint, blockless, use_reentrant=False)
+    else:
+        chunk = blockless
+    return torch.cat([chunk(q[:, i:i + chunk_q], q_pos[i:i + chunk_q])
                       for i in range(0, sq, chunk_q)], dim=1)
 
 

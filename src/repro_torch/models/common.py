@@ -257,7 +257,9 @@ def sharded(rule) -> contextlib.AbstractContextManager:
     return implicit_replication()
 
 
-def on_replicas(fn: Callable, *args, rows: tuple[int, ...] = ()):
+def on_replicas(fn: Callable, *args, rows: tuple[int, ...] = (),
+                keep: tuple[str, dict[int, int], tuple[int, ...]] | None
+                = None):
     """``fn(*args)`` on plain tensors, for ops DTensor has no sharding
     strategy for: every DTensor leaf of ``args`` (trees of dicts and
     lists) is gathered to ``Replicate()`` and passed as a plain tensor,
@@ -274,7 +276,17 @@ def on_replicas(fn: Callable, *args, rows: tuple[int, ...] = ()):
     0 too: it comes back split the same way.  The other arguments are
     gathered whole.  Each rank computes only what its rows need, or the
     same values as the ranks that share its rows, so the result and its
-    gradient are exact; the price is the gathers."""
+    gradient are exact; the price is the gathers.
+
+    ``keep = (axis, dims, out_dims)`` keeps one more split, for an ``fn``
+    that also works head by head: argument ``i`` in ``dims`` stays split
+    on its dim ``dims[i]`` over mesh dim ``axis`` (a scan's heads over
+    `model`), and the ``k``-th tensor of the tuple ``fn`` returns comes
+    back split there on its dim ``out_dims[k]``.  The other arguments are
+    shared by every head, so their gradient from this rank's heads is a
+    partial sum over ``axis``.  Where ``axis`` is not a mesh dim of more
+    than one rank, already splits the rows, or does not divide a kept
+    dim, ``keep`` is ignored: those dims are gathered as above."""
     mesh = next((t.device_mesh for t in leaves(list(args))
                  if isinstance(t, DTensor)), None)
     if mesh is None:
@@ -288,26 +300,61 @@ def on_replicas(fn: Callable, *args, rows: tuple[int, ...] = ()):
     if any(t.shape[0] % n for i in rows for t in leaves(args[i])
            if isinstance(t, torch.Tensor)):
         split = rep                     # uneven rows: gather them too
-    # a whole argument's gradient from this rank's rows is a partial sum
-    # over the ranks that hold other rows
-    summed = tuple(Partial() if p == Shard(0) else p for p in split)
+    hd = _kept_dim(mesh, split, args, keep)
+
+    def placed(i):
+        """Argument ``i``'s placements in ``fn`` and its gradient's: a
+        whole argument's gradient from this rank's rows (or heads) is a
+        partial sum over the ranks that hold other rows (or heads)."""
+        fwd, bwd = [], []
+        for d, p in enumerate(split):
+            if d == hd:
+                kept = i in keep[1]
+                fwd.append(Shard(keep[1][i]) if kept else Replicate())
+                bwd.append(fwd[-1] if kept else Partial())
+            else:
+                fwd.append(p if i in rows else Replicate())
+                bwd.append(fwd[-1] if i in rows or p != Shard(0)
+                           else Partial())
+        return tuple(fwd), tuple(bwd)
 
     def local(t, place):
         if not isinstance(t, torch.Tensor):
             return t
+        fwd, bwd = place
         if not isinstance(t, DTensor):
-            if place == rep:
+            if fwd == rep:
                 return t
             t = DTensor.from_local(t, mesh, rep, run_check=False)
-        return t.redistribute(mesh, place).to_local(
-            grad_placements=place if place == split else summed)
+        return t.redistribute(mesh, fwd).to_local(grad_placements=bwd)
 
-    def wrap(t):
-        return DTensor.from_local(t, mesh, split, run_check=False) \
+    def wrap(t, place=split):
+        return DTensor.from_local(t, mesh, place, run_check=False) \
             if isinstance(t, torch.Tensor) else t
-    local_args = [tmap(lambda t: local(t, split if i in rows else rep), a)
+    local_args = [tmap(lambda t, pl=placed(i): local(t, pl), a)
                   for i, a in enumerate(args)]
-    return tmap(wrap, fn(*local_args))
+    out = fn(*local_args)
+    if hd is None:
+        return tmap(wrap, out)
+    return tuple(wrap(t, tuple(Shard(dim) if d == hd else p
+                               for d, p in enumerate(split)))
+                 for t, dim in zip(out, keep[2]))
+
+
+def _kept_dim(mesh, split: tuple, args: tuple, keep) -> int | None:
+    """The mesh dim ``keep`` of :func:`on_replicas` keeps split, or None
+    where it cannot: no such mesh dim, one rank, a dim that already splits
+    the rows, or a kept tensor dim it does not divide."""
+    if keep is None or keep[0] not in mesh.mesh_dim_names:
+        return None
+    hd = mesh.mesh_dim_names.index(keep[0])
+    size = mesh.size(hd)
+    if size == 1 or split[hd] != Replicate():
+        return None
+    if any(t.shape[dim] % size for i, dim in keep[1].items()
+           for t in leaves(args[i]) if isinstance(t, torch.Tensor)):
+        return None
+    return hd
 
 
 def row_shards(t) -> int:

@@ -6,7 +6,8 @@ package computes it outside any kernel: within a chunk the dual quadratic
 (attention-like) form, across chunks a loop carrying the (heads, headdim,
 state) recurrent state in float32; decode is the one-step recurrence.
 Under a sharding rule the chunked scan runs on plain tensors, each rank
-on its own rows of the batch with every head
+on its own rows of the batch and its own heads, where the heads split
+evenly over the mesh dim ``act_heads`` names, else with every head
 (:func:`~repro_torch.models.common.on_replicas`).
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .common import PRec, constrain, einsum, on_replicas, rms_norm
 
@@ -80,9 +82,49 @@ def _split_proj(p, xn, s: SSMConfig, d):
     zx = einsum("bsd,de->bse", xn, p["w_in_zx"])
     z, xin = zx[..., :din], zx[..., din:]
     bc = einsum("bsd,de->bse", xn, p["w_in_bc"])
-    dt = F.softplus(einsum("bsd,dh->bsh", xn, p["w_in_dt"]).float()
-                    + p["dt_bias"].float())
-    return z, xin, bc, dt, gn
+    return z, xin, bc, _step_sizes(p, xn), gn
+
+
+def _step_sizes(p, xn):
+    """dt, (b, s, h): softplus of the dt projection plus its bias, in
+    float32."""
+    return F.softplus(einsum("bsd,dh->bsh", xn, p["w_in_dt"]).float()
+                      + p["dt_bias"].float())
+
+
+def _inner_sharded(p, xn, s: SSMConfig, d: int, rule):
+    """:func:`_split_proj` and the causal conv of a training forward under
+    ``rule``, with the inner dim kept on its `model` shards: z and x each
+    from their own columns of ``w_in_zx`` (where slicing the projection's
+    output would gather both halves of it on every rank), x's conv on
+    each rank's channels (:func:`~repro_torch.models.common.on_replicas`
+    keeping the channel split; the conv is depthwise), B and C's conv on
+    their few shared channels: the unsharded path's operations, channel
+    for channel.  Returns (z, x after the conv, B|C after the conv, dt,
+    gn)."""
+    din = s.d_inner(d)
+    gn = s.n_groups * s.d_state
+    axis = rule.get("act_inner")
+    # gathered over the embed split once, where each projection's
+    # contraction would gather (and keep for its backward) a copy of it
+    xn = constrain(xn, rule, ("batch", "seq", None))
+
+    def inner(w, lo, hi):
+        """Columns ``lo:hi`` of a weight's last (inner) dim, split over
+        `model` again."""
+        cols = w[..., lo:hi]
+        return constrain(cols, rule, (None,) * (cols.ndim - 1) + ("inner",))
+    zx = p["w_in_zx"]
+    z = einsum("bsd,de->bse", xn, inner(zx, 0, din))
+    xin = einsum("bsd,de->bse", xn, inner(zx, din, 2 * din))
+    bc = einsum("bsd,de->bse", xn, p["w_in_bc"])
+    cw, cb = p["conv_w"], p["conv_b"]
+    keep = (axis, {0: 2, 1: 1, 2: 0}, (2, 2)) if isinstance(axis, str) \
+        else None
+    xin, _ = on_replicas(_causal_conv, xin, inner(cw, 0, din),
+                         inner(cb, 0, din), rows=(0,), keep=keep)
+    bc, _ = on_replicas(_causal_conv, bc, cw[:, din:], cb[din:], rows=(0,))
+    return z, xin, bc, _step_sizes(p, xn), gn
 
 
 def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
@@ -94,14 +136,16 @@ def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
     b, L, d = x.shape
     h, P, N = s.n_heads(d), s.headdim, s.d_state
     xn = rms_norm(x, p["ln"])
-    z, xin, bc, dt, gn = _split_proj(p, xn, s, d)
-
-    conv_in = torch.cat([xin, bc], dim=-1)
-    conv_out, conv_state = _causal_conv(
-        conv_in, p["conv_w"], p["conv_b"],
-        None if cache is None else cache["conv"])
     din = s.d_inner(d)
-    xin, bc = conv_out[..., :din], conv_out[..., din:]
+    if rule is not None and cache is None and isinstance(xn, DTensor):
+        z, xin, bc, dt, gn = _inner_sharded(p, xn, s, d, rule)
+    else:
+        z, xin, bc, dt, gn = _split_proj(p, xn, s, d)
+        conv_in = torch.cat([xin, bc], dim=-1)
+        conv_out, conv_state = _causal_conv(
+            conv_in, p["conv_w"], p["conv_b"],
+            None if cache is None else cache["conv"])
+        xin, bc = conv_out[..., :din], conv_out[..., din:]
     B = bc[..., :gn].reshape(b, L, s.n_groups, N)[:, :, 0]     # g=1: (b,L,N)
     C = bc[..., gn:].reshape(b, L, s.n_groups, N)[:, :, 0]
     xh = xin.reshape(b, L, h, P)
@@ -127,14 +171,15 @@ def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
         state = (torch.zeros(b, h, P, N, dtype=torch.float32,
                              device=x.device) if cache is None
                  else cache["ssm"])
-        # on each rank's rows, heads gathered, under a rule: DTensor has
-        # no sharding strategy for the scan's three-operand einsums on
-        # every torch version
+        # on each rank's rows and heads under a rule: DTensor has no
+        # sharding strategy for the scan's three-operand einsums on every
+        # torch version, and each head scans alone (B and C are shared)
         y, state = on_replicas(lambda *a: _ssd(*a, Q), xh, B, C, dt, l_t,
-                               Dp, state, rows=(0, 1, 2, 3, 4, 6))
+                               Dp, state, rows=(0, 1, 2, 3, 4, 6),
+                               keep=_head_split(rule))
         y = y.reshape(b, L, h * P).to(x.dtype)
         if cache is not None:
-            cache = {"ssm": state, "conv": conv_state}
+            cache = {"ssm": _rows_only(state), "conv": conv_state}
 
     y = y * F.silu(z)
     y = rms_norm(y, p["gate_ln"])
@@ -144,12 +189,36 @@ def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
     return out, cache
 
 
+def _head_split(rule):
+    """``on_replicas``' ``keep`` for :func:`_ssd` under ``rule``: xh, dt,
+    l_t, Dp and the state stay split on their head dim over the mesh dim
+    that ``act_heads`` names, and so do y and the final state; B and C
+    are shared by every head.  None without a rule or such a mesh dim."""
+    axis = None if rule is None else rule.get("act_heads")
+    if not isinstance(axis, str):
+        return None
+    return axis, {0: 2, 3: 2, 4: 2, 5: 0, 6: 1}, (2, 1)
+
+
+def _rows_only(t):
+    """A DTensor state gathered on every mesh dim but its rows' split:
+    the placements the cache has always had."""
+    if not isinstance(t, DTensor):
+        return t
+    want = tuple(p if p == Shard(0) else Replicate() for p in t.placements)
+    return t if tuple(t.placements) == want else \
+        t.redistribute(t.device_mesh, want)
+
+
 def _ssd(xh, B, C, dt, l_t, Dp, state, Q: int):
     """The chunked SSD scan: xh (b, L, h, P), B and C (b, L, N), dt and
     the log-decays l_t (b, L, h), ``Dp`` (h, 1), the carried state
     (b, h, P, N) in float32.  Within a chunk of ``Q`` the dual quadratic
     form, across chunks the recurrence.  Returns y (b, L, h, P) in
-    float32 and the final state."""
+    float32 and the final state.  Float64 operands stay float64 (the
+    sharded scan is held to this one there); narrower ones compute in
+    float32."""
+    wide = torch.promote_types(xh.dtype, torch.float32)
     b, L, h, P = xh.shape
     N = B.shape[-1]
     nc = L // Q
@@ -163,21 +232,21 @@ def _ssd(xh, B, C, dt, l_t, Dp, state, Q: int):
     for c in range(nc):
         xq, Bq, Cq = xc[:, c], Bc[:, c], Cc[:, c]
         dtq, Lq = dtc[:, c], Lcum[:, c]
-        scores = einsum("bln,bmn->blm", Cq, Bq).float()
+        scores = einsum("bln,bmn->blm", Cq, Bq).to(wide)
         gamma = torch.exp(torch.clamp(
             Lq[:, :, None, :] - Lq[:, None, :, :], -60.0, 0.0))
         gamma = torch.where(mask[None, :, :, None], gamma, 0.0)
         M = scores[..., None] * gamma * dtq[:, None, :, :]      # (b,l,m,h)
-        xf = xq.float()
+        xf = xq.to(wide)
         y_intra = einsum("blmh,bmhp->blhp", M, xf)
         y_inter = einsum("blh,bln,bhpn->blhp", torch.exp(Lq),
-                         Cq.float(), state)
+                         Cq.to(wide), state)
         w = dtq * torch.exp(Lq[:, -1:, :] - Lq)                  # (b,l,h)
-        s_chunk = einsum("blh,blhp,bln->bhpn", w, xf, Bq.float())
+        s_chunk = einsum("blh,blhp,bln->bhpn", w, xf, Bq.to(wide))
         state = state * torch.exp(Lq[:, -1])[..., None, None] + s_chunk
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(b, L, h, P)
-    return y + Dp * xh.float(), state
+    return y + Dp * xh.to(wide), state
 
 
 def mamba2_cache_shape(cfg, batch: int):

@@ -58,32 +58,41 @@ def _take(t, i):
 
 
 def _vocab_split(lg):
-    """``(vd, rows)`` when DTensor logits ``lg`` are split evenly over
-    vocab on exactly one mesh dim ``vd`` of more than one rank and their
-    rows split evenly; ``rows`` is their placements with dim 0's split
-    kept and every other mesh dim replicated.  ``vd`` is None otherwise:
-    a vocab "split" over one rank runs whole on each rank's rows, the
-    same local ops as the unsharded loss."""
-    mesh, V = lg.device_mesh, lg.shape[-1]
+    """``(vd, rows)`` when DTensor logits ``lg`` are split over vocab on
+    exactly one mesh dim ``vd`` of more than one rank and their rows
+    split evenly; ``rows`` is their placements with dim 0's split kept
+    and every other mesh dim replicated.  The vocab need not divide:
+    DTensor lays an uneven dim out in ``torch.chunk``'s sizes
+    (:func:`_vocab_offset`).  ``vd`` is None otherwise: a vocab "split"
+    over one rank runs whole on each rank's rows, the same local ops as
+    the unsharded loss."""
+    mesh = lg.device_mesh
     vocab = [d for d, p in enumerate(lg.placements)
              if p == Shard(lg.ndim - 1) and mesh.size(d) > 1]
     rows = tuple(p if p == Shard(0) else Replicate() for p in lg.placements)
-    if len(vocab) != 1 or V % mesh.size(vocab[0]) or \
-            lg.shape[0] % row_shards(lg):
+    if len(vocab) != 1 or lg.shape[0] % row_shards(lg):
         return None, rows
     return vocab[0], rows
 
 
+def _vocab_offset(V: int, n: int, r: int) -> int:
+    """The first vocab column of rank ``r`` of ``n`` on a vocab of ``V``
+    split as DTensor splits an uneven dim (``torch.chunk``: ceil(V / n)
+    columns a rank, the last ranks fewer or none)."""
+    return min(r * -(-V // n), V)
+
+
 def _row_logsumexp(lg):
-    """``logsumexp(lg, -1)``, (b, s).  Logits split evenly over vocab on
-    one mesh dim reduce on each rank's vocab slice: the row max, detached
-    (the result does not depend on the shift), all-reduced with ``max``
-    over that dim, then the sum of ``exp(lg - max)`` all-reduced with
-    ``sum`` — two (b, s) all-reduces, the rows kept on their batch
-    shards.  The backward is each rank's ``softmax · g`` on its own
-    slice, where DTensor's own ``logsumexp`` gathers the whole vocab for
-    a rank's rows.  Other DTensor logits run on each rank's rows with the
-    vocab gathered (:func:`~repro_torch.models.common.on_replicas`)."""
+    """``logsumexp(lg, -1)``, (b, s).  Logits split over vocab on one
+    mesh dim, evenly or not, reduce on each rank's vocab slice: the row
+    max, detached (the result does not depend on the shift), all-reduced
+    with ``max`` over that dim, then the sum of ``exp(lg - max)``
+    all-reduced with ``sum`` — two (b, s) all-reduces, the rows kept on
+    their batch shards.  The backward is each rank's ``softmax · g`` on
+    its own slice, where DTensor's own ``logsumexp`` gathers the whole
+    vocab for a rank's rows.  Other DTensor logits run on each rank's
+    rows with the vocab gathered
+    (:func:`~repro_torch.models.common.on_replicas`)."""
     if not isinstance(lg, DTensor):
         return torch.logsumexp(lg, -1)
     vd, rows = _vocab_split(lg)
@@ -103,8 +112,7 @@ def _vocab_logsumexp(lg, vd: int, rows: tuple):
     def over_vocab(op):
         return tuple(Partial(op) if d == vd else p
                      for d, p in enumerate(rows))
-    m = local_map(lambda t: t.amax(-1),
-                  out_placements=list(over_vocab("max")),
+    m = local_map(_slice_max, out_placements=list(over_vocab("max")),
                   in_placements=(split,), device_mesh=mesh,
                   redistribute_inputs=True)(lg.detach()) \
         .redistribute(mesh, rows)
@@ -115,14 +123,22 @@ def _vocab_logsumexp(lg, vd: int, rows: tuple):
     return m + torch.log(s)
 
 
+def _slice_max(t):
+    """The row max of a rank's vocab slice; -inf where the slice is empty
+    (a short vocab's last ranks), so the max over ranks is the row's."""
+    if t.shape[-1] == 0:
+        return t.new_full(t.shape[:-1], float("-inf"))
+    return t.amax(-1)
+
+
 def _label_logits(lg, labels):
-    """``lg[..., labels]``, (b, s).  Logits split evenly over vocab on one
-    mesh dim (the head's `model`) pick on each rank's vocab slice under
-    ``local_map`` (a label outside it adds 0) and are summed over that
-    dim: a (b, s) all-reduce, where DTensor's own vocab-parallel gather
-    leaves a masked partial it fails to reduce.  Other DTensor logits run
-    on each rank's rows with the vocab gathered
-    (:func:`~repro_torch.models.common.on_replicas`)."""
+    """``lg[..., labels]``, (b, s).  Logits split over vocab on one mesh
+    dim (the head's `model`), evenly or not, pick on each rank's vocab
+    slice (:func:`_vocab_offset`) under ``local_map`` (a label outside
+    it adds 0) and are summed over that dim: a (b, s) all-reduce, where
+    DTensor's own vocab-parallel gather leaves a masked partial it fails
+    to reduce.  Other DTensor logits run on each rank's rows with the
+    vocab gathered (:func:`~repro_torch.models.common.on_replicas`)."""
     if not isinstance(lg, DTensor):
         return _take(lg, labels)
     vd, rows = _vocab_split(lg)
@@ -141,7 +157,10 @@ def _vocab_label_logits(lg, labels, vd: int, rows: tuple):
                                     run_check=False)
 
     def pick(t, i):
-        j = i.long() - mesh.get_local_rank(vd) * t.shape[-1]
+        j = i.long() - _vocab_offset(lg.shape[-1], mesh.size(vd),
+                                     mesh.get_local_rank(vd))
+        if t.shape[-1] == 0:      # a short vocab's last ranks: zeros
+            return t.sum(-1)
         inside = (j >= 0) & (j < t.shape[-1])
         return torch.where(inside, _take(t, j.clamp(0, t.shape[-1] - 1)),
                            0.0)

@@ -112,8 +112,7 @@ def machine_yaml_path(ref) -> pathlib.Path:
     p = pathlib.Path(str(ref))
     if p.is_file():
         return p
-    aliases = {"H100": "h100_sxm.yaml"}
-    name = aliases.get(str(ref).upper(), str(ref))
+    name = machine_mod.ALIASES.get(str(ref).upper(), str(ref))
     cand = machine_mod._MACHINE_DIR / name
     if not cand.is_file() and cand.suffix != ".yaml":
         cand = cand.with_suffix(".yaml")

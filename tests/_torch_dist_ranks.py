@@ -22,6 +22,7 @@ from repro_torch.launch import cell
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import common
 from repro_torch.models import lm as lm_mod
+from repro_torch.models import mamba2
 from repro_torch.models.lm import LM
 from repro_torch.optim import OptConfig, adamw_init
 from repro_torch.train import TrainConfig, Trainer, make_train_step
@@ -466,12 +467,21 @@ def mtp_loss() -> dict:
     """``loss_fn`` of the reduced deepseek-v3 (MLA, MoE and the MTP head,
     whose logits go through the same ``_xent``) in float32 on the (2, 2)
     mesh under ``rule_for(cfg, train_4k)``, against the unsharded call
-    from the same parameters and batch: the loss, each metric, which
-    leaves the backward reached in each, and each reached parameter's
-    gradient (max abs difference over the leaf's largest entry)."""
-    cfg = dataclasses.replace(
-        configs.reduced(configs.get_config("deepseek-v3-671b")),
-        act_dtype="float32")
+    from the same parameters and batch (:func:`sharded_loss`)."""
+    return sharded_loss("deepseek-v3-671b")
+
+
+def sharded_loss(arch: str, vocab: int | None = None) -> dict:
+    """``loss_fn`` of a reduced config (its vocab replaced by ``vocab``
+    when given) in float32 on the (2, 2) mesh under ``rule_for(cfg,
+    train_4k)``, against the unsharded call from the same parameters and
+    batch: the loss, each metric, which leaves the backward reached in
+    each, and each reached parameter's gradient (max abs difference over
+    the leaf's largest entry)."""
+    cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)),
+                              act_dtype="float32")
+    if vocab is not None:
+        cfg = dataclasses.replace(cfg, vocab=vocab)
     model = F32LM(cfg)
     recs = model.param_recs()
     params = common.materialize(recs, torch.Generator().manual_seed(0),
@@ -502,6 +512,190 @@ def mtp_loss() -> dict:
     return {"metrics": {n: (float(_t(dmetrics[n])), float(m))
                         for n, m in metrics.items()},
             "grads": grads, "reached": reached}
+
+
+#: the head-sharded scan's reduced widths: xh (b, L, h, P) is its widest
+#: operand, wider than a chunk's (b, Q, Q, h) decays and than the state
+SSD = {"b": 4, "L": 32, "h": 4, "P": 4, "N": 6, "Q": 8}
+SSD_NAMES = ("xh", "B", "C", "dt", "l_t", "Dp", "state")
+#: each operand's placements on the (2, 2) mesh, as the model gives them:
+#: batch over `data`, heads over `model`, B and C shared by the heads
+SSD_PLACED = ((Shard(0), Shard(2)), (Shard(0), Replicate()),
+              (Shard(0), Replicate()), (Shard(0), Shard(2)),
+              (Shard(0), Shard(2)), (Replicate(), Shard(0)),
+              (Shard(0), Shard(1)))
+
+
+def _ssd_inputs(g, h: int) -> list:
+    """The scan's operands in float64 from generator ``g``: positive
+    steps, negative log-decays."""
+    b, L, P, N = SSD["b"], SSD["L"], SSD["P"], SSD["N"]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64)
+    dt = torch.nn.functional.softplus(rnd(b, L, h))
+    A = -torch.exp(0.5 * rnd(h))
+    return [rnd(b, L, h, P), rnd(b, L, N), rnd(b, L, N), dt, A * dt,
+            rnd(h, 1), rnd(b, h, P, N)]
+
+
+def _ssd_sharded(live: list):
+    """``mamba2._ssd`` through the model's escape on (batch, head)
+    shards, the model's rule's ``act_heads`` on `model`."""
+    return common.on_replicas(
+        lambda *a: mamba2._ssd(*a, SSD["Q"]), *live, rows=(0, 1, 2, 3, 4, 6),
+        keep=mamba2._head_split({"act_heads": "model"}))
+
+
+def ssd_heads() -> dict:
+    """The chunked SSD scan on the (2, 2) mesh in float64, each rank on
+    its rows and its heads, against the unsharded ``_ssd``: y, the final
+    state and the gradient of every operand (B and C, shared by the
+    heads, included), max abs differences; the outputs' placements and
+    local shapes.  With 3 heads, which do not split over 2 ranks, the
+    heads are gathered."""
+    mesh = _mesh()
+    out = {}
+    for case, h in (("heads", SSD["h"]), ("uneven heads", 3)):
+        g = torch.Generator().manual_seed(11 + h)
+        ins = _ssd_inputs(g, h)
+        ref = [t.clone().requires_grad_() for t in ins]
+        y, st = mamba2._ssd(*ref, SSD["Q"])
+        wy, ws = (torch.randn(t.shape, generator=g, dtype=torch.float64)
+                  for t in (y, st))
+        ((y * wy).sum() + (st * ws).sum()).backward()
+        live = [common.distribute(t, mesh, pl).requires_grad_()
+                for t, pl in zip(ins, SSD_PLACED)]
+        gy, gst = _ssd_sharded(live)
+        ((gy * common.distribute(wy, mesh, gy.placements)).sum()
+         + (gst * common.distribute(ws, mesh, gst.placements)).sum()
+         ).backward()
+        err = {"y": float((_t(gy) - y).detach().abs().max()),
+               "state": float((_t(gst) - st).detach().abs().max())}
+        for name, x, r in zip(SSD_NAMES, live, ref):
+            err["grad " + name] = float((_t(x.grad) - r.grad).abs().max())
+        out[case] = {"err": err, "placements": [_placed(gy), _placed(gst)],
+                     "local": [tuple(gy.to_local().shape),
+                               tuple(gst.to_local().shape)],
+                     "grad_placements": [_placed(x.grad) for x in live]}
+    return out
+
+
+def scan_ops() -> dict:
+    """The head-sharded scan's forward and backward on the (2, 2) mesh
+    under ``graph_analysis.Recorder``: the most elements any op touches,
+    beside a rank's (batch, head) shard of the widest operand, xh."""
+    from repro_torch.core import graph_analysis
+    mesh = _mesh()
+    ins = _ssd_inputs(torch.Generator().manual_seed(13), SSD["h"])
+    live = [common.distribute(t, mesh, pl).requires_grad_()
+            for t, pl in zip(ins, SSD_PLACED)]
+
+    b, L, h, P, N = (SSD[k] for k in "bLhPN")
+    # the outputs' gradients on their own shards, as the model's next ops
+    # give them
+    gy = common.distribute(torch.ones(b, L, h, P, dtype=torch.float64),
+                           mesh, (Shard(0), Shard(2)))
+    gs = common.distribute(torch.ones(b, h, P, N, dtype=torch.float64),
+                           mesh, (Shard(0), Shard(1)))
+
+    def run():
+        torch.autograd.backward(_ssd_sharded(live), (gy, gs))
+    _, cap = graph_analysis.capture(run)
+    ops = cap.analysis.ops
+    back = [o for o in ops if o.computation == "backward"]
+    return {"shard": live[0].to_local().numel(), "whole": ins[0].numel(),
+            "backward": max(_numel(o.shape) for o in back),
+            "all": max(_numel(o.shape) for o in ops),
+            "n_backward": len(back),
+            "widest": max(ops, key=lambda o: _numel(o.shape)).name}
+
+
+#: uneven vocab cases: the mesh, the logits' shape and a label per case;
+#: 67 over 2 ranks is 34 + 33, 5 over 4 is 2 + 2 + 1 + 0
+UNEVEN = {"67 over 2": ((2, 2), (4, 6, 67)), "5 over 4": ((1, 4), (4, 6, 5))}
+
+
+def uneven_loss() -> dict:
+    """The loss's parts on logits whose vocab does not divide the `model`
+    dim, split (data, model), against the same calls on the whole
+    tensor: the log-sum-exp and the label pick in float64 (max abs
+    differences of each and of its gradient), and ``_xent`` with its
+    z-loss, which casts to float32 as the model's loss does (the loss's
+    difference and the logits' gradient's over its largest entry); each
+    rank's vocab slice and whether its rows kept the batch's split.  The
+    labels take every rank's first and last columns."""
+    out = {}
+    for case, (shape, lshape) in UNEVEN.items():
+        mesh = _mesh(*shape)
+        g = torch.Generator().manual_seed(lshape[-1])
+        lg = torch.randn(lshape, generator=g, dtype=torch.float64)
+        wt = torch.randn(lshape[:2], generator=g, dtype=torch.float64)
+        V, n = lshape[-1], shape[1]
+        labels = torch.randint(0, V, lshape[:2], generator=g)
+        edges = sorted({c for r in range(n) for c in (
+            step_mod._vocab_offset(V, n, r),
+            step_mod._vocab_offset(V, n, r + 1) - 1) if 0 <= c < V})
+        labels.view(-1)[:len(edges)] = torch.tensor(edges)
+        dl = common.distribute(labels, mesh, (Shard(0), Replicate()))
+        err = {}
+        for part, fn in (("logsumexp", step_mod._row_logsumexp),
+                         ("labels", lambda t, i=None: step_mod._label_logits(
+                             t, labels if i is None else i))):
+            ref = lg.clone().requires_grad_()
+            want = fn(ref)
+            (want * wt).sum().backward()
+            live = common.distribute(lg, mesh, (Shard(0), Shard(2))) \
+                .requires_grad_()
+            got = fn(live, dl) if part == "labels" else fn(live)
+            (got * common.distribute(wt, mesh, got.placements)).sum() \
+                .backward()
+            err[part] = [float((_t(got) - want).detach().abs().max()),
+                         float((_t(live.grad) - ref.grad).abs().max())]
+        ref = lg.clone().requires_grad_()
+        want = sum(step_mod._xent(ref, labels, 1e-4))
+        want.backward()
+        live = common.distribute(lg, mesh, (Shard(0), Shard(2))) \
+            .requires_grad_()
+        got = sum(step_mod._xent(live, dl, 1e-4))
+        got.backward()
+        err["xent"] = [float((_t(got) - want).detach().abs()),
+                       float((_t(live.grad) - ref.grad).abs().max()
+                             / ref.grad.abs().max())]
+        lse = step_mod._row_logsumexp(live)
+        out[case] = {"err": err,
+                     "vocab_split": step_mod._vocab_split(live)[0],
+                     "slice": live.to_local().shape[-1],
+                     "placements": _placed(lse),
+                     "local_rows": lse.to_local().shape[0]}
+    return out
+
+
+def uneven_loss_ops() -> dict:
+    """The loss forward and backward on (16, 8, 67) float32 logits split
+    (data, model) on the (2, 2) mesh under ``graph_analysis.Recorder``:
+    the most elements any op touches, beside a rank's logits shard at
+    the ceil slice (8 rows of 34 columns)."""
+    from repro_torch.core import graph_analysis
+    mesh = _mesh()
+    g = torch.Generator().manual_seed(67)
+    lg = common.distribute(torch.randn(16, 8, 67, generator=g), mesh,
+                           (Shard(0), Shard(2))).requires_grad_()
+    labels = common.distribute(torch.randint(0, 67, (16, 8), generator=g),
+                               mesh, (Shard(0), Replicate()))
+
+    def loss():
+        ce, z = step_mod._xent(lg, labels, 1e-4)
+        (ce + z).backward()
+    _, cap = graph_analysis.capture(loss)
+    ops = cap.analysis.ops
+    back = [o for o in ops if o.computation == "backward"]
+    return {"shard": 8 * 8 * 34, "local": lg.to_local().numel(),
+            "whole_rows": 8 * 8 * 67,
+            "backward": max(_numel(o.shape) for o in back),
+            "all": max(_numel(o.shape) for o in ops),
+            "n_backward": len(back),
+            "widest": max(ops, key=lambda o: _numel(o.shape)).name}
 
 
 def refuses_model_4() -> str:
@@ -540,7 +734,13 @@ def group4(jdir: str, npz: str, jax_ckpt: str, work: str,
              "einsums": einsums,
              "escapes": escapes,
              "loss_ops": loss_ops,
-             "mtp_loss": mtp_loss}
+             "mtp_loss": mtp_loss,
+             "ssd_heads": ssd_heads,
+             "scan_ops": scan_ops,
+             "uneven_loss": uneven_loss,
+             "uneven_loss_ops": uneven_loss_ops,
+             "mamba2_loss": lambda: sharded_loss("mamba2-2.7b", vocab=515),
+             "zamba2_loss": lambda: sharded_loss("zamba2-7b")}
     out, seconds = {}, {}
     for name, run in parts.items():
         t0 = time.perf_counter()

@@ -13,7 +13,6 @@ of 546 on Ivy Bridge.
 """
 import dataclasses
 import math
-import pathlib
 import time
 
 import numpy as np
@@ -29,10 +28,8 @@ from repro.core.session import AnalysisSession as JSession  # noqa: E402
 from repro_torch.core import api, blocking, compiled  # noqa: E402
 from repro_torch.core import machine as t_machine  # noqa: E402
 from repro_torch.core.session import AnalysisSession  # noqa: E402
+from _torch_machines import H100, IVY, jax_side  # noqa: E402
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
-IVY = str(REPO / "src/repro/configs/machines/ivybridge_ep.yaml")
-H100 = str(REPO / "src/repro_torch/machines/h100_sxm.yaml")
 MACHINES = {"ivy": IVY, "h100": H100}
 
 # name -> (source, element_bytes or None, constants the sweeps keep fixed)
@@ -81,7 +78,7 @@ def test_sweeps_equal_jax_compiled_and_symbolic(name, mach, kind):
     result; the port's compiled sweep lowers one plan and broadcasts."""
     ours_k, theirs_k = _load(name, unbind=kind == "2d")
     path = MACHINES[mach]
-    tm, jm = api.resolve_machine(path), JMachine.from_yaml(path)
+    tm, jm = api.resolve_machine(path), JMachine.from_yaml(jax_side(path))
     param, values, models = SWEEPS[kind]
     cores = CORES[mach] if kind == "cores" else 1
     results = {}
@@ -105,8 +102,8 @@ def test_api_sweep_routes_through_the_pooled_session():
     api.clear_sessions()
     out = api.sweep("stencil_3d_long_range.c", IVY, "N", N_1D,
                     constants={"M": 130})
-    want = j_api.sweep("stencil_3d_long_range.c", IVY, "N", N_1D,
-                       constants={"M": 130})
+    want = j_api.sweep("stencil_3d_long_range.c", jax_side(IVY), "N",
+                       N_1D, constants={"M": 130})
     assert _dicts(out) == _dicts(want)
     sess = api.get_session(IVY)
     assert sess.stats.plan_compiles == 1
@@ -178,7 +175,7 @@ def test_hlo_roofline_is_registered_as_in_jax():
 
 def _gs_pair(name, path, specs, **kw):
     ours_k, theirs_k = _load(name)
-    tm, jm = api.resolve_machine(path), JMachine.from_yaml(path)
+    tm, jm = api.resolve_machine(path), JMachine.from_yaml(jax_side(path))
     return (blocking.grid_search(ours_k, tm, specs, **kw),
             j_blocking.grid_search(theirs_k, jm, specs, **kw))
 
@@ -214,8 +211,8 @@ def test_grid_search_2d_and_roofline_equal_jax(metric):
     for path in (IVY, H100):
         ours = blocking.grid_search(k, api.resolve_machine(path), specs,
                                     metric=metric)
-        theirs = j_blocking.grid_search(jk, JMachine.from_yaml(path), specs,
-                                        metric=metric)
+        theirs = j_blocking.grid_search(
+            jk, JMachine.from_yaml(jax_side(path)), specs, metric=metric)
         _assert_gs_equal(ours, theirs)
 
 
@@ -282,6 +279,6 @@ def test_blocking_sweep_equals_jax(mach, grid):
         ours_k, api.resolve_machine(path), models=("ecm", "roofline"),
         grid=grid)
     jvals, jout = j_blocking.blocking_sweep(
-        theirs_k, JMachine.from_yaml(path), models=("ecm", "roofline"),
-        grid=grid)
+        theirs_k, JMachine.from_yaml(jax_side(path)),
+        models=("ecm", "roofline"), grid=grid)
     assert vals == jvals and _dicts(out) == _dicts(jout)

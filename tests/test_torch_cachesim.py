@@ -11,7 +11,6 @@ ECM/Roofline/``analyze`` results driven by SIM must give equal ``to_dict``.
 """
 import dataclasses
 import functools
-import pathlib
 
 import pytest
 
@@ -35,14 +34,10 @@ from repro_torch.core.machine import Machine  # noqa: E402
 from repro_torch.core.predictors import predict_volumes  # noqa: E402
 from repro_torch.core.roofline import RooflineResult  # noqa: E402
 from repro_torch.core.session import AnalysisSession  # noqa: E402
+import _torch_machines as tm  # noqa: E402
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
-MACHINES = {
-    "ivy": REPO / "src/repro/configs/machines/ivybridge_ep.yaml",
-    "ivy122": REPO / "src/repro/configs/machines/ivybridge_ep_sec122.yaml",
-    "v5e": REPO / "src/repro/configs/machines/tpu_v5e.yaml",
-    "h100": REPO / "src/repro_torch/machines/h100_sxm.yaml",
-}
+MACHINES = {"ivy": tm.IVY, "ivy122": tm.IVY122, "v5e": tm.V5E,
+            "h100": tm.H100}
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,8 +46,9 @@ def _machines(name: str, policy: str | None = None,
     """(ours, theirs) for machine ``name``, every level's replacement
     policy and write-allocate flag replaced when asked."""
     out = []
-    for cls in (Machine, JMachine):
-        m = cls.from_yaml(str(MACHINES[name]))
+    for cls, path in ((Machine, MACHINES[name]),
+                      (JMachine, tm.jax_side(MACHINES[name]))):
+        m = cls.from_yaml(path)
         if policy is not None or not write_allocate:
             levels = tuple(dataclasses.replace(
                 lv, replacement_policy=policy or lv.replacement_policy,
@@ -337,10 +333,10 @@ def test_models_driven_by_sim_equal_jax(src, mach, opts):
         assert r.to_dict() == jr.to_dict()
         assert RooflineResult.from_dict(r.to_dict()).to_dict() == r.to_dict()
     for model in ("ecm", "roofline", "roofline-iaca"):
-        got = api.analyze(source, str(MACHINES[mach]), model,
+        got = api.analyze(source, MACHINES[mach], model,
                           predictor="SIM", constants=consts,
                           element_bytes=eb, sim_kwargs=kw)
-        want = j_api.analyze(source, str(MACHINES[mach]), model,
+        want = j_api.analyze(source, tm.jax_side(MACHINES[mach]), model,
                              predictor="SIM", constants=consts,
                              frontend_opts={"element_bytes": eb} if eb
                              else None, sim_kwargs=kw)

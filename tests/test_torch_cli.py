@@ -27,11 +27,10 @@ from repro.core import api as j_api  # noqa: E402
 from repro_torch import cli  # noqa: E402
 from repro_torch.core import api, reports  # noqa: E402
 from repro_torch.service import ResultStore  # noqa: E402
+from _torch_machines import (H100, IVY, V5E, as_port_text,  # noqa: E402
+                             jax_argv)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-IVY = str(REPO / "src" / "repro" / "configs" / "machines" /
-          "ivybridge_ep.yaml")
-H100 = str(REPO / "src" / "repro_torch" / "machines" / "h100_sxm.yaml")
 STENCILS = REPO / "src" / "repro_torch" / "configs" / "stencils"
 S3D7 = str(STENCILS / "stencil_3d7pt.c")
 S2D5 = str(STENCILS / "stencil_2d5pt.c")
@@ -100,7 +99,11 @@ def run(main, argv, capsys):
 
 
 def run_both(argv, capsys):
-    return run(cli.main, argv, capsys), run(j_cli.main, argv, capsys)
+    """Both CLIs on one command line, JAX's on its own machine files (its
+    output names them as the port's)."""
+    ours = run(cli.main, argv, capsys)
+    rc, out, err = run(j_cli.main, jax_argv(argv), capsys)
+    return ours, (rc, as_port_text(out), as_port_text(err))
 
 
 @pytest.mark.parametrize("machine", sorted(MACHINES))
@@ -197,7 +200,6 @@ HLO = ("HloModule m\n\n"
        "replica_groups={{0,1,2,3}}, to_apply=%sum\n"
        "  ROOT %o = f32[1024]{0} add(%ar, %ar)\n"
        "}\n")
-V5E = str(REPO / "src" / "repro" / "configs" / "machines" / "tpu_v5e.yaml")
 
 
 @pytest.mark.parametrize("argv, rc", [

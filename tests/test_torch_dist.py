@@ -22,8 +22,12 @@ fixtures:
   shard-local einsum and the escapes (``on_replicas`` on a rank's rows,
   the label pick and log-sum-exp on vocab shards, the lookup), the
   loss's recorded ops against a rank's logits shard, the reduced
-  deepseek-v3's loss with its MTP head sharded against unsharded, and
-  the flash path's refusal of a (1, 4) mesh;
+  deepseek-v3's loss with its MTP head sharded against unsharded, the
+  flash path's refusal of a (1, 4) mesh, the SSD scan on (batch, head)
+  shards against the unsharded scan and its recorded ops against a
+  rank's head shard, the loss on uneven vocab slices (67 over 2, 5 over
+  4) and its recorded ops, and the reduced mamba2-2.7b (on an uneven
+  vocab) and zamba2-7b losses sharded against unsharded;
 * JAX on 4 devices: the port's sharded checkpoint restored onto a JAX
   (2, 2) mesh.
 
@@ -45,9 +49,10 @@ sharded contractions sum in another order, and this init's softmax
 amplifies the last bits, as between XLA and torch).  The trainer on the
 mesh in float32: losses within ``STEP_RTOL_F32`` and each master's move
 within ``MOVED_TOL`` of the single-process trainer's.  The shard-local
-einsum and the escapes against full float64 tensors within 1e-12.  The
-sharded MTP loss in float32: metrics within ``STEP_RTOL_F32``, gradients
-within ``MTP_GRAD_TOL``.
+einsum and the escapes against full float64 tensors within 1e-12, the
+head-sharded scan within ``SCAN_TOL``.  The sharded MTP, mamba2 and
+zamba2 losses in float32: metrics within ``STEP_RTOL_F32``, gradients
+within ``MTP_GRAD_TOL`` (zamba2: ``ZAMBA2_GRAD_TOL``).
 """
 import concurrent.futures
 
@@ -82,8 +87,21 @@ MOVED_TOL = 3e-2
 MOVED_MEAN_TOL = 1e-3
 #: the reduced deepseek-v3's sharded gradients against its unsharded ones,
 #: each leaf's max difference over its largest entry (float32; measured
-#: 1.8e-5, the sums' order)
+#: 1.8e-5, the sums' order); the reduced mamba2-2.7b's too (measured
+#: 1.9e-6)
 MTP_GRAD_TOL = 1e-4
+#: the reduced zamba2-7b's, whose shared attention blocks' softmax
+#: amplifies the sums' order as in the sharded forwards (measured 2.7e-4;
+#: 3.1e-4 with the scan's heads gathered)
+ZAMBA2_GRAD_TOL = 1e-3
+#: the head-sharded scan against the unsharded one in float64 (each head
+#: scans alone; B's and C's gradients add the heads' shares in another
+#: order)
+SCAN_TOL = 1e-10
+#: the whole loss on an uneven vocab, which casts the logits to float32
+#: as the model's loss does: the loss's difference and the logits'
+#: gradient's over its largest entry (measured 1.0e-7 and 9.3e-8)
+UNEVEN_XENT_TOL = 1e-6
 
 JAX_ORACLE = r"""
 import sys
@@ -466,19 +484,115 @@ def test_loss_backward_stays_on_the_logits_shard(ranks4):
         assert got["all"] <= got["shard"], got
 
 
+def _check_sharded_loss(ranks4, part: str, metrics: set, min_leaves: int,
+                        grad_tol: float):
+    """A ``sharded_loss`` result: every metric within ``STEP_RTOL_F32`` of
+    the unsharded call's, every gradient within ``grad_tol`` of its leaf's
+    largest entry, the same leaves reached, every rank alike."""
+    out = ranks4[0][part]
+    assert set(out["metrics"]) == metrics
+    for name, (got, want) in out["metrics"].items():
+        assert abs(got - want) <= STEP_RTOL_F32 * abs(want), (name, got,
+                                                                want)
+    assert all(a == b for a, b in out["reached"])
+    assert sum(a for a, _ in out["reached"]) == len(out["grads"]) \
+        >= min_leaves
+    assert max(out["grads"]) < grad_tol, max(out["grads"])
+    for r in ranks4[1:]:
+        assert r[part]["metrics"] == out["metrics"]
+
+
 def test_sharded_mtp_loss_matches_unsharded(ranks4):
     """``loss_fn`` of the reduced deepseek-v3, whose MTP head's logits go
     through the same vocab-parallel ``_xent``, on the (2, 2) mesh against
     the unsharded call in float32: every metric within ``STEP_RTOL_F32``
     and every gradient within ``MTP_GRAD_TOL`` of its leaf's largest
     entry; the backward reaches the same leaves."""
-    out = ranks4[0]["mtp_loss"]
-    assert set(out["metrics"]) == {"ce", "z_loss", "mtp_ce", "loss"}
-    for name, (got, want) in out["metrics"].items():
-        assert abs(got - want) <= STEP_RTOL_F32 * abs(want), (name, got,
-                                                                want)
-    assert all(a == b for a, b in out["reached"])
-    assert sum(a for a, _ in out["reached"]) == len(out["grads"]) > 40
-    assert max(out["grads"]) < MTP_GRAD_TOL, max(out["grads"])
-    for r in ranks4[1:]:
-        assert r["mtp_loss"]["metrics"] == out["metrics"]
+    _check_sharded_loss(ranks4, "mtp_loss", {"ce", "z_loss", "mtp_ce",
+                                             "loss"}, 41, MTP_GRAD_TOL)
+
+
+@pytest.mark.parametrize("part, tol", [("mamba2_loss", MTP_GRAD_TOL),
+                                       ("zamba2_loss", ZAMBA2_GRAD_TOL)])
+def test_sharded_ssm_loss_matches_unsharded(ranks4, part, tol):
+    """``loss_fn`` of the reduced mamba2-2.7b (its vocab replaced by 515,
+    which does not split over `model`'s 2 ranks: the scan on (batch,
+    head) shards and the loss on uneven vocab slices in one step) and of
+    the reduced zamba2-7b, on the (2, 2) mesh against the unsharded call
+    in float32: the metrics, the gradient of every leaf the backward
+    reaches, and the same leaves reached."""
+    _check_sharded_loss(ranks4, part, {"ce", "z_loss", "loss"}, 10, tol)
+
+
+@pytest.mark.parametrize("case", ["heads", "uneven heads"])
+def test_head_sharded_scan_matches_unsharded(ranks4, case):
+    """``mamba2._ssd`` through the model's escape on the (2, 2) mesh in
+    float64, each rank on its rows and its heads, against the unsharded
+    scan: y, the final state and the gradient of every operand within
+    ``SCAN_TOL`` (B's and C's, which every head shares, are partial sums
+    over `model`: a replicated label would drop the other ranks' heads).
+    y and the state stay on (batch, head) shards; 3 heads, which do not
+    split over 2 ranks, are gathered as before."""
+    from _torch_dist_ranks import SSD_PLACED
+    want_grads = [[(type(p).__name__, getattr(p, "dim", None)) for p in pl]
+                  for pl in SSD_PLACED]
+    for r in ranks4:
+        got = r["ssd_heads"][case]
+        assert max(got["err"].values()) < SCAN_TOL, got["err"]
+        assert len(got["err"]) == 9
+        assert got["grad_placements"] == want_grads
+        if case == "heads":
+            assert got["placements"] == [[("Shard", 0), ("Shard", 2)],
+                                         [("Shard", 0), ("Shard", 1)]]
+            assert got["local"] == [(2, 32, 2, 4), (2, 2, 4, 6)]
+        else:
+            assert got["placements"] == [[("Shard", 0),
+                                          ("Replicate", None)]] * 2
+            assert got["local"] == [(2, 32, 3, 4), (2, 3, 4, 6)]
+
+
+def test_scan_ops_stay_on_the_head_shard(ranks4):
+    """The head-sharded scan's forward and backward recorded by
+    ``graph_analysis.Recorder``: no op touches more elements than a
+    rank's (batch, head) shard of xh, its widest operand (with the heads
+    gathered, xh's rows alone are twice that)."""
+    for r in ranks4:
+        got = r["scan_ops"]
+        assert got["n_backward"] > 0
+        assert got["whole"] == 4 * got["shard"]
+        assert got["backward"] <= got["shard"], got
+        assert got["all"] <= got["shard"], got
+
+
+@pytest.mark.parametrize("case", ["67 over 2", "5 over 4"])
+def test_uneven_vocab_loss_matches_whole(ranks4, case):
+    """The loss on a vocab that does not divide `model` (67 over 2 ranks:
+    34 + 33 columns; 5 over 4: 2 + 2 + 1 + 0, one rank empty), split
+    (data, model), against the whole tensor: the log-sum-exp and the
+    label pick (every rank's first and last columns among the labels) and
+    their gradients in float64 within 1e-12, ``_xent`` within
+    ``UNEVEN_XENT_TOL``; each rank reduces its own ``torch.chunk`` slice
+    and keeps the batch's split."""
+    slices = {"67 over 2": [34, 33], "5 over 4": [2, 2, 1, 0]}[case]
+    for rank, r in enumerate(ranks4):
+        got = r["uneven_loss"][case]
+        for part in ("logsumexp", "labels"):
+            assert max(got["err"][part]) < 1e-12, (part, got["err"])
+        assert max(got["err"]["xent"]) < UNEVEN_XENT_TOL, got["err"]
+        assert got["vocab_split"] == 1
+        assert got["slice"] == slices[rank % len(slices)]
+        assert got["placements"] == [("Shard", 0), ("Replicate", None)]
+        assert got["local_rows"] == {"67 over 2": 2, "5 over 4": 4}[case]
+
+
+def test_uneven_loss_ops_stay_on_the_vocab_slice(ranks4):
+    """The loss on (16, 8, 67) logits over the (2, 2) mesh recorded by
+    ``graph_analysis.Recorder``: no op touches more elements than a
+    rank's rows at the ceil slice (34 columns), where gathering the rows'
+    vocab would touch 67."""
+    for r in ranks4:
+        got = r["uneven_loss_ops"]
+        assert got["n_backward"] > 0
+        assert got["local"] <= got["shard"] < got["whole_rows"]
+        assert got["backward"] <= got["shard"], got
+        assert got["all"] <= got["shard"], got

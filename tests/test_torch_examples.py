@@ -23,7 +23,6 @@ NAMES = ("torch_quickstart", "torch_stencil_modeling", "torch_serve_batched",
 TIMEOUT = 90
 #: the pipeline against the sequential model (float32; reads 0.0)
 PIPELINE_TOL = 1e-5
-IVY = ROOT / "src" / "repro" / "configs" / "machines" / "ivybridge_ep.yaml"
 
 
 @pytest.fixture(scope="module")

@@ -37,14 +37,12 @@ from repro_torch.fleet import (DEFAULT_MACHINES, DUMP_DIR,  # noqa: E402
                                price_op)
 from repro_torch.fleet import analyzer as t_analyzer  # noqa: E402
 from repro_torch.service import ResultStore  # noqa: E402
+from _torch_machines import H100, IVY, V5E, jax_side  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN_DIR = REPO / "benchmarks" / "golden" / "fleet"
-J_MACHINES = REPO / "src" / "repro" / "configs" / "machines"
-IVY = str(J_MACHINES / "ivybridge_ep.yaml")
-V5E = str(J_MACHINES / "tpu_v5e.yaml")
-H100 = str(REPO / "src" / "repro_torch" / "machines" / "h100_sxm.yaml")
 JAX_PAIR = (IVY, V5E)          # the goldens' machines, by path
+J_PAIR = tuple(jax_side(m) for m in JAX_PAIR)   # JAX's own files of them
 
 TOY_HLO = """\
 HloModule toy_fleet
@@ -92,7 +90,7 @@ def port_artifacts(tmp_path_factory):
 
 def _report_pair(config, machine, **kw):
     ours = FleetAnalyzer(**kw).analyze(config, machine)
-    theirs = j_fleet.FleetAnalyzer(**kw).analyze(config, machine)
+    theirs = j_fleet.FleetAnalyzer(**kw).analyze(config, jax_side(machine))
     assert ours.to_dict() == theirs.to_dict()
     assert ours.render() == theirs.render()
     return ours
@@ -105,7 +103,7 @@ def _report_pair(config, machine, **kw):
 def _rates_pair(machine, dtype="BF16"):
     ours = MachineRates.from_machine(api.resolve_machine(machine), dtype)
     theirs = j_fleet.MachineRates.from_machine(
-        j_api.resolve_machine(machine), dtype)
+        j_api.resolve_machine(jax_side(machine)), dtype)
     assert ours.to_dict() == theirs.to_dict()
     return ours
 
@@ -134,8 +132,8 @@ def test_machine_rates_tpu_dialect(machine):
     with pytest.raises(ValueError, match="no peak flops for dtype") as e:
         MachineRates.from_machine(mach, "FP64")
     with pytest.raises(ValueError) as je:
-        j_fleet.MachineRates.from_machine(j_api.resolve_machine(machine),
-                                          "FP64")
+        j_fleet.MachineRates.from_machine(
+            j_api.resolve_machine(jax_side(machine)), "FP64")
     assert str(e.value) == str(je.value)
 
 
@@ -163,17 +161,20 @@ def test_price_op_bound_classes():
 
 
 def test_machine_label_stability():
-    """The port's one alias labels as its file; a file by path labels as
-    its stem in both packages, so the goldens' names come out."""
+    """The port's aliases label as their files, as JAX's do; a file by
+    path labels as its stem in both packages, so the goldens' names come
+    out."""
     assert DEFAULT_MACHINES == ("H100",)
     assert machine_label("H100") == "h100_sxm"
+    for alias in ("IVY", "IVY122", "V5E"):
+        assert machine_label(alias) == j_fleet.machine_label(alias)
     for spec in (IVY, V5E, H100, "path/to/tpu_v5e.yaml", "x.yml"):
-        assert machine_label(spec) == j_fleet.machine_label(spec)
+        assert machine_label(spec) == j_fleet.machine_label(jax_side(spec))
     assert machine_label(IVY) == "ivybridge_ep"
     assert machine_label(V5E) == "tpu_v5e"
     for spec in (IVY, V5E, H100):
         assert machine_label(api.resolve_machine(spec)) == \
-            j_fleet.machine_label(j_api.resolve_machine(spec))
+            j_fleet.machine_label(j_api.resolve_machine(jax_side(spec)))
 
 
 # ----------------------------------------------------------------------
@@ -236,12 +237,14 @@ def test_stores_are_shared_across_packages(filler, tmp_path):
     fill, read = ((j_fleet.FleetAnalyzer, FleetAnalyzer) if filler == "jax"
                   else (FleetAnalyzer, j_fleet.FleetAnalyzer))
     configs_ = dump_configs()[:2]
-    machines = [V5E, IVY, H100]
-    cold = fill(cache_dir=tmp_path).analyze_all(configs_, machines)
+    machines = {FleetAnalyzer: [V5E, IVY, H100]}
+    machines[j_fleet.FleetAnalyzer] = [jax_side(m)
+                                       for m in machines[FleetAnalyzer]]
+    cold = fill(cache_dir=tmp_path).analyze_all(configs_, machines[fill])
     entries = ResultStore(tmp_path).summary(detail=True)
     assert entries["by_kind"] == {"fleet": 6, "analyze": 4}
     warm_an = read(cache_dir=tmp_path)
-    warm = warm_an.analyze_all(configs_, machines)
+    warm = warm_an.analyze_all(configs_, machines[read])
     assert [r.to_dict() for r in warm] == [r.to_dict() for r in cold]
     assert warm_an.service.stats.disk_hits == 6
     assert warm_an.service.stats.computed == 0
@@ -354,8 +357,8 @@ def test_analyze_all_covers_configs_x_machines(tmp_path):
     assert [p.name for p in paths] == [
         f"{c}__{machine_label(m)}.json" for c in two for m in JAX_PAIR]
     j_an = j_fleet.FleetAnalyzer(top=5)
-    j_paths = j_an.write_artifacts(j_an.analyze_all(two, JAX_PAIR),
-                                   JAX_PAIR, tmp_path / "j_out")
+    j_paths = j_an.write_artifacts(j_an.analyze_all(two, J_PAIR),
+                                   J_PAIR, tmp_path / "j_out")
     for p, q in zip(paths, j_paths):
         assert p.read_bytes() == q.read_bytes()
         assert json.loads(p.read_text())["kind"] == "fleet-report"
@@ -462,9 +465,10 @@ def test_cli_fleet_single_config_text_and_artifact(tmp_path, capsys):
     the gate's ``--artifacts`` (the port writes outside JAX's default)."""
     cfg = dump_configs()[0]
     outs = {}
-    for side, main in (("port", cli.main), ("jax", j_cli.main)):
+    for side, main, v5e in (("port", cli.main, V5E),
+                            ("jax", j_cli.main, jax_side(V5E))):
         d = tmp_path / side
-        outs[side] = run(main, ["fleet", "--config", cfg, "-m", V5E,
+        outs[side] = run(main, ["fleet", "--config", cfg, "-m", v5e,
                                 "--out", str(d)], capsys)
     rc, out, err = outs["port"]
     assert rc == 0 and err == ""
@@ -491,7 +495,7 @@ def test_cli_fleet_json_round_trips(capsys):
     ours = run(cli.main, ["fleet", "--config", cfg, "-m", H100, "-m", IVY,
                           "--out", "-", "--json"], capsys)
     theirs = run(j_cli.main, ["fleet", "--config", cfg, "-m", H100, "-m",
-                              IVY, "--out", "-", "--json"], capsys)
+                              jax_side(IVY), "--out", "-", "--json"], capsys)
     assert ours == theirs
     assert json.loads(ours[1])[0] == payload[0]
 
@@ -554,7 +558,7 @@ def test_python_m_fleet_shares_a_store_with_python_m_repro(tmp_path):
     argv = ["fleet", "--config", "granite-8b", "--config", "gemma-7b",
             "-m", V5E, "--out", "-", "--json", "--cache-dir",
             str(tmp_path)]
-    theirs = _python_m("repro", argv)
+    theirs = _python_m("repro", [jax_side(a) for a in argv])
     assert theirs.returncode == 0, theirs.stderr
     before = ResultStore(tmp_path).summary(detail=True)
     ours = _python_m("repro_torch", argv)

@@ -37,8 +37,7 @@ from repro_torch.kernels import stencil3d7pt  # noqa: E402
 REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX_STENCILS = REPO / "src" / "repro" / "configs" / "stencils"
 PORT_STENCILS = REPO / "src" / "repro_torch" / "configs" / "stencils"
-IVY = str(REPO / "src/repro/configs/machines/ivybridge_ep.yaml")
-H100 = str(REPO / "src/repro_torch/machines/h100_sxm.yaml")
+from _torch_machines import H100, IVY, jax_side  # noqa: E402
 LISTINGS = sorted(p.name for p in JAX_STENCILS.glob("*.c"))
 C_7PT = (PORT_STENCILS / "stencil_3d7pt.c").read_text()
 SIZES = {"stencil_2d5pt.c": {"M": 300, "N": 1000},
@@ -75,7 +74,8 @@ def test_kernel_key_equals_jax(name, bound):
 @pytest.mark.parametrize("name", LISTINGS)
 def test_models_from_c_equal_jax(name, machine, model):
     ours = api.analyze(name, machine, model=model, constants=SIZES[name])
-    theirs = j_analyze(name, machine, model=model, constants=SIZES[name])
+    theirs = j_analyze(name, jax_side(machine), model=model,
+                       constants=SIZES[name])
     assert ours.to_dict() == theirs.to_dict()
 
 
@@ -84,7 +84,8 @@ def test_listing4_ecm_line_from_c():
     machine, from the paper's C source, as the JAX package gives it."""
     consts = SIZES["stencil_3d_long_range.c"]
     ours = api.analyze("stencil_3d_long_range.c", IVY, constants=consts)
-    theirs = j_analyze("stencil_3d_long_range.c", IVY, constants=consts)
+    theirs = j_analyze("stencil_3d_long_range.c", jax_side(IVY),
+                       constants=consts)
     assert ours.notation() == theirs.notation() == \
         "{ 52.0 || 54.0 | 40.0 | 24.0 | 48.8 } cy/CL [LC] [simple]"
     assert ours.notation_cumulative() == theirs.notation_cumulative()
@@ -337,7 +338,7 @@ def test_hlo_model_frontend_mismatch():
         with pytest.raises(TypeError, match=match) as ours:
             api.analyze(src, IVY, model=model, **kw)
         with pytest.raises(TypeError) as theirs:
-            j_analyze(src, IVY, model=model, **kw)
+            j_analyze(src, jax_side(IVY), model=model, **kw)
         assert str(ours.value) == str(theirs.value)
 
 

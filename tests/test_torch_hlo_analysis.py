@@ -41,10 +41,7 @@ except ImportError:                       # container without hypothesis
     from _hypothesis_fallback import given, settings, st
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-J_MACHINES = REPO / "src" / "repro" / "configs" / "machines"
-IVY = str(J_MACHINES / "ivybridge_ep.yaml")
-V5E = str(J_MACHINES / "tpu_v5e.yaml")
-H100 = str(REPO / "src" / "repro_torch" / "machines" / "h100_sxm.yaml")
+from _torch_machines import H100, IVY, V5E, as_port_text, jax_side  # noqa
 DUMPS = REPO / "src" / "repro_torch" / "configs" / "hlo"
 
 
@@ -147,7 +144,8 @@ def test_dist_wire_models_match_jax(machine):
     """The port's ``dist`` wire models read the same rate off the same
     file as JAX's: the ICI link where the file has one (v5e 50 GB/s, the
     H100's NVLink estimate 450 GB/s), else main memory (Ivy Bridge)."""
-    ours, theirs = Machine.from_yaml(machine), JMachine.from_yaml(machine)
+    ours = Machine.from_yaml(machine)
+    theirs = JMachine.from_yaml(jax_side(machine))
     bw = dist.collective_bandwidth(ours)
     assert bw == j_dist.collective_bandwidth(theirs)
     assert bw == {IVY: ours.main_memory_bandwidth, V5E: 50e9,
@@ -371,8 +369,8 @@ def test_hlo_roofline_result_json_round_trip(machine):
     res = analyze(_WHILE_TXT, machine, model="hlo-roofline",
                   name="while-toy")
     d = res.to_dict()
-    assert d == j_analyze(_WHILE_TXT, machine, model="hlo-roofline",
-                          name="while-toy").to_dict()
+    assert d == j_analyze(_WHILE_TXT, jax_side(machine),
+                          model="hlo-roofline", name="while-toy").to_dict()
     assert d["model"] == "hlo-roofline"
     rebuilt = reports.from_json(reports.to_json(res))
     assert isinstance(rebuilt, H.HLORooflineResult)
@@ -396,8 +394,8 @@ def test_hlo_roofline_uses_machine_dtype(machine):
     res32 = analyze(_WHILE_TXT, machine, model="hlo-roofline",
                     name="while-toy", dtype="FP32")
     assert res32.to_dict() == j_analyze(
-        _WHILE_TXT, machine, model="hlo-roofline", name="while-toy",
-        dtype="FP32").to_dict()
+        _WHILE_TXT, jax_side(machine), model="hlo-roofline",
+        name="while-toy", dtype="FP32").to_dict()
     assert res32.peak_flops == pytest.approx(
         {V5E: 8.25e12, H100: 6.7e13}[machine])
 
@@ -413,8 +411,9 @@ def test_hlo_roofline_rejects_non_tpu_machine_and_unknown_dtype(machine, kw,
     with pytest.raises(ValueError, match=match) as ours:
         analyze(_WHILE_TXT, machine, model="hlo-roofline", **kw)
     with pytest.raises(ValueError) as theirs:
-        j_analyze(_WHILE_TXT, machine, model="hlo-roofline", **kw)
-    assert str(ours.value) == str(theirs.value)
+        j_analyze(_WHILE_TXT, jax_side(machine), model="hlo-roofline",
+                  **kw)
+    assert str(ours.value) == as_port_text(str(theirs.value))
 
 
 @pytest.mark.parametrize("machine", [V5E, H100])
@@ -426,7 +425,7 @@ def test_vpu_only_program_gets_compute_term(machine):
                                           / res.vpu_peak_flops)
     assert res.arithmetic_intensity > 0
     assert reports.text_report(res) == j_reports.text_report(
-        j_analyze(_WHILE_TXT, machine, model="hlo-roofline",
+        j_analyze(_WHILE_TXT, jax_side(machine), model="hlo-roofline",
                   name="while-toy"))
 
 

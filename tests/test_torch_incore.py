@@ -11,7 +11,6 @@ ECM, Roofline and sessions with ``incore="ports"`` give equal
 """
 import dataclasses
 import json
-import pathlib
 
 import pytest
 
@@ -32,14 +31,10 @@ from repro_torch.core.incore import (  # noqa: E402
     resolve_incore, schedule, synthetic_stream)
 from repro_torch.core.machine import Machine  # noqa: E402
 from repro_torch.core.session import AnalysisSession  # noqa: E402
+import _torch_machines as tm  # noqa: E402
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
-MACHINES = {
-    "ivy": REPO / "src/repro/configs/machines/ivybridge_ep.yaml",
-    "ivy122": REPO / "src/repro/configs/machines/ivybridge_ep_sec122.yaml",
-    "v5e": REPO / "src/repro/configs/machines/tpu_v5e.yaml",
-    "h100": REPO / "src/repro_torch/machines/h100_sxm.yaml",
-}
+MACHINES = {"ivy": tm.IVY, "ivy122": tm.IVY122, "v5e": tm.V5E,
+            "h100": tm.H100}
 # (source, constants, T_OL, T_nOL) on Ivy Bridge: the machine-file classes
 # JAX's TestPaperPins holds (tests/test_incore.py)
 PAPER_KERNELS = {
@@ -73,8 +68,8 @@ FMA_MACHINE = {
 def _machines(name):
     if name == "fma":
         return Machine.from_dict(FMA_MACHINE), JMachine.from_dict(FMA_MACHINE)
-    path = str(MACHINES[name])
-    return Machine.from_yaml(path), JMachine.from_yaml(path)
+    path = MACHINES[name]
+    return Machine.from_yaml(path), JMachine.from_yaml(tm.jax_side(path))
 
 
 def _source(src, consts, element_bytes=None):

@@ -41,13 +41,10 @@ from repro_torch.core.frontends import load_kernel  # noqa: E402
 from repro_torch.core.machine import Machine  # noqa: E402
 from repro_torch.core.predictors import predict_volumes  # noqa: E402
 from repro_torch.service import AnalysisService  # noqa: E402
+from _torch_machines import (H100, IVY, IVY122, V5E,  # noqa: E402
+                             as_port_text, jax_argv, jax_side)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-J_MACHINES = REPO / "src" / "repro" / "configs" / "machines"
-IVY = str(J_MACHINES / "ivybridge_ep.yaml")
-IVY122 = str(J_MACHINES / "ivybridge_ep_sec122.yaml")
-V5E = str(J_MACHINES / "tpu_v5e.yaml")
-H100 = str(REPO / "src" / "repro_torch" / "machines" / "h100_sxm.yaml")
 # the port's byte copies of the listings, passed by path to both packages
 STENCILS = REPO / "src" / "repro_torch" / "configs" / "stencils"
 PAPER_STENCILS = ["stencil_2d5pt.c", "stencil_3d7pt.c",
@@ -74,7 +71,8 @@ class Side:
         self.parse = j_parse if jax else parse_kernel
         self.load = j_load if jax else load_kernel
         self.ir = j_ir if jax else kernel_ir
-        self.machine = (JMachine if jax else Machine).from_yaml
+        self.machine = ((lambda p: JMachine.from_yaml(jax_side(p))) if jax
+                        else Machine.from_yaml)
 
     def star2d(self, radius: int, n: int):
         reads = [("a", "j", f"i+{c}") for c in range(-radius, radius + 1)]
@@ -331,7 +329,7 @@ def test_hlo_roofline_request_draws_jax_s_words():
     with pytest.raises(TypeError, match="consumes 'hlo' sources") as ours:
         analyze(LISTING["stencil_2d5pt.c"], IVY, **kw)
     with pytest.raises(TypeError) as theirs:
-        j_analyze(LISTING["stencil_2d5pt.c"], IVY, **kw)
+        j_analyze(LISTING["stencil_2d5pt.c"], jax_side(IVY), **kw)
     assert str(ours.value) == str(theirs.value)
 
 
@@ -347,14 +345,15 @@ def test_warn_mode_bit_for_bit_parity(machine):
     kw = dict(model="ecm", constants={"M": 130, "N": 100})
     off = analyze(SRC, machine, **kw).to_dict()
     warn = analyze(SRC, machine, lint="warn", **kw).to_dict()
-    assert warn == j_analyze(SRC, machine, lint="warn", **kw).to_dict()
+    assert warn == j_analyze(SRC, jax_side(machine), lint="warn",
+                             **kw).to_dict()
     diags = warn.pop("diagnostics")
     assert warn == off and isinstance(diags, list)
 
 
 def test_warn_mode_carries_findings():
     res = analyze(SRC, IVY, model="ecm", lint="warn")
-    assert res.to_dict() == j_analyze(SRC, IVY, model="ecm",
+    assert res.to_dict() == j_analyze(SRC, jax_side(IVY), model="ecm",
                                       lint="warn").to_dict()
     assert "K107" in [d["code"] for d in res.to_dict()["diagnostics"]]
     assert res.report.ok()
@@ -366,7 +365,7 @@ def test_error_mode_raises_before_compute():
         analyze(SRC, IVY, model="hlo-roofline",
                 constants={"M": 8, "N": 8}, lint="error")
     with pytest.raises(j_lint.LintError) as theirs:
-        j_analyze(SRC, IVY, model="hlo-roofline",
+        j_analyze(SRC, jax_side(IVY), model="hlo-roofline",
                   constants={"M": 8, "N": 8}, lint="error")
     assert "X301" in ours.value.report.codes()
     assert str(ours.value) == str(theirs.value)
@@ -383,7 +382,7 @@ def test_unknown_lint_mode_rejected():
     with pytest.raises(ValueError, match="lint mode") as ours:
         analyze(SRC, IVY, model="ecm", lint="loud")
     with pytest.raises(ValueError) as theirs:
-        j_analyze(SRC, IVY, model="ecm", lint="loud")
+        j_analyze(SRC, jax_side(IVY), model="ecm", lint="loud")
     assert str(ours.value) == str(theirs.value)
 
 
@@ -391,7 +390,7 @@ def test_sweep_attaches_one_report_to_every_result():
     kw = dict(models=["ecm"], constants={"M": 20}, lint="warn")
     out = sweep(SRC, IVY, "N", [50, 60], **kw)
     assert len({id(r.report) for r in out["ecm"]}) == 1
-    theirs = j_sweep(SRC, IVY, "N", [50, 60], **kw)
+    theirs = j_sweep(SRC, jax_side(IVY), "N", [50, 60], **kw)
     assert [r.to_dict() for r in out["ecm"]] == \
         [r.to_dict() for r in theirs["ecm"]]
     plain = sweep(SRC, IVY, "N", [50, 60], models=["ecm"],
@@ -412,7 +411,8 @@ def test_lint_report_stored_and_replayed(filler, tmp_path):
     without a rule run, equal to the one computed."""
     svc = (AnalysisService if filler == "port" else JService)(
         cache_dir=str(tmp_path))
-    r1 = svc.analyze(SRC, IVY, "ecm", lint="warn")
+    r1 = svc.analyze(SRC, IVY if filler == "port" else jax_side(IVY),
+                     "ecm", lint="warn")
     assert "K107" in [d["code"] for d in r1.to_dict()["diagnostics"]]
     assert svc.store.summary(detail=True)["by_kind"].get("lint") == 1
     lint.clear_report_cache()
@@ -436,9 +436,10 @@ def test_service_error_mode_raises(tmp_path):
 def run_both(argv, capsys):
     rc = cli.main(argv)
     ours = capsys.readouterr()
-    j_rc = j_cli.main(argv)
+    j_rc = j_cli.main(jax_argv(argv))
     theirs = capsys.readouterr()
-    return (rc, ours.out, ours.err), (j_rc, theirs.out, theirs.err)
+    return (rc, ours.out, ours.err), (j_rc, as_port_text(theirs.out),
+                                      as_port_text(theirs.err))
 
 
 @pytest.mark.parametrize("fname", PAPER_STENCILS)
@@ -540,7 +541,8 @@ def test_lc_safe_verdict_implies_volume_agreement(radius, n, three_d):
     k = PORT.star3d(radius, n) if three_d else PORT.star2d(radius, n)
     report = lint.lint_kernel(k, ivy)
     jk = JAX.star3d(radius, n) if three_d else JAX.star2d(radius, n)
-    assert_same(report, j_lint.lint_kernel(jk, JMachine.from_yaml(IVY)))
+    assert_same(report, j_lint.lint_kernel(
+        jk, JMachine.from_yaml(jax_side(IVY))))
     if not lint.lc_safe(report):
         return
     for lv in ivy.levels:

@@ -5,7 +5,6 @@ paper's machine at the paper's sizes.  Also the H100 machine file under
 the JAX package's machine lint, and the timer helper's parity.
 """
 import importlib
-import pathlib
 
 import numpy as np
 import pytest
@@ -25,9 +24,7 @@ from repro_torch.core.identity import kernel_key  # noqa: E402
 from repro_torch.kernels import longrange3d, stencil3d7pt  # noqa: E402
 from repro_torch.tune.measure import robust_median  # noqa: E402
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
-IVY = str(REPO / "src/repro/configs/machines/ivybridge_ep.yaml")
-H100 = str(REPO / "src/repro_torch/machines/h100_sxm.yaml")
+from _torch_machines import H100, IVY, jax_side  # noqa: E402
 
 # (port module, JAX module, paper sizes): the long-range stencil at the
 # §3 case-study size (Listing 4), the 7-point stencil at a 3D-LC size
@@ -59,7 +56,8 @@ def test_traced_kernel_key_matches(name, element_bytes):
 def test_models_bit_identical_on_ivybridge(name, model):
     mod, _, consts = CASES[name]
     ours = api.analyze(mod.point, IVY, model=model, constants=consts)
-    theirs = j_analyze(_jax_point(name), IVY, model=model, constants=consts)
+    theirs = j_analyze(_jax_point(name), jax_side(IVY), model=model,
+                       constants=consts)
     assert ours.to_dict() == theirs.to_dict()
 
 
@@ -98,7 +96,7 @@ def test_transition_points_match():
         machine.load(IVY).level("L3").size_bytes)
     theirs = j_lc.transition_points(
         j_load(_jax_point("longrange3d"), constants=consts),
-        JMachine.from_yaml(IVY).level("L3").size_bytes)
+        JMachine.from_yaml(jax_side(IVY)).level("L3").size_bytes)
     assert [(str(t.threshold), t.max_value, t.hits, t.misses) for t in ours] \
         == [(str(t.threshold), t.max_value, t.hits, t.misses)
             for t in theirs]

@@ -32,11 +32,9 @@ from repro_torch.service import (AnalysisRequest,  # noqa: E402
                                  ResultStore, sweep_sharded)
 from repro_torch.service import store as store_mod  # noqa: E402
 from repro_torch.tune import tune, tuner  # noqa: E402
+from _torch_machines import H100, IVY, jax_side  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-IVY = str(REPO / "src" / "repro" / "configs" / "machines" /
-          "ivybridge_ep.yaml")
-H100 = str(REPO / "src" / "repro_torch" / "machines" / "h100_sxm.yaml")
 STENCIL = str(REPO / "src" / "repro_torch" / "configs" / "stencils" /
               "stencil_3d7pt.c")
 LONGRANGE = str(pathlib.Path(STENCIL).with_name("stencil_3d_long_range.c"))
@@ -151,7 +149,8 @@ def test_machine_fingerprint_identical_files_share(tmp_path):
     ma, mb = Machine.from_yaml(a), Machine.from_yaml(b)
     assert ma.fingerprint == mb.fingerprint == Machine.from_yaml(
         IVY).fingerprint
-    assert ma.fingerprint == j_api.resolve_machine(IVY).fingerprint
+    assert ma.fingerprint == \
+        j_api.resolve_machine(jax_side(IVY)).fingerprint
 
 
 def test_machine_fingerprint_edit_invalidates(tmp_path):
@@ -354,6 +353,7 @@ def _fill(svc, port: bool):
     returns the ``to_dict`` of everything served, in order."""
     out = []
     for machine in (IVY, H100):
+        machine = machine if port else jax_side(machine)
         for src, eb, consts in REQUESTS:
             kw = ({"element_bytes": eb} if port else
                   {"frontend_opts": {"element_bytes": eb}}) if eb else {}
@@ -393,7 +393,8 @@ def test_digests_equal_jax_s(tmp_path):
                     cores=132, incore="ports")
         svc.sweep(STENCIL, H100, {"M": [64, 130], "N": [100, 500]},
                   constants={}, cores=[1, 132])
-        svc.analyze(STENCIL, IVY, "ecm", predictor="SIM",
+        svc.analyze(STENCIL, IVY if svc is ours else jax_side(IVY), "ecm",
+                    predictor="SIM",
                     constants={"M": 20, "N": 40},
                     sim_kwargs={"warmup_rows": 3})
     names = [sorted(p.relative_to(svc.store.root) for p in

@@ -549,8 +549,7 @@ def test_stencil_families_resolve():
     """Both stencil families resolve; on the card the cores default to
     the 132 SMs and n runs to GPU_N_MAX, on a one-core TPU file the JAX
     space's defaults hold."""
-    v5e = t_machine.load(
-        str(REPO / "src/repro/configs/machines/tpu_v5e.yaml"))
+    v5e = t_machine.load("V5E")
     for fam in STENCILS:
         sp = t_space.resolve_space(fam, "H100")
         assert type(sp).__name__ in ("Stencil7ptSpace", "LongRange3DSpace")
