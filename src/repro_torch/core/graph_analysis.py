@@ -58,8 +58,9 @@ The rules:
   ``hlo_analysis``.
 * **Memory**: the argument bytes (the local shards of the call's tensor
   arguments) and the peak of live bytes during the call: the arguments
-  plus every storage an op allocated that is still alive.  An in-place
-  op allocates nothing.
+  plus every storage an op allocated that is still alive, ``empty*``'s
+  too (they move no bytes but hold their storage).  An in-place op
+  allocates nothing.
 
 A record's ``computation`` is the innermost :func:`scope` open when the
 op ran (a caller names a stretch of its program, such as the optimizer),
@@ -121,6 +122,9 @@ _FREE = {"device", "wait_tensor", "empty", "empty_strided", "empty_like",
          "_local_scalar_dense", "promote_types", "is_same_size",
          "resize_", "set_", "sym_size", "sym_stride", "sym_numel",
          "sym_storage_offset"}
+# the free ops that allocate a storage of their own
+_ALLOCATIONS = {"empty", "empty_strided", "empty_like", "new_empty",
+                "new_empty_strided"}
 # in-place ops that overwrite their first operand without reading it
 _OVERWRITE = {"copy_", "fill_", "zero_", "normal_", "uniform_", "random_"}
 # collective op name -> wire-model kind
@@ -139,8 +143,12 @@ _META_RUN = "_propagate_tensor_meta_non_cached"
 
 def shape_str(t: torch.Tensor) -> str:
     """An HLO-style type string of a tensor: ``bf16[4,128,512]``."""
-    name = _DTYPE_NAMES.get(t.dtype, str(t.dtype).replace("torch.", ""))
-    return f"{name}[{','.join(str(int(s)) for s in t.shape)}]"
+    return _type_str(t.dtype, t.shape)
+
+
+def _type_str(dtype: torch.dtype, shape) -> str:
+    name = _DTYPE_NAMES.get(dtype, str(dtype).replace("torch.", ""))
+    return f"{name}[{','.join(str(int(s)) for s in shape)}]"
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -243,6 +251,8 @@ class GraphCapture:
     peak_bytes: int = 0            # arguments + allocations alive at once
     n_dispatched: int = 0          # every op seen, views and free ones too
     seconds: float = 0.0           # host seconds of the recorded call
+    #: (label, bytes) of the allocations alive at the peak, largest first
+    live_at_peak: list = dataclasses.field(default_factory=list)
 
     def memory(self) -> dict:
         return {"argument_bytes": int(self.argument_bytes),
@@ -267,6 +277,11 @@ class Recorder(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._alive: dict[int, int] = {}
+        # [bytes, born, died, op, dtype, shape, computation] per
+        # allocation, on one event clock; labels are made at the end
+        self._allocs: list[list] = []
+        self._clock = 0
+        self._peak_at = 0
         self._meta_runs = 0
         self._saved = None
 
@@ -292,18 +307,35 @@ class Recorder(TorchDispatchMode):
         return super().__exit__(*exc)
 
     # -- memory -------------------------------------------------------
-    def _allocated(self, t: torch.Tensor) -> None:
+    def _allocated(self, t: torch.Tensor, name: str) -> None:
         st = t.untyped_storage()
         key = st._cdata
         if key in self._alive:
             return
         self._alive[key] = st.nbytes()
         self.live += st.nbytes()
-        self.peak = max(self.peak, self.live)
-        weakref.finalize(st, self._freed, key)
+        self._clock += 1
+        life = [st.nbytes(), self._clock, None, name, t.dtype, t.shape,
+                self._computation()]
+        self._allocs.append(life)
+        if self.live > self.peak:
+            self.peak, self._peak_at = self.live, self._clock
+        weakref.finalize(st, self._freed, key, life)
 
-    def _freed(self, key: int) -> None:
+    def _freed(self, key: int, life: list) -> None:
         self.live -= self._alive.pop(key, 0)
+        self._clock += 1
+        life[2] = self._clock
+
+    def live_at_peak(self) -> list[tuple[str, int]]:
+        """(label, bytes) of every allocation alive at the peak, largest
+        first: the op that made it, its shape and its computation."""
+        at = self._peak_at
+        live = [life for life in self._allocs
+                if life[1] <= at and (life[2] is None or life[2] > at)]
+        return [(f"{op} {_type_str(dtype, shape)} ({comp})", n)
+                for n, _, _, op, dtype, shape, comp in
+                sorted(live, key=lambda life: -life[0])]
 
     # -- dispatch -----------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -331,6 +363,9 @@ class Recorder(TorchDispatchMode):
         name = func._opname if hasattr(func, "_opname") else \
             func.__name__.split(".")[0]
         if name in _FREE:
+            if name in _ALLOCATIONS:      # moves no bytes, holds memory
+                for t in _tensors(out):
+                    self._allocated(t, name)
             return
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
@@ -340,7 +375,7 @@ class Recorder(TorchDispatchMode):
         if outs and not fresh and not mutable:
             return                    # a view: every result aliases
         for t in fresh:
-            self._allocated(t)
+            self._allocated(t, name)
         a = self.analysis
         rec = OpCost(name=f"{name}.{len(a.ops)}", opcode=name,
                      computation=self._computation(),
@@ -413,7 +448,8 @@ def capture(fn, *args, tf32: bool | None = None, **kwargs):
     """``fn(*args, **kwargs)`` under a :class:`Recorder`.  Returns the call's
     result and its :class:`GraphCapture`: the analysis, the argument bytes
     (local shards of the tensor arguments, each storage once), the bytes
-    of results that alias no argument, and the peak of live bytes."""
+    of results that alias no argument, the peak of live bytes and what
+    was alive at it."""
     arg_tensors = {}
     for t in _tensors((args, kwargs)):
         loc = t._local_tensor if isinstance(t, DTensor) else t
@@ -435,4 +471,5 @@ def capture(fn, *args, tf32: bool | None = None, **kwargs):
     return out, GraphCapture(
         analysis=rec.analysis, argument_bytes=arg_bytes,
         output_bytes=out_bytes, peak_bytes=arg_bytes + rec.peak,
-        n_dispatched=rec.n_dispatched, seconds=seconds)
+        n_dispatched=rec.n_dispatched, seconds=seconds,
+        live_at_peak=rec.live_at_peak())

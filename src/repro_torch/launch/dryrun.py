@@ -175,6 +175,8 @@ def roofline(cap: graph_analysis.GraphCapture, rates: MachineRates, *,
                    for r in ana.schedule[:24]],
                top_traffic=[{"op": n, "bytes": int(b)}
                             for n, b in ana.top_traffic(12)],
+               live_at_peak=[{"op": n, "bytes": int(b)}
+                             for n, b in cap.live_at_peak[:12]],
                n_ops=len(ana.ops), dispatched=cap.n_dispatched)
     return rec
 

@@ -30,6 +30,7 @@ from torch.distributed.tensor.experimental import local_map
 from ..models.common import on_replicas, row_shards, sharded, spec_tree, tmap
 from ..models.common import with_sharding
 from ..optim import OptConfig, adamw_update, cosine_schedule
+from . import xent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,17 +45,17 @@ class TrainConfig:
 
 
 def _xent(logits, labels, z_coef: float):
-    """fp32 softmax cross-entropy with z-loss; returns (loss, zloss) means."""
-    lg = logits.float()
-    lse = _row_logsumexp(lg)
-    ll = _label_logits(lg, labels)
+    """fp32 softmax cross-entropy with z-loss; returns (loss, zloss) means.
+    ``labels`` (b, n) are the targets of the first n ≤ s positions of
+    ``logits`` (b, s, V); the positions after them take no part, so a
+    caller passes the whole logits, not a slice whose backward would
+    allocate a second logit-sized gradient.  The logits stay in their own
+    type: each row's sums run in float32 chunks (:mod:`.xent`), as XLA
+    fuses JAX's upcast into them."""
+    lse, ll = _lse_and_label(logits, labels)
     ce = lse - ll
     z = torch.square(lse)
     return ce.mean(), z.mean() * z_coef
-
-
-def _take(t, i):
-    return torch.gather(t, -1, i.long()[..., None])[..., 0]
 
 
 def _vocab_split(lg):
@@ -82,93 +83,83 @@ def _vocab_offset(V: int, n: int, r: int) -> int:
     return min(r * -(-V // n), V)
 
 
-def _row_logsumexp(lg):
-    """``logsumexp(lg, -1)``, (b, s).  Logits split over vocab on one
-    mesh dim, evenly or not, reduce on each rank's vocab slice: the row
-    max, detached (the result does not depend on the shift), all-reduced
-    with ``max`` over that dim, then the sum of ``exp(lg - max)``
-    all-reduced with ``sum`` — two (b, s) all-reduces, the rows kept on
-    their batch shards.  The backward is each rank's ``softmax · g`` on
-    its own slice, where DTensor's own ``logsumexp`` gathers the whole
-    vocab for a rank's rows.  Other DTensor logits run on each rank's
-    rows with the vocab gathered
+def _lse_and_label(lg, labels):
+    """``(logsumexp(lg, -1), lg[..., labels])``, each (b, n) for labels
+    (b, n) on the first n positions of ``lg`` (b, s, V), in float32
+    (float64 for float64 logits), through one
+    :class:`~.xent.SliceSums`.  Logits split over vocab on one mesh dim
+    (the head's `model`), evenly or not, reduce on each rank's vocab
+    slice (:func:`_vocab_lse_and_label`).  Other DTensor logits run on
+    each rank's rows with the vocab gathered
     (:func:`~repro_torch.models.common.on_replicas`)."""
     if not isinstance(lg, DTensor):
-        return torch.logsumexp(lg, -1)
+        return xent.lse_and_label(lg, labels)
     vd, rows = _vocab_split(lg)
     if vd is None:
-        return on_replicas(lambda t: torch.logsumexp(t, -1), lg, rows=(0,))
-    return _vocab_logsumexp(lg, vd, rows)
+        return on_replicas(xent.lse_and_label, lg, labels, rows=(0, 1))
+    return _vocab_lse_and_label(lg, labels, vd, rows)
 
 
-def _vocab_logsumexp(lg, vd: int, rows: tuple):
-    """:func:`_row_logsumexp` of DTensor logits split over vocab on mesh
-    dim ``vd``, with the result on ``rows``' placements
-    (:func:`_vocab_split`)."""
+def _vocab_lse_and_label(lg, labels, vd: int, rows: tuple):
+    """:func:`_lse_and_label` of DTensor logits split over vocab on mesh
+    dim ``vd``, with the results on ``rows``' placements
+    (:func:`_vocab_split`).  The row max of each rank's slice, detached
+    (the result does not depend on the shift), is all-reduced with
+    ``max`` over ``vd``; then :class:`~.xent.SliceSums` runs once on the
+    rank's slice (its first column at :func:`_vocab_offset`; a label
+    outside it picks 0, an empty slice adds 0) and its two sums, each
+    ``Partial`` over ``vd``, are all-reduced there: three (b, s)
+    all-reduces, the rows kept on their batch shards.  The backward is
+    each rank's ``g_s·exp(lg - max)`` plus the label's ``g_l`` on its own
+    slice, one gradient buffer; DTensor's own ``logsumexp`` would gather
+    the whole vocab for a rank's rows, and its vocab-parallel gather
+    leaves a masked partial it fails to reduce."""
     mesh = lg.device_mesh
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
     split = tuple(Shard(lg.ndim - 1) if d == vd else p
                   for d, p in enumerate(rows))
 
     def over_vocab(op):
         return tuple(Partial(op) if d == vd else p
                      for d, p in enumerate(rows))
-    m = local_map(_slice_max, out_placements=list(over_vocab("max")),
+    n = labels.shape[1]
+    m = local_map(lambda t: xent.row_max(t[:, :n]),
+                  out_placements=list(over_vocab("max")),
                   in_placements=(split,), device_mesh=mesh,
                   redistribute_inputs=True)(lg.detach()) \
         .redistribute(mesh, rows)
-    s = local_map(lambda t, m_: torch.exp(t - m_[..., None]).sum(-1),
-                  out_placements=list(over_vocab("sum")),
-                  in_placements=(split, rows), device_mesh=mesh,
-                  redistribute_inputs=True)(lg, m).redistribute(mesh, rows)
-    return m + torch.log(s)
+    offset = _vocab_offset(lg.shape[-1], mesh.size(vd),
+                           mesh.get_local_rank(vd))
+    s, ll = xent.SliceSums.apply(
+        _Shard.apply(lg.redistribute(mesh, split)), m.to_local(),
+        labels.redistribute(mesh, rows).to_local(), offset)
+
+    def summed(x):
+        return DTensor.from_local(x, mesh, over_vocab("sum"),
+                                  run_check=False).redistribute(mesh, rows)
+    return m + torch.log(summed(s)), summed(ll)
 
 
-def _slice_max(t):
-    """The row max of a rank's vocab slice; -inf where the slice is empty
-    (a short vocab's last ranks), so the max over ranks is the row's."""
-    if t.shape[-1] == 0:
-        return t.new_full(t.shape[:-1], float("-inf"))
-    return t.amax(-1)
+class _Shard(torch.autograd.Function):
+    """A DTensor's local shard, whose gradient comes back as a DTensor of
+    the input's own global shape and stride.  ``to_local``'s backward
+    derives the stride from the local gradient, which on an uneven split
+    differs from the input's: a leaf then accumulates through a copy, and
+    torch 2.11 gathers that copy whole."""
 
+    @staticmethod
+    def forward(ctx, x):
+        ctx.meta = (x.device_mesh, x.placements, x.shape, x.stride())
+        loc = x.to_local()
+        return loc.view_as(loc)
 
-def _label_logits(lg, labels):
-    """``lg[..., labels]``, (b, s).  Logits split over vocab on one mesh
-    dim (the head's `model`), evenly or not, pick on each rank's vocab
-    slice (:func:`_vocab_offset`) under ``local_map`` (a label outside
-    it adds 0) and are summed over that dim: a (b, s) all-reduce, where
-    DTensor's own vocab-parallel gather leaves a masked partial it fails
-    to reduce.  Other DTensor logits run on each rank's rows with the
-    vocab gathered (:func:`~repro_torch.models.common.on_replicas`)."""
-    if not isinstance(lg, DTensor):
-        return _take(lg, labels)
-    vd, rows = _vocab_split(lg)
-    if vd is None:
-        return on_replicas(_take, lg, labels, rows=(0, 1))
-    return _vocab_label_logits(lg, labels, vd, rows)
-
-
-def _vocab_label_logits(lg, labels, vd: int, rows: tuple):
-    """:func:`_label_logits` of DTensor logits split over vocab on mesh
-    dim ``vd``, with the result on ``rows``' placements
-    (:func:`_vocab_split`)."""
-    mesh = lg.device_mesh
-    if not isinstance(labels, DTensor):
-        labels = DTensor.from_local(labels, mesh, (Replicate(),) * mesh.ndim,
-                                    run_check=False)
-
-    def pick(t, i):
-        j = i.long() - _vocab_offset(lg.shape[-1], mesh.size(vd),
-                                     mesh.get_local_rank(vd))
-        if t.shape[-1] == 0:      # a short vocab's last ranks: zeros
-            return t.sum(-1)
-        inside = (j >= 0) & (j < t.shape[-1])
-        return torch.where(inside, _take(t, j.clamp(0, t.shape[-1] - 1)),
-                           0.0)
-    summed = tuple(Partial() if d == vd else p for d, p in enumerate(rows))
-    return local_map(pick, out_placements=list(summed),
-                     in_placements=(lg.placements, rows), device_mesh=mesh,
-                     redistribute_inputs=True)(lg, labels) \
-        .redistribute(mesh, rows)
+    @staticmethod
+    def backward(ctx, g):
+        mesh, placements, shape, stride = ctx.meta
+        return DTensor.from_local(g, mesh, placements, run_check=False,
+                                  shape=shape, stride=stride)
 
 
 def loss_fn(model, params, batch, rule=None, tcfg: TrainConfig | None = None,
@@ -183,7 +174,7 @@ def loss_fn(model, params, batch, rule=None, tcfg: TrainConfig | None = None,
         logits, hidden = out
     else:
         logits = out
-    ce, z = _xent(logits[:, :-1], labels[:, :-1], tcfg.z_loss)
+    ce, z = _xent(logits, labels[:, :-1], tcfg.z_loss)
     loss = ce + z
     metrics = {"ce": ce, "z_loss": z}
     if cfg.mtp:
@@ -191,7 +182,7 @@ def loss_fn(model, params, batch, rule=None, tcfg: TrainConfig | None = None,
         # row by row: torch 2.11's DTensor has no strategy for roll
         mtp_labels = on_replicas(lambda t: torch.roll(t, -1, dims=1),
                                  labels, rows=(0,))
-        mtp_ce, _ = _xent(mtp_logits[:, :-2], mtp_labels[:, :-2], 0.0)
+        mtp_ce, _ = _xent(mtp_logits, mtp_labels[:, :-2], 0.0)
         loss = loss + tcfg.mtp_weight * mtp_ce
         metrics["mtp_ce"] = mtp_ce
     metrics["loss"] = loss

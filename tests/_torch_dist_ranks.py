@@ -380,8 +380,8 @@ def escapes() -> dict:
     (want * wt).sum().backward()
     live = common.distribute(lg, mesh, (Shard(0), Shard(2))) \
         .requires_grad_()
-    got = step_mod._label_logits(live, common.distribute(
-        labels, mesh, (Shard(0), Replicate())))
+    got = step_mod._lse_and_label(live, common.distribute(
+        labels, mesh, (Shard(0), Replicate())))[1]
     (got * common.distribute(wt, mesh, got.placements)).sum().backward()
     out["labels"] = {"err": [float((_t(got) - want).detach().abs().max()),
                              float((_t(live.grad) - ref.grad).abs().max())],
@@ -395,7 +395,8 @@ def escapes() -> dict:
         (want * wt).sum().backward()
         live = common.distribute(lg, mesh, (Shard(0), Shard(2))) \
             .requires_grad_()
-        got = step_mod._row_logsumexp(live)
+        got = step_mod._lse_and_label(live, torch.zeros(4, 6,
+                                                        dtype=torch.long))[0]
         (got * common.distribute(wt, mesh, got.placements)).sum().backward()
         out[case] = {"err": [float((_t(got) - want).detach().abs().max()),
                              float((_t(live.grad) - ref.grad).abs().max())],
@@ -413,7 +414,7 @@ def escapes() -> dict:
     got = step_mod._xent(live, common.distribute(
         labels, m41, (Shard(0), Replicate())), 1e-4)
     sum(got).backward()
-    lse = step_mod._row_logsumexp(live)
+    lse = step_mod._lse_and_label(live, labels)[0]
     out["one-rank vocab"] = {
         "err": [float((_t(lse) - torch.logsumexp(lg, -1)).abs().max()),
                 float((_t(live.grad) - ref.grad).abs().max())],
@@ -639,15 +640,15 @@ def uneven_loss() -> dict:
         labels.view(-1)[:len(edges)] = torch.tensor(edges)
         dl = common.distribute(labels, mesh, (Shard(0), Replicate()))
         err = {}
-        for part, fn in (("logsumexp", step_mod._row_logsumexp),
-                         ("labels", lambda t, i=None: step_mod._label_logits(
-                             t, labels if i is None else i))):
+        for part, k in (("logsumexp", 0), ("labels", 1)):
+            def fn(t, i):
+                return step_mod._lse_and_label(t, i)[k]
             ref = lg.clone().requires_grad_()
-            want = fn(ref)
+            want = fn(ref, labels)
             (want * wt).sum().backward()
             live = common.distribute(lg, mesh, (Shard(0), Shard(2))) \
                 .requires_grad_()
-            got = fn(live, dl) if part == "labels" else fn(live)
+            got = fn(live, dl)
             (got * common.distribute(wt, mesh, got.placements)).sum() \
                 .backward()
             err[part] = [float((_t(got) - want).detach().abs().max()),
@@ -662,7 +663,7 @@ def uneven_loss() -> dict:
         err["xent"] = [float((_t(got) - want).detach().abs()),
                        float((_t(live.grad) - ref.grad).abs().max()
                              / ref.grad.abs().max())]
-        lse = step_mod._row_logsumexp(live)
+        lse = step_mod._lse_and_label(live, dl)[0]
         out[case] = {"err": err,
                      "vocab_split": step_mod._vocab_split(live)[0],
                      "slice": live.to_local().shape[-1],
@@ -696,6 +697,58 @@ def uneven_loss_ops() -> dict:
             "all": max(_numel(o.shape) for o in ops),
             "n_backward": len(back),
             "widest": max(ops, key=lambda o: _numel(o.shape)).name}
+
+
+#: the loss's peak cases: a vocab that splits evenly over `model`'s 2
+#: ranks and one that does not (34 + 33 columns)
+PEAK_VOCABS = {"even": 64, "uneven": 67}
+#: rows of a rank's vocab slice in one float32 chunk of the peak check
+PEAK_CHUNK_ROWS = 4
+
+
+def loss_peak() -> dict:
+    """``_xent`` with its z-loss, forward and backward, on bf16 logits
+    (16, 8, V) split (data, model) on the (2, 2) mesh and the labels of
+    their first 7 positions, as ``loss_fn`` calls it, recorded by
+    ``graph_analysis.capture`` with ``xent.CHUNK_BYTES`` cut to
+    ``PEAK_CHUNK_ROWS`` rows of this rank's slice in float32, so that a
+    shard takes 16 chunks: the peak of bytes allocated during the call
+    less its arguments, beside the rank's bf16 logits shard and one
+    float32 chunk, for each of ``PEAK_VOCABS``."""
+    from repro_torch.core import graph_analysis
+    from repro_torch.train import xent
+    mesh = _mesh()
+    out = {}
+    for case, V in PEAK_VOCABS.items():
+        g = torch.Generator().manual_seed(V)
+        whole = common.distribute(
+            torch.randn(16, 8, V, generator=g).bfloat16(), mesh,
+            (Shard(0), Shard(2)))
+        # a contiguous shard, as the head's matmul writes it
+        local = whole.to_local().contiguous()
+        lg = DTensor.from_local(local, mesh, whole.placements,
+                                shape=whole.shape, stride=whole.stride()) \
+            .requires_grad_()
+        labels = common.distribute(torch.randint(0, V, (16, 8), generator=g),
+                                   mesh, (Shard(0), Replicate()))
+        chunk = PEAK_CHUNK_ROWS * local.shape[-1] * 4
+
+        def loss(lg_, labels_):
+            ce, z = step_mod._xent(lg_, labels_[:, :-1], 1e-4)
+            (ce + z).backward()
+        saved = xent.CHUNK_BYTES
+        xent.CHUNK_BYTES = chunk
+        try:
+            _, cap = graph_analysis.capture(loss, lg, labels)
+            chunks = len(list(xent._chunks(local, 7)))
+        finally:
+            xent.CHUNK_BYTES = saved
+        out[case] = {"temp": cap.memory()["temp_bytes"],
+                     "shard": local.numel() * local.element_size(),
+                     "chunk": chunk, "chunks": chunks,
+                     "grad": lg.grad.to_local().dtype == torch.bfloat16,
+                     "at_peak": cap.live_at_peak[:4]}
+    return out
 
 
 def refuses_model_4() -> str:
@@ -739,6 +792,7 @@ def group4(jdir: str, npz: str, jax_ckpt: str, work: str,
              "scan_ops": scan_ops,
              "uneven_loss": uneven_loss,
              "uneven_loss_ops": uneven_loss_ops,
+             "loss_peak": loss_peak,
              "mamba2_loss": lambda: sharded_loss("mamba2-2.7b", vocab=515),
              "zamba2_loss": lambda: sharded_loss("zamba2-7b")}
     out, seconds = {}, {}

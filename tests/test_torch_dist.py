@@ -26,8 +26,10 @@ fixtures:
   flash path's refusal of a (1, 4) mesh, the SSD scan on (batch, head)
   shards against the unsharded scan and its recorded ops against a
   rank's head shard, the loss on uneven vocab slices (67 over 2, 5 over
-  4) and its recorded ops, and the reduced mamba2-2.7b (on an uneven
-  vocab) and zamba2-7b losses sharded against unsharded;
+  4) and its recorded ops, the loss's peak of allocated bytes on bf16
+  logits (even and uneven vocab) against a rank's shard, and the
+  reduced mamba2-2.7b (on an uneven vocab) and zamba2-7b losses sharded
+  against unsharded;
 * JAX on 4 devices: the port's sharded checkpoint restored onto a JAX
   (2, 2) mesh.
 
@@ -583,6 +585,27 @@ def test_uneven_vocab_loss_matches_whole(ranks4, case):
         assert got["slice"] == slices[rank % len(slices)]
         assert got["placements"] == [("Shard", 0), ("Replicate", None)]
         assert got["local_rows"] == {"67 over 2": 2, "5 over 4": 4}[case]
+
+
+@pytest.mark.parametrize("case", ["even", "uneven"])
+def test_loss_peak_holds_one_gradient_of_the_shard(ranks4, case):
+    """``_xent``'s forward and backward on bf16 (16, 8, V) logits over the
+    (2, 2) mesh, V = 64 and 67 (34 + 33 columns), with the labels of the
+    first 7 positions as ``loss_fn`` passes them, recorded by
+    ``graph_analysis.capture`` with the chunk cut to 4 rows (16 chunks a
+    shard): the peak of bytes allocated during the call, less its
+    arguments, within 1.5 times a rank's bf16 logits shard plus two
+    float32 chunks; the gradient comes back in bf16.  Read 6472 B of
+    7168 (even, a 4096 B shard: the gradient, one chunk, the shifted
+    labels) and 6760 of 7616 (34 columns).  The parent's loss on
+    ``logits[:, :-1]``, which upcast the logits and kept the ``exp`` and
+    ``gather``'s zeros and scatter, read 29808 B (7.28 shards) and 31600
+    (7.26); the chunked loss on that slice, whose backward pads the
+    gradient into a second buffer, read 7696 and 8176."""
+    for r in ranks4:
+        got = r["loss_peak"][case]
+        assert got["grad"] and got["chunks"] == 16, got
+        assert got["temp"] <= 1.5 * got["shard"] + 2 * got["chunk"], got
 
 
 def test_uneven_loss_ops_stay_on_the_vocab_slice(ranks4):
