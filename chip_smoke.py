@@ -7,11 +7,13 @@ Phases, each fatal on failure (non-zero exit, no result line), each
 followed by its seconds:
   1. device  — name, count, torch/CUDA versions, ``nvidia-smi`` name and
                power limit, SM count and L2 size against the machine file;
-  2. build   — the five CUDA sources from ``src/repro_torch/csrc`` with
+  2. build   — the six CUDA sources from ``src/repro_torch/csrc`` with
                nvcc for sm_90a, in parallel; build seconds, the ptxas
                report (registers, spills) of every kernel instantiation
-               (the head-dim-256 ones and every stencil instantiation must
-               not spill), the advisor's stencil plans (shared bytes,
+               (the head-dim-256 ones, every backward instantiation and
+               every stencil instantiation must not spill), the backward
+               library's shared bytes and threads against
+               ``backward_smem_bytes``, the advisor's stencil plans (shared bytes,
                threads) against each stencil library's
                ``repro_<kernel>_limits`` at the main-path and ragged
                shapes, the count of HGMMA
@@ -36,7 +38,16 @@ followed by its seconds:
                (16, 32), and every feasible candidate of the seq-256 tune
                spaces, in both types; each case prints the route whose
                launch counter moved, and the worst error is kept per
-               (route, dtype);
+               (route, dtype); then the backward kernel
+               (``flash_attention_backward``, ``csrc/flash_attention_bwd.cu``)
+               against ``attention_backward`` at granite-8b's (1, 32,
+               4096, 128), zamba2-7b's head dim 112 (padded), phi-3's 96,
+               10a's 32 at 64 rows, a causal call with sq < skv and
+               q_offset > 0, and one whose last q rows carry zero dO (each
+               of dQ, dK and dV within FA_TOL[bf16] of its largest entry),
+               each run twice with bitwise-equal results, and its time at
+               granite's shape beside ``attention_backward``, SDPA's
+               forward plus backward and ``attention_backward_bound``;
   4. main    — the stencil case study at full size: the 7-point stencil at
                (512, 512, 512) and the long-range stencil at the paper's §3
                size (130, 1015, 1015), fp32.  Per stencil: ECM and Roofline
@@ -173,17 +184,18 @@ followed by its seconds:
                steps' distance from float32 is printed, every flash
                call under grad (forward and remat's re-forward) is held
                against plain on its own operands, and every backward of
-               ``FlashAttentionFn`` against autograd through plain on
-               its own operands (FA_TOL of each gradient's largest
-               entry).  10b, granite-8b at its published widths (tp=1)
+               ``FlashAttentionFn`` (``flash_attention_backward``: the
+               kernel in bf16, ``attention_backward`` in float32) against
+               autograd through plain on its own operands (FA_TOL of each
+               gradient's largest entry).  10b, granite-8b at its published widths (tp=1)
                cut to 8 layers, trained by ``Trainer`` with
                ``TrainConfig``'s defaults (bf16, remat, AdamW with fp32
                master, m and v) on ``SyntheticLM`` at 4096 tokens, batch
                4 in 4 microbatches: one warm-up step (its flash calls
                and backwards held as in 10a) and 4 timed (CUDA events);
                loss, grad norm, lr and the flash launches and backwards
-               of each step (64 wgmma launches and 32 backwards each,
-               zero restarts), tokens/s, peak memory, the step's bound
+               of each step (64 wgmma launches and 32 kernel backwards
+               each, none plain, zero restarts), tokens/s, peak memory, the step's bound
                (flops at 989 TFLOP/s) and one AdamW pass's bytes at 3.35
                TB/s, and one more step under ``torch.profiler`` by class
                (GEMM, flash forward, attention backward, elementwise,
@@ -194,8 +206,9 @@ followed by its seconds:
                non-zero; the bf16 gradient within ``BF16_DROP_TOL`` of
                the card's float32 one) and the
                flash call at the training shape timed beside plain,
-               SDPA, its bound, the Function's backward and SDPA's
-               forward plus backward;
+               SDPA and its bound, and the backward kernel beside
+               ``attention_backward``, SDPA's forward plus backward and
+               its bound;
   13. dist  — distribution (``repro_torch.{dist,launch.mesh,launch.cell}``,
                DTensor) after 10b's memory is freed: a process group of
                one rank on NCCL over a file store under ``build/``, a
@@ -208,7 +221,8 @@ followed by its seconds:
                (parameters, state and batches DTensors; the flash kernel
                on each rank's (batch, head) shard under ``local_map``):
                each step's loss and grad norm within ``SHARDED_TOL`` of
-               10b's, 64 wgmma launches and 32 backwards a step, the first
+               10b's, 64 wgmma launches and 32 kernel backwards a step
+               (none plain), the first
                step's flash calls and backwards held as in 10b, ms a step,
                tokens/s and peak memory beside 10b's, one step under
                ``torch.profiler`` (host ms, the card's busy share, the
@@ -380,6 +394,8 @@ SIM_MARGIN_S = 6.0
 SIM_PROBE_ROWS = 256
 TC_KERNEL = re.compile(r"_ZN\w*?(flash_attention_(?:wgmma|bf16x3)_kernel)"
                        r"ILi(\d+)ELi(\d+)ELi(\d+)E\w*")
+BWD_KERNEL = re.compile(r"_ZN\w*?(flash_attention_bwd_(?:dq|dkv)_kernel)"
+                        r"ILi(\d+)E\w*")
 STENCIL_KERNEL = re.compile(r"_ZN\w*?(stencil3d7pt|longrange3d)_kernel"
                             r"ILi(\d+)E\w*")
 # phase 8: lint's sources at the main-path sizes; analyze at the paper's
@@ -494,6 +510,19 @@ DROP_TOL = 2e-2
 BF16_DROP_TOL = 0.9
 # heads per slice of the backward check's autograd through plain
 BACKWARD_HEADS = 8
+# the backward kernel against attention_backward in the flash phase:
+# (name, (b, h, sq, d), skv, q_offset, rows of zero dO at the end of q):
+# granite-8b's training call, zamba2-7b's head dim 112 (padded to 128),
+# phi-3's 96, 10a's reduced shape (head dim 32, 16 tokens padded to 64
+# rows), a causal call with sq < skv and q_offset > 0, and the zero dO
+# that attention.flash's q padding carries
+BACKWARD_CASES = (
+    ("granite-8b", (1, 32, 4096, 128), 4096, 0, 0),
+    ("zamba2-7b d112", (1, 32, 1024, 112), 1024, 0, 0),
+    ("phi3 d96", (1, 32, 1024, 96), 1024, 0, 0),
+    ("10a d32", (4, 4, 64, 32), 64, 0, 0),
+    ("sq < skv", (2, 8, 256, 128), 1024, 700, 0),
+    ("zero dO rows", (2, 8, 512, 64), 512, 0, 37))
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 USED = re.compile(r"Used (\d+) registers")
 
@@ -796,6 +825,108 @@ def check_flash(fa, ops, space) -> dict[tuple[str, str], float]:
     return worst
 
 
+def backward_errors(got, want) -> list[float]:
+    """Each of dQ, dK and dV's max abs error over its reference's largest
+    entry; raises past FA_TOL[bf16] or on a non-finite value."""
+    tol = FA_TOL[torch.bfloat16]
+    rel = []
+    for name, g, w in zip("qkv", got, want):
+        top = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        rel.append(err / max(top, 1e-30))
+        if g.dtype != w.dtype or not torch.isfinite(g.float()).all() \
+                or not err <= tol * top:
+            raise SmokeError(f"flash backward d{name}: {err:.3e} from "
+                             f"attention_backward, over {tol} x {top:.3e}, "
+                             "or not finite")
+    return rel
+
+
+def check_backward(fa, space, measure, h100) -> dict:
+    """The backward kernel against ``attention_backward`` on the card at
+    BACKWARD_CASES (unit-normal bf16 operands from SEED), each run twice
+    (the two results bitwise equal: no atomics) and counted as one kernel
+    call each; then its time at granite-8b's shape beside
+    ``attention_backward``, SDPA's forward plus backward (the yardstick)
+    and ``attention_backward_bound``.  Returns the worst error over its
+    tolerance's reference, the max abs error and the times."""
+    worst = abs_err = 0.0
+    for i, (name, shape, skv, q_offset, zero) in enumerate(BACKWARD_CASES):
+        q, k, v = qkv(shape, skv, torch.bfloat16, SEED + i)
+        do = qkv(shape, skv, torch.bfloat16, SEED + 100 + i)[0]
+        if zero:
+            do[:, :, -zero:] = 0
+        n0 = fa.flash_attention.backward_calls_by_route["kernel"]
+        runs = [fa.flash_attention_backward(q, k, v, do, causal=True,
+                                            q_offset=q_offset)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        if fa.flash_attention.backward_calls_by_route["kernel"] != n0 + 2:
+            raise SmokeError(f"backward {name}: not on the kernel route")
+        same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                   for a, b in zip(*runs))
+        if not same:
+            raise SmokeError(f"backward {name}: two runs differ in bits")
+        want = fa.attention_backward(q, k, v, do, causal=True,
+                                     q_offset=q_offset)
+        rel = backward_errors(runs[0], want)
+        worst = max(worst, max(rel))
+        abs_err = max(abs_err, *((g.float() - w.float()).abs().max().item()
+                                 for g, w in zip(runs[0], want)))
+        tail = ""
+        if zero:
+            keys = q_offset + shape[2] - zero
+            quiet = all(torch.count_nonzero(t) == 0 for t in (
+                runs[0][0][:, :, -zero:], runs[0][1][:, :, keys:],
+                runs[0][2][:, :, keys:]))
+            if not quiet:
+                raise SmokeError(f"backward {name}: gradient where only the "
+                                 "zero dO rows reach")
+            tail = ("; dQ of those rows and dK, dV of the keys only they "
+                    "see zero")
+        print(f"  backward {name:15s} q {shape} kv {skv} q_offset "
+              f"{q_offset}: d(q, k, v) {', '.join(f'{r:.2e}' for r in rel)} "
+              f"of the largest entry (tolerance {FA_TOL[torch.bfloat16]}), "
+              f"two runs bitwise equal{tail}")
+        del q, k, v, do, runs, want
+    shape = (1, GRANITE["heads"], GRANITE["seq_q"], GRANITE["head_dim"])
+    q, k, v = qkv(shape, GRANITE["seq_kv"], torch.bfloat16, SEED)
+    do = qkv(shape, GRANITE["seq_kv"], torch.bfloat16, SEED + 1)[0]
+    t = backward_times(fa, space, measure, h100, q, k, v, do)
+    print(f"  backward at {shape} bf16 causal: kernel {t['ms']:.4f} ms "
+          f"({t['bound_ms'] / t['ms']:.1%} of its bound {t['bound_ms']:.4f}"
+          f" ms by {t['bound_by']}), attention_backward {t['plain_ms']:.4f}"
+          f" ms, SDPA forward + backward {t['library_ms']:.4f} ms "
+          f"(yardstick only)")
+    return {"worst_of_tol": worst / FA_TOL[torch.bfloat16],
+            "max_abs_err": abs_err, **t}
+
+
+def backward_times(fa, space, measure, h100, q, k, v, do) -> dict:
+    """The backward kernel's CUDA-event ms on (q, k, v, dO), causal at
+    q_offset 0, beside ``attention_backward``'s, SDPA's forward plus
+    backward and ``attention_backward_bound`` (10·d flops per visible
+    pair: two and a half attention passes)."""
+    t_k = measure.time_cuda(
+        lambda: fa.flash_attention_backward(q, k, v, do, causal=True,
+                                            q_offset=0),
+        warmup=2, iters=5, reps=5).wall_s * 1e3
+    t_p = measure.time_cuda(
+        lambda: fa.attention_backward(q, k, v, do, causal=True, q_offset=0),
+        warmup=1, iters=2, reps=3).wall_s * 1e3
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=True).backward(do)
+    t_s = measure.time_cuda(sdpa_fwd_bwd, warmup=2, iters=5,
+                            reps=5).wall_s * 1e3
+    bound = space.attention_backward_bound(q, k, causal=True, q_offset=0,
+                                           machine=h100)
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_s,
+            "bound_ms": bound.seconds * 1e3, "bound_by": bound.by}
+
+
 def print_ratios(rep, fa, config) -> None:
     """measured / predicted of every measured candidate, with its route."""
     for c in rep.measured_outcomes:
@@ -1076,6 +1207,21 @@ def tc_ptxas(info: dict) -> dict[tuple, tuple[int, int]]:
     return out
 
 
+def backward_ptxas(info: dict) -> dict[tuple, tuple[int, int]]:
+    """(registers, spill bytes stored) of every backward kernel
+    instantiation, keyed (kernel, D), from the ptxas report."""
+    out, key = {}, None
+    for ln in info.get("flash_attention_bwd", {}).get("ptxas", []):
+        m = BWD_KERNEL.search(ln)
+        if "Compiling" in ln:
+            key = (m[1], int(m[2])) if m else None
+        elif key and SPILL.search(ln):
+            out[key] = (0, int(SPILL.search(ln)[1]))
+        elif key and USED.search(ln):
+            out[key] = (int(USED.search(ln)[1]), out[key][1])
+    return out
+
+
 def check_build(_build, fa, info: dict) -> dict[str, int]:
     """The ptxas report (no spill at head dim 256), the HGMMA counts, and
     the tensor-core libraries' launch limits against ``launch_limits``;
@@ -1083,6 +1229,7 @@ def check_build(_build, fa, info: dict) -> dict[str, int]:
     for name, d in info.items():
         print(f"  {name}: {d['seconds']:.1f} s")
         for ln in d["ptxas"]:
+            ln = BWD_KERNEL.sub(lambda m: f"{m[1]}<D={m[2]}>", ln)
             print("    " + TC_KERNEL.sub(
                 lambda m: f"{m[1]}<D={m[2]}, BKV={m[3]}, NWG={m[4]}>", ln))
     regs = tc_ptxas(info)
@@ -1095,11 +1242,28 @@ def check_build(_build, fa, info: dict) -> dict[str, int]:
         if spill:
             raise SmokeError(f"{kern}<D={D}, BKV={bkv}, NWG={nwg}> spills "
                              f"{spill} bytes")
-    hgmma = {src: sass_hgmma(_build, src) for src in fa.SOURCES.values()}
+    bwd = backward_ptxas(info)
+    for (kern, D), (n, spill) in sorted(bwd.items()):
+        print(f"  {kern}<D={D}>: {n} registers, {spill} bytes spilled")
+    if len(bwd) != 2 * len(fa.BACKWARD_HEAD_DIMS) or \
+            any(spill for _, spill in bwd.values()):
+        raise SmokeError(f"the backward kernels' ptxas report {bwd}: "
+                         "missing instantiations or spills")
+    for d in fa.BACKWARD_HEAD_DIMS + (112,):
+        got = fa.compiled_backward_limits(d)
+        want = (*fa.backward_smem_bytes(d), fa.BACKWARD_THREADS)
+        if got != want:
+            raise SmokeError(f"backward at head_dim {d}: the library states "
+                             f"{got}, backward_smem_bytes {want}")
+    print(f"  backward launch limits: the library and backward_smem_bytes "
+          f"agree at head dims {fa.BACKWARD_HEAD_DIMS + (112,)}")
+    sources = (*fa.SOURCES.values(), fa.BACKWARD_SOURCE)
+    hgmma = {src: sass_hgmma(_build, src) for src in sources}
     print(f"  HGMMA instructions in the SASS: {hgmma}")
-    for route in TC_ROUTE.values():
-        if hgmma[fa.SOURCES[route]] <= 0:
-            raise SmokeError(f"the {route} library's SASS has no HGMMA "
+    for src in (*(fa.SOURCES[r] for r in TC_ROUTE.values()),
+                fa.BACKWARD_SOURCE):
+        if hgmma[src] <= 0:
+            raise SmokeError(f"the {src} library's SASS has no HGMMA "
                              "instruction")
     for route, dtype, compiled in (
             ("wgmma", torch.bfloat16, fa.compiled_wgmma_limits),
@@ -2179,14 +2343,14 @@ def serve_granite(fa, measure, space, h100, card: str) -> tuple:
 @contextlib.contextmanager
 def checked_backward(fa):
     """Hold every backward of ``FlashAttentionFn`` made inside the block
-    against autograd through ``fa.plain`` on its own operands (q, k, v
-    and the output's gradient), BACKWARD_HEADS heads at a time (plain's
-    float32 scores at granite's shape are 2.1 GB for all 32): each of dQ,
-    dK and dV within FA_TOL times its largest entry.  The backward's own
-    result is what the step uses.  Yields a dict keyed by (q shape, k
-    shape, q_offset, dtype) of the calls and their worst error over its
-    tolerance."""
-    real = fa.attention_backward
+    (``fa.flash_attention_backward``, on either route) against autograd
+    through ``fa.plain`` on its own operands (q, k, v and the output's
+    gradient), BACKWARD_HEADS heads at a time (plain's float32 scores at
+    granite's shape are 2.1 GB for all 32): each of dQ, dK and dV within
+    FA_TOL times its largest entry.  The backward's own result is what
+    the step uses.  Yields a dict keyed by (q shape, k shape, q_offset,
+    dtype) of the calls and their worst error over its tolerance."""
+    real = fa.flash_attention_backward
     seen = {}
 
     def check(q, k, v, grad_out, causal=True, q_offset=None):
@@ -2216,11 +2380,18 @@ def checked_backward(fa):
         row["calls"] += 1
         row["worst"] = max(row["worst"], max(rel) / tol)
         return got
-    fa.attention_backward = check
+    fa.flash_attention_backward = check
     try:
         yield seen
     finally:
-        fa.attention_backward = real
+        fa.flash_attention_backward = real
+
+
+def zero_backward(fa) -> None:
+    """Set the backward's counters (each route's and their sum) to 0."""
+    for r in fa.flash_attention.backward_calls_by_route:
+        fa.flash_attention.backward_calls_by_route[r] = 0
+    fa.flash_attention.backward_calls = 0
 
 
 def _backward_summary(seen: dict) -> dict:
@@ -2310,12 +2481,13 @@ def reduced_train_on_card(arch: str, fa, configs, common, lm, train,
                            ("own", model, params)):
             for r in counts:
                 counts[r] = 0
-            fa.flash_attention.backward_calls = 0
+            zero_backward(fa)
             card[name] = _one_step(train, optim, common, m, p, batch,
                                    "cuda")
             torch.cuda.synchronize()
             launches[name] = dict(counts)
-            backward_calls[name] = fa.flash_attention.backward_calls
+            backward_calls[name] = dict(
+                fa.flash_attention.backward_calls_by_route)
     for run in card.values():
         if not all(math.isfinite(v) for v in run["metrics"].values()) or \
                 not all(torch.isfinite(t).all() for t in run["params"]):
@@ -2332,8 +2504,8 @@ def reduced_train_on_card(arch: str, fa, configs, common, lm, train,
         raise SmokeError(f"10a {arch}: the card's float32 step is {err:.3e} "
                          f"from the CPU's, over {TRAIN_TOL}")
     if _causal(cfg, lm) and not all(
-            sum(launches[n].values()) > 0 and backward_calls[n] > 0
-            for n in card):
+            sum(launches[n].values()) > 0
+            and sum(backward_calls[n].values()) > 0 for n in card):
         raise SmokeError(f"10a {arch}: causal attention never reached the "
                          "flash kernel or its backward under training")
     flash = unit_normal_checks(fa, seen, f"10a {arch}") if seen else None
@@ -2357,7 +2529,8 @@ def train_bound(cfg, model, h100) -> dict:
     more for remat's re-forward of the layers (the head is not re-run), 4
     for the backward, and 4·hd per causal (query, key) pair per head and
     layer for each attention pass (forward, re-forward, and the backward's
-    two) — and beside it the bytes of one AdamW pass at the HBM rate:
+    two and a half: S recomputed, dP, dV, dQ, dK) — and beside it the
+    bytes of one AdamW pass at the HBM rate:
     each parameter's float32 gradient, master, m and v read, and its
     master, m, v and bf16 parameter written."""
     n = cfg.param_count()
@@ -2366,7 +2539,7 @@ def train_bound(cfg, model, h100) -> dict:
     s = TRAIN["seq"]
     weights = (2 * n + 2 * (n - embed) + 4 * n) * tokens
     pairs = TRAIN["batch"] * s * (s + 1) // 2
-    attention = 4 * 4 * cfg.head_dim * cfg.n_heads * cfg.n_layers * pairs
+    attention = 18 * cfg.head_dim * cfg.n_heads * cfg.n_layers * pairs
     flops = weights + attention
     adam_bytes = (4 * 4 + 3 * 4 + 2) * n
     return {"flops": flops, "weight_flops": weights,
@@ -2386,7 +2559,8 @@ def _timed_steps(trainer, fa):
 
     def step_fn(params, opt, batch, step):
         counts = fa.flash_attention.launches_by_route
-        n0, b0 = dict(counts), fa.flash_attention.backward_calls
+        back = fa.flash_attention.backward_calls_by_route
+        n0, b0 = dict(counts), dict(back)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if rec["checks"] is None:
@@ -2401,7 +2575,7 @@ def _timed_steps(trainer, fa):
             end.record()
         rec["events"].append((start, end))
         rec["launches"].append({r: counts[r] - n0[r] for r in counts})
-        rec["backward"].append(fa.flash_attention.backward_calls - b0)
+        rec["backward"].append({r: back[r] - b0[r] for r in back})
         return out
     trainer.step_fn = step_fn
     return rec
@@ -2415,7 +2589,7 @@ def _first_step_checks(fa):
 
 #: the ranges 10b's profile puts around the attention backward and the
 #: optimizer, and the class of the kernels inside each
-TRAIN_RANGES = {"attention_backward": "attention backward",
+TRAIN_RANGES = {"flash_attention_backward": "attention backward",
                 "adamw_update": "optimizer"}
 
 
@@ -2425,7 +2599,7 @@ def _is_cuda(e) -> bool:
 
 def train_profile(fn, fa, step_mod) -> dict:
     """``torch.profiler`` over one call of ``fn`` (a train step), with
-    ``attention_backward`` and ``adamw_update`` inside
+    ``flash_attention_backward`` and ``adamw_update`` inside
     ``record_function`` ranges of their names: device microseconds per
     class — GEMM, flash forward, attention backward (all the Function's
     backward's kernels), elementwise, optimizer — and the step's host
@@ -2434,16 +2608,16 @@ def train_profile(fn, fa, step_mod) -> dict:
     annotation); the others are classed by name."""
     from torch.profiler import ProfilerActivity, profile as prof
     from torch.profiler import record_function
-    real_bwd, real_upd = fa.attention_backward, step_mod.adamw_update
+    real_bwd, real_upd = fa.flash_attention_backward, step_mod.adamw_update
 
     def bwd(*a, **kw):
-        with record_function("attention_backward"):
+        with record_function("flash_attention_backward"):
             return real_bwd(*a, **kw)
 
     def upd(*a, **kw):
         with record_function("adamw_update"):
             return real_upd(*a, **kw)
-    fa.attention_backward, step_mod.adamw_update = bwd, upd
+    fa.flash_attention_backward, step_mod.adamw_update = bwd, upd
     try:
         torch.cuda.synchronize()
         with prof(activities=[ProfilerActivity.CPU,
@@ -2453,7 +2627,8 @@ def train_profile(fn, fa, step_mod) -> dict:
             torch.cuda.synchronize()
             host_s = time.perf_counter() - t0
     finally:
-        fa.attention_backward, step_mod.adamw_update = real_bwd, real_upd
+        fa.flash_attention_backward, step_mod.adamw_update = \
+            real_bwd, real_upd
     events = [e for e in p.events() if _is_cuda(e)]
     spans = sorted((e.time_range.start, e.time_range.end,
                     TRAIN_RANGES[e.name]) for e in events
@@ -2512,7 +2687,7 @@ def drop_check(fa, configs, common, lm, train) -> dict:
     def grads(m, p, b):
         for r in counts:
             counts[r] = 0
-        fa.flash_attention.backward_calls = 0
+        zero_backward(fa)
         live = common.tmap(lambda t: t.detach().requires_grad_(), p)
         loss, _ = train.loss_fn(m, live, b)
         loss.backward()
@@ -2589,15 +2764,18 @@ def settled_memory() -> int:
 
 def train_flash_timing(cfg, fa, space, measure, h100,
                        what: str = "10b flash at the training shape",
-                       mesh=None, rule=None) -> dict:
+                       mesh=None, rule=None) -> tuple:
     """The flash call of 10b's training, (1, 32, 4096, 128) bf16 causal,
     on seeded unit-normal operands: the kernel, plain, SDPA and the bound
-    (the kernels line's numbers); the Function's backward beside SDPA's
-    forward plus backward, the yardstick.  With ``mesh`` and ``rule`` the
-    call is the sharded path's: ``attention._flash_shards`` on DTensor
-    operands in the model's (b, s, h, d) layout, placed as ``rule`` places
-    q (``local_map``, the copies to heads-first and the kernel); the
-    kernel alone is timed beside it (``kernel_ms``)."""
+    (the kernels line's numbers); unsharded, also the backward kernel
+    (:func:`backward_times`) beside ``attention_backward``, SDPA's forward
+    plus backward (the yardstick) and its bound.  With ``mesh`` and
+    ``rule`` the call is the sharded path's: ``attention._flash_shards``
+    on DTensor operands in the model's (b, s, h, d) layout, placed as
+    ``rule`` places q (``local_map``, the copies to heads-first and the
+    kernel); the kernel alone is timed beside it (``kernel_ms``).  Returns
+    the flash call's kernels-line entry and the backward's (None with
+    ``mesh``)."""
     from repro_torch.kernels import ops
     shape = (1, cfg.n_heads, TRAIN["seq"], cfg.head_dim)
     q, k, v = qkv(shape, TRAIN["seq"], torch.bfloat16, SEED)
@@ -2632,17 +2810,6 @@ def train_flash_timing(cfg, fa, space, measure, h100,
     t_plain = measure.time_cuda(lambda: fa.plain(q, k, v, q_offset=0),
                                 warmup=1, iters=1, reps=3).wall_s * 1e3
     t_sdpa = measure.time_cuda(sdpa, warmup=2, iters=5, reps=5).wall_s * 1e3
-    t_bwd = measure.time_cuda(
-        lambda: fa.attention_backward(q, k, v, do, causal=True,
-                                      q_offset=0),
-        warmup=1, iters=2, reps=3).wall_s * 1e3
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-
-    def sdpa_fwd_bwd():
-        torch.nn.functional.scaled_dot_product_attention(
-            qg, kg, vg, is_causal=True).backward(do)
-    t_sdpa_fb = measure.time_cuda(sdpa_fwd_bwd, warmup=2, iters=5,
-                                  reps=5).wall_s * 1e3
     bound = space.attention_bound(q, k, causal=True, q_offset=0,
                                   machine=h100)
     b_ms = bound.seconds * 1e3
@@ -2652,18 +2819,29 @@ def train_flash_timing(cfg, fa, space, measure, h100,
           f"{route}: {how} {t_fa:.4f} ms ({b_ms / t_fa:.1%} of its bound "
           f"{b_ms:.4f} ms by {bound.by}), plain {t_plain:.4f} ms, SDPA "
           f"{t_sdpa:.4f} ms; max abs err vs plain {err:.3e}")
-    print(f"    the Function's backward (PyTorch, float32 scores, no "
-          f"kernel) {t_bwd:.4f} ms; SDPA forward + backward {t_sdpa_fb:.4f} "
-          f"ms (yardstick only); the backward's bound (two attention "
-          f"passes) {2 * b_ms:.4f} ms")
-    return {"name": f"flash_attention[{TRAIN_ARCH} train]", "route": "cuda",
-            "source": f"src/repro_torch/csrc/{fa.SOURCES[route]}.cu",
+    entry = {"name": f"flash_attention[{TRAIN_ARCH} train]", "route": "cuda",
+             "source": f"src/repro_torch/csrc/{fa.SOURCES[route]}.cu",
+             "replaces": REPLACES["flash_attention"], "launches": 0,
+             "max_abs_err": err, "ms": t_fa, "plain_ms": t_plain,
+             "bound_ms": b_ms, "bound_by": bound.by, "library_ms": t_sdpa,
+             "shape_q": list(shape), "kernel_ms": t_bare}
+    if mesh is not None:
+        return entry, None
+    bt = backward_times(fa, space, measure, h100, q, k, v, do)
+    print(f"    the backward kernel at the same shape {bt['ms']:.4f} ms "
+          f"({bt['bound_ms'] / bt['ms']:.1%} of its bound "
+          f"{bt['bound_ms']:.4f} ms by {bt['bound_by']}: two and a half "
+          f"attention passes), attention_backward (its plain version, "
+          f"float32 scores) {bt['plain_ms']:.4f} ms, SDPA forward + "
+          f"backward {bt['library_ms']:.4f} ms (yardstick only)")
+    back = {"name": f"flash_attention_backward[{TRAIN_ARCH} train]",
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{fa.BACKWARD_SOURCE}.cu",
             "replaces": REPLACES["flash_attention"], "launches": 0,
-            "max_abs_err": err, "ms": t_fa, "plain_ms": t_plain,
-            "bound_ms": b_ms, "bound_by": bound.by, "library_ms": t_sdpa,
-            "shape_q": list(shape), "kernel_ms": t_bare,
-            "backward_ms": t_bwd,
-            "sdpa_fwd_bwd_ms": t_sdpa_fb}
+            "max_abs_err": 0.0, "shape_q": list(shape),
+            "library_call": "scaled_dot_product_attention forward + "
+                            "backward", **bt}
+    return entry, back
 
 
 def train_granite(fa, measure, space, h100, card: str) -> tuple:
@@ -2676,7 +2854,8 @@ def train_granite(fa, measure, space, h100, card: str) -> tuple:
     backwards are held against plain; every step's flash launches are
     counted (the counters zeroed just before ``Trainer.run``).  Then one
     more step under ``torch.profiler``, the drop check, and the flash
-    call's times.  Returns the kernels-line entry and the numbers."""
+    call's and the backward kernel's times.  Returns the kernels-line
+    entries of both and the numbers."""
     from repro_torch import configs
     from repro_torch.data import SyntheticLM
     from repro_torch.models import common, lm
@@ -2695,14 +2874,14 @@ def train_granite(fa, measure, space, h100, card: str) -> tuple:
     counts = fa.flash_attention.launches_by_route
     for r in counts:
         counts[r] = 0
-    fa.flash_attention.backward_calls = 0
+    zero_backward(fa)
     t0 = time.perf_counter()
     params, opt, step = trainer.run(
         n_steps, generator=torch.Generator("cuda").manual_seed(SEED))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(counts)
-    backward_calls = fa.flash_attention.backward_calls
+    backward_calls = dict(fa.flash_attention.backward_calls_by_route)
     peak = torch.cuda.max_memory_allocated()
     log = [m for m in trainer.metrics_log if "loss" in m]
     restarts = [m for m in trainer.metrics_log if m.get("event")]
@@ -2744,11 +2923,12 @@ def train_granite(fa, measure, space, h100, card: str) -> tuple:
         raise SmokeError("10b: a non-finite loss or grad norm")
     bad = [n for n in rec["launches"] if n["wgmma"] != per_step
            or sum(n.values()) != per_step]
-    if bad or any(b != per_step // 2 for b in rec["backward"]):
+    if bad or any(b != {"kernel": per_step // 2, "plain": 0}
+                  for b in rec["backward"]):
         raise SmokeError(f"10b: flash launches a step {rec['launches']} and "
                          f"backwards {rec['backward']}, where each step "
                          f"takes {per_step} wgmma launches and "
-                         f"{per_step // 2} backwards")
+                         f"{per_step // 2} kernel backwards, none plain")
     checks = rec["checks"]
     flash = unit_normal_checks(fa, checks["flash"], "10b first step")
     back = _backward_summary(checks["backward"])
@@ -2772,11 +2952,13 @@ def train_granite(fa, measure, space, h100, card: str) -> tuple:
     torch.cuda.empty_cache()
     drop = drop_check(fa, configs, common, lm, train)
     torch.cuda.empty_cache()
-    entry = train_flash_timing(cfg, fa, space, measure, h100)
+    entry, back_entry = train_flash_timing(cfg, fa, space, measure, h100)
     entry["launches"] = launches["wgmma"]
     entry["backward_calls"] = backward_calls
     entry["max_abs_err"] = max(entry["max_abs_err"],
                                flash["unit_normal_max_abs_err"])
+    back_entry["launches"] = backward_calls["kernel"]
+    back_entry["first_step_worst_of_tol"] = back["worst_of_tol"]
     numbers = {"step_ms": ms, "median_ms": med, "tokens_per_s": tps,
                "peak_bytes": peak, "held_bytes": held, "bound": bound,
                "losses": [m["loss"] for m in log],
@@ -2788,7 +2970,7 @@ def train_granite(fa, measure, space, h100, card: str) -> tuple:
                "profile": {"classes": pr["classes"],
                            "host_s": pr["host_s"]},
                "drop_check": drop}
-    return entry, numbers
+    return entry, back_entry, numbers
 
 
 # ----------------------------------------------------------------------
@@ -2972,14 +3154,14 @@ def train_sharded(fa, mesh, measure, space, h100, card: str,
     counts = fa.flash_attention.launches_by_route
     for r in counts:
         counts[r] = 0
-    fa.flash_attention.backward_calls = 0
+    zero_backward(fa)
     t0 = time.perf_counter()
     params, opt, step = trainer.run(
         n_steps, generator=torch.Generator("cuda").manual_seed(SEED))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(counts)
-    backward_calls = fa.flash_attention.backward_calls
+    backward_calls = dict(fa.flash_attention.backward_calls_by_route)
     peak = torch.cuda.max_memory_allocated()
     log = [m for m in trainer.metrics_log if "loss" in m]
     restarts = [m for m in trainer.metrics_log if m.get("event")]
@@ -3020,11 +3202,12 @@ def train_sharded(fa, mesh, measure, space, h100, card: str,
                          f"(bound {SHARDED_TOL}), or not finite")
     bad = [n for n in rec["launches"] if n["wgmma"] != per_step
            or sum(n.values()) != per_step]
-    if bad or any(b != per_step // 2 for b in rec["backward"]):
+    if bad or any(b != {"kernel": per_step // 2, "plain": 0}
+                  for b in rec["backward"]):
         raise SmokeError(f"13b: flash launches a step {rec['launches']} and "
                          f"backwards {rec['backward']}, where each step "
                          f"takes {per_step} wgmma launches and "
-                         f"{per_step // 2} backwards")
+                         f"{per_step // 2} kernel backwards, none plain")
     checks = rec["checks"]
     flash = unit_normal_checks(fa, checks["flash"], "13b first step")
     back = _backward_summary(checks["backward"])
@@ -3042,9 +3225,9 @@ def train_sharded(fa, mesh, measure, space, h100, card: str,
     vocab = vocab_shards_on_card(model, params, batch, rule, mesh)
     del params, opt, trainer, batch
     torch.cuda.empty_cache()
-    entry = train_flash_timing(cfg, fa, space, measure, h100,
-                               "13b flash at a rank's (batch, head) shard",
-                               mesh=mesh, rule=rule)
+    entry, _ = train_flash_timing(cfg, fa, space, measure, h100,
+                                  "13b flash at a rank's (batch, head) "
+                                  "shard", mesh=mesh, rule=rule)
     entry["name"] = f"flash_attention[{TRAIN_ARCH} train, DTensor (1, 1)]"
     entry["launches"] = launches["wgmma"]
     entry["backward_calls"] = backward_calls
@@ -3583,6 +3766,8 @@ def step_class(rec) -> str:
     from repro_torch.core import graph_analysis as ga
     if rec.computation in ("attention backward", "optimizer"):
         return rec.computation
+    if rec.opcode == "flash_attention_backward":
+        return "attention backward"
     if rec.opcode == "flash_attention":
         return "flash forward"
     if rec.opcode in ga.GEMMS:
@@ -3645,8 +3830,9 @@ def graph_of_train_step(fa, rates, measured_ms: float, profile: dict
                         ) -> dict:
     """14b: one untimed step of 10b's cell (granite-8b, published widths,
     TRAIN['layers'] layers, 4 microbatches of 4096 tokens) recorded on
-    the card, ``attention_backward`` and ``adamw_update`` in scopes of
-    10b's class names."""
+    the card, ``flash_attention_backward`` (its plain route's ops; the
+    kernel route's operator is classed by name) and ``adamw_update`` in
+    scopes of 10b's class names."""
     from repro_torch import configs, train
     from repro_torch.core import graph_analysis as ga
     from repro_torch.data import SyntheticLM
@@ -3660,7 +3846,7 @@ def graph_of_train_step(fa, rates, measured_ms: float, profile: dict
     params, opt, step = trainer.init_state(
         torch.Generator("cuda").manual_seed(SEED))
     batch = trainer._batch(step)
-    real_bwd, real_upd = fa.attention_backward, step_mod.adamw_update
+    real_bwd, real_upd = fa.flash_attention_backward, step_mod.adamw_update
 
     def bwd(*a, **kw):
         with ga.scope("attention backward"):
@@ -3669,18 +3855,22 @@ def graph_of_train_step(fa, rates, measured_ms: float, profile: dict
     def upd(*a, **kw):
         with ga.scope("optimizer"):
             return real_upd(*a, **kw)
-    fa.attention_backward, step_mod.adamw_update = bwd, upd
+    fa.flash_attention_backward, step_mod.adamw_update = bwd, upd
     try:
         _, cap = ga.capture(trainer.step_fn, params, opt, batch, step)
         torch.cuda.synchronize()
     finally:
-        fa.attention_backward, step_mod.adamw_update = real_bwd, real_upd
+        fa.flash_attention_backward, step_mod.adamw_update = \
+            real_bwd, real_upd
     flash = sum(1 for r in cap.analysis.ops
                 if r.opcode == "flash_attention")
+    back = sum(1 for r in cap.analysis.ops
+               if r.opcode == "flash_attention_backward")
     per_step = cfg.n_layers * TRAIN["microbatches"]
-    if flash != 2 * per_step:      # forward and remat's re-forward
-        raise SmokeError(f"14b: {flash} flash operators recorded in a step "
-                         f"of {per_step} layer-microbatches")
+    if flash != 2 * per_step or back != per_step:
+        raise SmokeError(f"14b: {flash} flash and {back} backward operators "
+                         f"recorded in a step of {per_step} "
+                         "layer-microbatches")
     out = priced_capture(f"granite-8b train step, {cfg.n_layers} layers, "
                          f"{TRAIN['microbatches']} x {TRAIN['seq']} tokens "
                          f"({flash} flash operators)", cap, rates,
@@ -3913,6 +4103,7 @@ def smoke(out_path: str | None) -> int:
             max_err[name] = max(max_err.get(name, 0.0), err)
     split_err = check_split(fa)
     fa_err = check_flash(fa, ops, space)
+    bwd_check = check_backward(fa, space, measure, h100)
 
     phase("4 main path at full size")
     # each family's kernel wrapper carries the family's name
@@ -4106,8 +4297,13 @@ def smoke(out_path: str | None) -> int:
         arch: reduced_train_on_card(arch, fa, configs, common, lm, train,
                                     optim)
         for arch in configs.ARCH_IDS}
-    entry, predicted["train"] = train_granite(fa, measure, space, h100, card)
+    entry, back_entry, predicted["train"] = train_granite(
+        fa, measure, space, h100, card)
     entries.append(entry)
+    back_entry["max_abs_err"] = bwd_check["max_abs_err"]
+    back_entry["worst_of_tol"] = bwd_check["worst_of_tol"]
+    back_entry["flash_phase_ms"] = bwd_check["ms"]
+    entries.append(back_entry)
     torch.cuda.empty_cache()
 
     phase("13 distribution on the card: NCCL at world size 1")

@@ -32,7 +32,11 @@ The rules:
   GEMM with TF32 off, such as ``attention_backward``'s, runs on the CUDA
   cores and goes to **vpu_flops**.  The flash op takes its launch route's
   arithmetic: ``wgmma`` one bf16 pass, ``bf16x3`` three (float32 as three
-  bf16 products, as the bound counts it), ``simt`` the CUDA cores.
+  bf16 products, as the bound counts it), ``simt`` the CUDA cores.  Its
+  backward's op (``repro_torch::flash_attention_backward``) counts
+  ``10·d`` per visible pair (S recomputed, dP, dV, dQ, dK: two and a half
+  forward passes, :func:`repro_torch.tune.space.attention_backward_bound`)
+  on the tensor cores where ``backward_route`` takes the kernel.
 * **vpu_flops** (CUDA cores): elementwise arithmetic one flop per output
   element, reductions one per input element, as ``hlo_analysis`` counts
   its elementwise ops and ``reduce``; softmax five per element (max,
@@ -40,7 +44,8 @@ The rules:
   bias add of ``addmm``/``baddbmm`` one per output element.  Casts,
   copies, concatenations and comparisons cost bytes, not flops (HLO's
   ``convert``, ``copy``, ``concatenate``, ``compare``).
-* **hbm_bytes**: operand plus result bytes of every op that is not a view.
+* **hbm_bytes**: operand plus result bytes of every op that is not a view
+  (the backward op adds the fp32 LSE and D rows it writes).
   Eager mode has no fusion, so each op is its own boundary.  An operand
   counts the distinct elements it reaches (an expanded dim once).  Views
   (every result aliases an operand's storage), ``prim.device``,
@@ -136,6 +141,7 @@ _COLLECTIVES = {
     "shard_dim_alltoall": "all-to-all",
 }
 _FLASH = "flash_attention"
+_FLASH_BACKWARD = "flash_attention_backward"
 #: DTensor's run of an op on global-shape fake tensors, for its result's
 #: metadata (module docstring)
 _META_RUN = "_propagate_tensor_meta_non_cached"
@@ -383,7 +389,7 @@ class Recorder(TorchDispatchMode):
                      multiplier=1)
         first = ins[0] if ins else None
         # ---- flops --------------------------------------------------
-        mxu = vpu = 0.0
+        mxu = vpu = extra = 0.0
         if name in GEMMS:
             f = (_conv_flops(args, outs[0]) if name == "convolution"
                  else _gemm_flops(name, args))
@@ -404,6 +410,16 @@ class Recorder(TorchDispatchMode):
                 vpu = f
             else:
                 mxu = f * (3 if route == "bf16x3" else 1)
+            a.flops_by_shape[(name, rec.shape)] += f
+        elif name == _FLASH_BACKWARD:
+            q, k, _, _, causal, q_offset = _in_order(func, args, kwargs)
+            f = 2.5 * flash_flops(q, k, causal, q_offset)
+            from ..kernels import flash_attention as fa
+            if fa.backward_route(q, k, q_offset) == "kernel":
+                mxu = f
+            else:
+                vpu = f
+            extra = 8.0 * math.prod(q.shape[:3])     # LSE and D, fp32
             a.flops_by_shape[(name, rec.shape)] += f
         elif name in _ELEMENTWISE or name.rstrip("_") in _ELEMENTWISE:
             vpu = float(outs[0].numel()) if outs else 0.0
@@ -426,7 +442,7 @@ class Recorder(TorchDispatchMode):
         # ---- bytes ------------------------------------------------------
         read = ins[1:] if name in _OVERWRITE else ins
         tb = float(sum(tensor_bytes(t) for t in read)
-                   + sum(tensor_bytes(t) for t in outs))
+                   + sum(tensor_bytes(t) for t in outs)) + extra
         a.mxu_flops += mxu
         a.vpu_flops += vpu
         a.hbm_bytes += tb

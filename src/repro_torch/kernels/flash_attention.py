@@ -37,6 +37,14 @@ A failed build or launch on a route raises; it never falls back to the
 other route or to :func:`plain`.  ``flash_attention.launches`` counts
 every launch and ``flash_attention.launches_by_route`` each route's.
 
+The gradient (:class:`FlashAttentionFn`'s backward) has two routes, chosen
+by :func:`backward_route` before anything launches: ``"kernel"``
+(``csrc/flash_attention_bwd.cu``, :func:`flash_attention_backward`),
+bfloat16 at a :func:`tc_head_dim` up to 128 and lengths that are
+multiples of :data:`BACKWARD_ROWS`; ``"plain"`` (:func:`attention_backward`,
+PyTorch in float32) for the rest — float32 operands and head dim 256.
+``flash_attention.backward_calls_by_route`` counts each.
+
 :func:`launch_limits` is the one statement of what each route can launch;
 the wrapper, the shared-memory advisor
 (:func:`repro_torch.core.blocking.attention_cta_tiles`),
@@ -107,6 +115,15 @@ MATMUL_PASSES = {"wgmma": 1, "simt": 1, "bf16x3": 3}
 #: hide them.  All are estimates; the tuner's calibration factor absorbs
 #: their error.
 STEP_OVERHEAD_CY = {"wgmma": 600.0, "simt": 1000.0, "bf16x3": 900.0}
+#: the backward's routes (:func:`backward_route`), its kernel's source,
+#: the rows its CTAs take (q rows of a dQ CTA, kv rows of a dK/dV CTA and
+#: of the dQ CTA's step; both lengths must be multiples of it) and the
+#: instantiated head dims it takes
+BACKWARD_ROUTES = ("kernel", "plain")
+BACKWARD_SOURCE = "flash_attention_bwd"
+BACKWARD_ROWS = 64
+BACKWARD_HEAD_DIMS = (32, 64, 96, 128)
+BACKWARD_THREADS = 160
 #: the kernel's dtype codes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -569,8 +586,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = {r: 0 for r in SOURCES}
-#: calls of :class:`FlashAttentionFn`'s backward (which launches no kernel
-#: of its own; see :func:`attention_backward`)
+#: calls of :func:`flash_attention_backward` on each of its routes (a
+#: ``"kernel"`` call launches the backward kernel), and their sum
+flash_attention.backward_calls_by_route = {r: 0 for r in BACKWARD_ROUTES}
 flash_attention.backward_calls = 0
 
 
@@ -621,9 +639,11 @@ def attention_backward(q, k, v, grad_out, causal: bool = True,
     out in PyTorch: the counterpart of what ``jax.grad`` takes through
     ``repro.models.attention``'s softmax attention (the JAX kernel has no
     backward).  Operands (b, h, s, d) as :func:`flash_attention` takes
-    them; ``grad_out`` is the gradient of its output.
+    them; ``grad_out`` is the gradient of its output.  It is the plain
+    version of :func:`flash_attention_backward`'s kernel, and that
+    function's route for float32 and head dim 256.
 
-    The kernel writes no row log-sum-exp, so the float32 scores and the
+    The forward writes no row log-sum-exp, so the float32 scores and the
     softmax P are recomputed from q and k; then dV = Pᵀ·dO, dP = dO·Vᵀ,
     dS = P ⊙ (dP − rowsum(P ⊙ dP)) (softmax's own vector-Jacobian product,
     as JAX takes it), dQ = scale·dS·K and dK = scale·dSᵀ·Q, each cast to
@@ -665,13 +685,160 @@ def attention_backward(q, k, v, grad_out, causal: bool = True,
     return tuple(g.reshape(t.shape) for g, t in zip(grads, (q, k, v)))
 
 
+def backward_smem_bytes(head_dim: int) -> tuple[int, int]:
+    """Dynamic shared memory of the backward's two CTAs at the
+    instantiated head dim D of ``head_dim``: the dQ CTA (alignment, its q
+    and dO tiles of :data:`BACKWARD_ROWS` rows, a ring of
+    :data:`WGMMA_STAGES` k and v tiles, the mbarriers) and the dK/dV CTA
+    (the same tiles, k and v held and q and dO in the ring, and each
+    stage's rows' fp32 LSE and D)."""
+    D, r = tc_head_dim(head_dim), BACKWARD_ROWS
+    dq = (WGMMA_SMEM_ALIGN + WGMMA_SMEM_BARRIERS
+          + 2 * D * (2 * r + 2 * WGMMA_STAGES * r))
+    return dq, dq + 8 * WGMMA_STAGES * r
+
+
+def backward_launch_limits(seq_q: int, seq_kv: int, head_dim: int,
+                           dtype=torch.bfloat16, q_offset: int = 0
+                           ) -> LaunchLimits:
+    """The backward's one rule: its kernel (route ``"kernel"``) takes
+    bfloat16 at a :func:`tc_head_dim` in :data:`BACKWARD_HEAD_DIMS` (head
+    dims between them padded with zero columns), both lengths multiples
+    of :data:`BACKWARD_ROWS`, ``q_offset >= 0`` and rows within the TMA's
+    32-bit coordinates (checked by the wrapper, per call); the larger of
+    its two CTAs' shared memory (:func:`backward_smem_bytes`) and its
+    threads.  Anything else takes :func:`attention_backward` (route
+    ``"plain"``), and ``reason`` says why."""
+    sq, skv, d = int(seq_q), int(seq_kv), int(head_dim)
+    D = tc_head_dim(d)
+    r = BACKWARD_ROWS
+    reason = ""
+    if torch_dtype(dtype) != torch.bfloat16:
+        reason = f"the backward kernel takes bfloat16, not {dtype}"
+    elif D not in BACKWARD_HEAD_DIMS:
+        reason = (f"head_dim={d} runs at {D}, off the backward kernel's "
+                  f"{BACKWARD_HEAD_DIMS}")
+    elif sq <= 0 or skv <= 0 or sq % r or skv % r:
+        reason = (f"seq_q={sq} and seq_kv={skv} must be positive multiples "
+                  f"of {r}")
+    elif sq // r > MAX_Q_BLOCKS or skv // r > MAX_Q_BLOCKS:
+        reason = f"more than {MAX_Q_BLOCKS} blocks of {r} rows"
+    elif int(q_offset) < 0:
+        reason = f"q_offset={q_offset} < 0"
+    smem = 0 if D not in BACKWARD_HEAD_DIMS else max(backward_smem_bytes(d))
+    return LaunchLimits(smem_bytes=smem, threads=BACKWARD_THREADS,
+                        reason=reason, route="plain" if reason else "kernel")
+
+
+def backward_route(q: torch.Tensor, k: torch.Tensor,
+                   q_offset: int | None = None) -> str:
+    """``"kernel"`` where :func:`backward_launch_limits` takes q's and k's
+    shapes and type (``q_offset`` defaults to ``skv - sq``), else
+    ``"plain"``: decided from shapes alone, on every device."""
+    sq, skv = int(q.shape[2]), int(k.shape[2])
+    off = skv - sq if q_offset is None else int(q_offset)
+    return backward_launch_limits(sq, skv, int(q.shape[3]), q.dtype,
+                                  off).route
+
+
+def _count_backward(route_name: str) -> None:
+    flash_attention.backward_calls_by_route[route_name] += 1
+    flash_attention.backward_calls += 1
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, grad_out: torch.Tensor,
+                             causal: bool = True, q_offset: int | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) of softmax attention, operands (b, h, s, d) as
+    :func:`attention_backward` takes them, in the operands' type.
+
+    On the card at :func:`backward_route` ``"kernel"`` the two kernels of
+    ``csrc/flash_attention_bwd.cu`` run on the current stream without
+    synchronising (dQ with the rows' fp32 LSE and D = rowsum(P ⊙ dP), then
+    dK and dV; no atomics, so a repeat gives the same bits); q, k, v and
+    ``grad_out`` must be contiguous and start on 16 bytes, and a failed
+    build or launch raises.  Everywhere else — the ``"plain"`` route
+    (float32, head dim 256), and every call on the CPU —
+    :func:`attention_backward` runs.
+    ``flash_attention.backward_calls_by_route`` counts the route that
+    ran."""
+    b, h, sq, skv, d = _check_operands(q, k, v)
+    if grad_out.shape != q.shape or grad_out.dtype != q.dtype \
+            or grad_out.device != q.device:
+        raise ValueError(f"grad_out must have q's shape, dtype and device, "
+                         f"got {tuple(grad_out.shape)} {grad_out.dtype}")
+    if q_offset is None:
+        q_offset = skv - sq
+    _check_offset(causal, q_offset)
+    lim = backward_launch_limits(sq, skv, d, q.dtype, q_offset)
+    if lim.route == "plain" or q.device.type == "cpu":
+        _count_backward("plain")
+        return attention_backward(q, k, v, grad_out, causal=causal,
+                                  q_offset=q_offset)
+    if b * h * max(sq, skv) >= 2 ** 31:
+        raise ValueError("flash_attention_backward: b*h*s rows exceed the "
+                         "32-bit TMA coordinates")
+    for t in (q, k, v, grad_out):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("flash_attention_backward operands must be "
+                             "contiguous and start on a 16-byte boundary")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    rows = torch.empty(2, b * h * sq, dtype=torch.float32, device=q.device)
+    fn = _build.entry(BACKWARD_SOURCE, [ctypes.c_void_p] * 9
+                      + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                      + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check_status(BACKWARD_SOURCE, fn(
+            *[t.data_ptr() for t in (q, k, v, grad_out, dq, dk, dv)],
+            rows[0].data_ptr(), rows[1].data_ptr(), b * h, sq, skv, d,
+            int(causal), int(q_offset), _scale(d), stream))
+    _count_backward("kernel")
+    return dq, dk, dv
+
+
+# ``repro_torch::flash_attention_backward``: the backward as one operator,
+# so that a dispatch mode sees it whole and fake tensors (the dry run's
+# train step) run its fake, which launches nothing.  Its kernel serves
+# every device (the wrapper picks the route); it has no autograd kernel.
+_LIB.define("flash_attention_backward(Tensor q, Tensor k, Tensor v, "
+            "Tensor grad_out, bool causal, int q_offset) -> "
+            "(Tensor, Tensor, Tensor)")
+_LIB.impl("flash_attention_backward",
+          lambda q, k, v, grad_out, causal, q_offset:
+          flash_attention_backward(q, k, v, grad_out, causal=causal,
+                                   q_offset=q_offset),
+          "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("repro_torch::flash_attention_backward",
+                             lib=_LIB)
+def _backward_fake(q, k, v, grad_out, causal, q_offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                grad_out: torch.Tensor, causal: bool, q_offset: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_backward` at a resolved ``q_offset`` as the
+    operator ``repro_torch::flash_attention_backward``: the graph
+    analysis prices it by its formula, and on meta or fake tensors it
+    runs its fake."""
+    return torch.ops.repro_torch.flash_attention_backward.default(
+        q, k, v, grad_out, causal, q_offset)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """:func:`flash_attention` under autograd.  The forward is
     :func:`flash_op` (fitted blocks, a resolved ``q_offset``): the kernel's
     launch on the card and :func:`plain` on the CPU, as the wrapper
     chooses, run without a graph; it saves q, k and v.  The backward is
-    :func:`attention_backward` (no kernel; counted in
-    ``flash_attention.backward_calls``)."""
+    :func:`backward_op` where :func:`backward_route` picks the kernel
+    (the backward kernel on the card, :func:`attention_backward` on the
+    CPU), else :func:`flash_attention_backward` on its plain route, whose
+    own ops a dispatch mode records."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_kv, q_offset):
@@ -684,10 +851,13 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v = ctx.saved_tensors
-        flash_attention.backward_calls += 1
-        dq, dk, dv = attention_backward(q, k, v, grad_out,
-                                        causal=ctx.causal,
-                                        q_offset=ctx.q_offset)
+        grad_out = grad_out.contiguous()
+        if backward_route(q, k, ctx.q_offset) == "kernel":
+            dq, dk, dv = backward_op(q, k, v, grad_out, ctx.causal,
+                                     ctx.q_offset)
+        else:
+            dq, dk, dv = flash_attention_backward(
+                q, k, v, grad_out, causal=ctx.causal, q_offset=ctx.q_offset)
         return dq, dk, dv, None, None, None, None
 
 
@@ -720,3 +890,17 @@ def compiled_bf16x3_limits(block_q: int, block_kv: int, head_dim: int
     (``repro_flash_attention_bf16x3_limits``); raises outside
     :data:`BF16X3_SET`, as the library refuses such a triple."""
     return _compiled_limits("bf16x3", block_q, block_kv, head_dim)
+
+
+def compiled_backward_limits(head_dim: int) -> tuple[int, int, int]:
+    """(dQ CTA shared bytes, dK/dV CTA shared bytes, threads) as the built
+    backward library states them (``repro_flash_attention_bwd_limits``),
+    to hold :func:`backward_smem_bytes` to the source; raises at a head
+    dim it is not built for; builds the library if needed."""
+    fn = _build.entry(BACKWARD_SOURCE, [ctypes.c_int] + [ctypes.c_void_p] * 3,
+                      symbol=f"{BACKWARD_SOURCE}_limits")
+    a, b, threads = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+    _build.check_status(f"{BACKWARD_SOURCE}_limits", fn(
+        int(head_dim), ctypes.byref(a), ctypes.byref(b),
+        ctypes.byref(threads)))
+    return a.value, b.value, threads.value

@@ -557,3 +557,24 @@ def attention_bound(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
     moved = 2 * q.nbytes + 2 * k.nbytes
     return Bound(bytes=moved, bytes_s=moved / mach.hbm_bandwidth,
                  ops_s=passes * flops / mach.peak_flops[key])
+
+
+def attention_backward_bound(q: torch.Tensor, k: torch.Tensor, *,
+                             causal: bool = True,
+                             q_offset: int | None = None,
+                             machine: Machine | str = "H100",
+                             unit: str | None = None) -> Bound:
+    """The least time for one attention backward on ``machine``: ``10·d``
+    flops per visible (query, key) pair — S recomputed, dP, dV, dQ and dK,
+    two and a half forward passes (:func:`attention_bound`'s count), the
+    same count the graph analysis prices the backward operator at — at
+    the arithmetic ``unit`` names (bfloat16 one bf16 pass by default),
+    and q, k, v and dO read once, dq, dk and dv written once and the
+    rows' fp32 LSE and D written once at the HBM rate."""
+    fwd = attention_bound(q, k, causal=causal, q_offset=q_offset,
+                          machine=machine, unit=unit)
+    b, h, sq, _ = q.shape
+    moved = 3 * q.nbytes + 4 * k.nbytes + 8 * b * h * sq
+    return Bound(bytes=moved,
+                 bytes_s=moved / api.resolve_machine(machine).hbm_bandwidth,
+                 ops_s=2.5 * fwd.ops_s)

@@ -178,6 +178,31 @@ def test_flash_op_counts_its_formula_and_its_fake_runs_no_kernel(
     assert rec.hbm_bytes == 4 * b * h * s * d * q.element_size()
 
 
+def test_backward_op_counts_its_formula_and_its_fake_runs_no_kernel():
+    """The backward operator (``repro_torch::flash_attention_backward``)
+    on fake tensors runs its fake, which launches nothing, and is recorded
+    as one op of 10·d flops per visible (query, key) pair (S recomputed,
+    dP, dV, dQ, dK) on the tensor cores, its bytes q, k, v and dO read,
+    dq, dk and dv written, and the rows' fp32 LSE and D."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    b, h, s, d = 2, 4, 128, 64
+    calls = dict(fa.flash_attention.backward_calls_by_route)
+    with FakeTensorMode():
+        q, k, v, do = (torch.empty(b, h, s, d, dtype=torch.bfloat16)
+                       for _ in range(4))
+        out, cap = ga.capture(fa.backward_op, q, k, v, do, True, 0)
+    assert [t.shape for t in out] == [q.shape] * 3
+    assert fa.flash_attention.backward_calls_by_route == calls
+    (rec,) = cap.analysis.ops
+    assert rec.opcode == "flash_attention_backward"
+    pairs = s * (s + 1) // 2                     # causal, q_offset 0
+    assert fa.backward_route(q, k, 0) == "kernel"
+    assert rec.mxu_flops == 2.5 * ga.flash_flops(q, k, True, 0) \
+        == 10.0 * d * pairs * b * h
+    assert rec.vpu_flops == 0
+    assert rec.hbm_bytes == 7 * b * h * s * d * 2 + 8 * b * h * s
+
+
 def test_flash_op_on_the_cpu_is_the_plain_version():
     q, k, v = (_rand((1, 2, 64, 32), seed=i) for i in range(3))
     got = fa.flash_op(q, k, v, True, 64, 64, 0)

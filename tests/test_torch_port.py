@@ -580,6 +580,57 @@ def test_cuda_flash_never_reaches_plain(cuda, monkeypatch, fail):
     assert t_fa.flash_attention.launches_by_route == n0
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 40, 64, 96, 112, 128])
+@pytest.mark.parametrize("causal, sq, skv, q_offset", [
+    (True, 256, 256, 0), (True, 128, 512, 384), (True, 128, 512, 100),
+    (False, 128, 256, 0)])
+def test_cuda_flash_backward_matches_plain(cuda, d, causal, sq, skv,
+                                           q_offset):
+    """The backward kernel at each head dim it takes (40 and 112 padded)
+    against ``attention_backward``: each of dQ, dK and dV within 2e-2 of
+    its largest entry, one kernel call counted, and a repeat bitwise
+    equal (no atomics)."""
+    q, k, v = _qkv((2, 2, sq, d), skv, torch.bfloat16, cuda, seed=d + skv)
+    do = _qkv((2, 2, sq, d), skv, torch.bfloat16, cuda, seed=d + 1)[0]
+    n0 = dict(t_fa.flash_attention.backward_calls_by_route)
+    got = t_fa.flash_attention_backward(q, k, v, do, causal=causal,
+                                        q_offset=q_offset)
+    assert t_fa.flash_attention.backward_calls_by_route == {
+        **n0, "kernel": n0["kernel"] + 1}
+    want = t_fa.attention_backward(q, k, v, do, causal=causal,
+                                   q_offset=q_offset)
+    for g, w in zip(got, want):
+        top = w.float().abs().max().item()
+        assert g.dtype == torch.bfloat16
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * top
+    again = t_fa.flash_attention_backward(q, k, v, do, causal=causal,
+                                          q_offset=q_offset)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fail", ["build", "launch"])
+def test_cuda_flash_backward_never_reaches_plain(cuda, monkeypatch, fail):
+    """A failed build or launch of the backward kernel raises; the plain
+    version never runs in its place."""
+    def boom(*a, **kw):
+        raise AssertionError("attention_backward called on the kernel route")
+    monkeypatch.setattr(t_fa, "attention_backward", boom)
+    real = t_fa._build.entry
+
+    def entry(name, argtypes, symbol=""):
+        if name != t_fa.BACKWARD_SOURCE:
+            return real(name, argtypes, symbol)
+        if fail == "build":
+            raise RuntimeError("nvcc failed for csrc/flash_attention_bwd.cu")
+        return lambda *args: 98     # cudaErrorInvalidDeviceFunction
+    monkeypatch.setattr(t_fa._build, "entry", entry)
+    q, k, v = _qkv((1, 2, 128, 64), 128, torch.bfloat16, cuda)
+    with pytest.raises(RuntimeError):
+        t_fa.flash_attention_backward(q, k, v, q.clone())
+
+
 # the instantiated head dims and head dims padded to each: a partial
 # panel (40, 72, 112, 200), a wholly padded one (136: columns 192-255),
 # a box wider than the row (8)

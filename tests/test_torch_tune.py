@@ -312,6 +312,23 @@ def test_attention_bound_at_the_granite_shape():
     assert abs(floor.seconds * 1e3 - 2.0518) < 5e-5
 
 
+def test_attention_backward_bound_is_two_and_a_half_passes():
+    """10·d flops per visible pair (S, dP, dV, dQ, dK) at the BF16 peak,
+    the graph analysis's count for the backward operator: 0.3475 ms at
+    the granite shape, by operations; q, k, v and dO read, dq, dk and dv
+    written and the rows' fp32 LSE and D."""
+    from repro_torch.core import graph_analysis as ga
+    q = torch.empty(1, 32, 4096, 128, dtype=torch.bfloat16, device="meta")
+    b = t_space.attention_backward_bound(q, q, causal=True, q_offset=0,
+                                         machine=H100)
+    fwd = t_space.attention_bound(q, q, causal=True, machine=H100)
+    assert b.ops_s == 2.5 * fwd.ops_s and b.by == "operations"
+    assert b.ops_s * 9.89e14 == pytest.approx(
+        2.5 * ga.flash_flops(q, q, True, 0), rel=1e-12)
+    assert b.bytes == 7 * 32 * 2 ** 20 + 8 * 32 * 4096
+    assert abs(b.seconds * 1e3 - 0.3475) < 5e-5
+
+
 @pytest.mark.parametrize("samples", [
     [], [1.0], [3.0, 1.0, 2.0], [1.0, 1.1, 0.9, 1.05, 50.0],
     [0.5, 0.6, 0.55, 0.52, 0.58, 0.01, 0.57, 0.56]])
