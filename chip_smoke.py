@@ -43,11 +43,14 @@ followed by its seconds:
                against ``attention_backward`` at granite-8b's (1, 32,
                4096, 128), zamba2-7b's head dim 112 (padded), phi-3's 96,
                10a's 32 at 64 rows, a causal call with sq < skv and
-               q_offset > 0, and one whose last q rows carry zero dO (each
-               of dQ, dK and dV within FA_TOL[bf16] of its largest entry),
-               each run twice with bitwise-equal results, and its time at
+               q_offset > 0, one whose last q rows carry zero dO and one
+               with an odd number of 64-row kv blocks (each of dQ, dK and
+               dV within FA_TOL[bf16] of its largest entry), each run
+               twice with bitwise-equal results, and its time at
                granite's shape beside ``attention_backward``, SDPA's
-               forward plus backward and ``attention_backward_bound``;
+               forward plus backward, SDPA's backward alone and
+               ``attention_backward_bound``, with each launch's ms (rows
+               pass, fused pass, dQ cast) from ``torch.profiler``;
   4. main    — the stencil case study at full size: the 7-point stencil at
                (512, 512, 512) and the long-range stencil at the paper's §3
                size (130, 1015, 1015), fp32.  Per stencil: ECM and Roofline
@@ -394,8 +397,11 @@ SIM_MARGIN_S = 6.0
 SIM_PROBE_ROWS = 256
 TC_KERNEL = re.compile(r"_ZN\w*?(flash_attention_(?:wgmma|bf16x3)_kernel)"
                        r"ILi(\d+)ELi(\d+)ELi(\d+)E\w*")
-BWD_KERNEL = re.compile(r"_ZN\w*?(flash_attention_bwd_(?:dq|dkv)_kernel)"
+BWD_KERNEL = re.compile(r"_ZN\w*?"
+                        r"(flash_attention_bwd_(?:rows|fused|dq)_kernel)"
                         r"ILi(\d+)E\w*")
+# the backward's launches by the names the profiler gives them
+BWD_PASS = re.compile(r"flash_attention_bwd_(rows|fused|dq)_kernel")
 STENCIL_KERNEL = re.compile(r"_ZN\w*?(stencil3d7pt|longrange3d)_kernel"
                             r"ILi(\d+)E\w*")
 # phase 8: lint's sources at the main-path sizes; analyze at the paper's
@@ -514,15 +520,18 @@ BACKWARD_HEADS = 8
 # (name, (b, h, sq, d), skv, q_offset, rows of zero dO at the end of q):
 # granite-8b's training call, zamba2-7b's head dim 112 (padded to 128),
 # phi-3's 96, 10a's reduced shape (head dim 32, 16 tokens padded to 64
-# rows), a causal call with sq < skv and q_offset > 0, and the zero dO
-# that attention.flash's q padding carries
+# rows), a causal call with sq < skv and q_offset > 0, the zero dO
+# that attention.flash's q padding carries, and an odd number of 64-row kv
+# blocks (17: the serving cache's 1088 rows), whose last fused-pass item
+# has one consumer idle
 BACKWARD_CASES = (
     ("granite-8b", (1, 32, 4096, 128), 4096, 0, 0),
     ("zamba2-7b d112", (1, 32, 1024, 112), 1024, 0, 0),
     ("phi3 d96", (1, 32, 1024, 96), 1024, 0, 0),
     ("10a d32", (4, 4, 64, 32), 64, 0, 0),
     ("sq < skv", (2, 8, 256, 128), 1024, 700, 0),
-    ("zero dO rows", (2, 8, 512, 64), 512, 0, 37))
+    ("zero dO rows", (2, 8, 512, 64), 512, 0, 37),
+    ("odd kv blocks", (2, 16, 1088, 128), 1088, 0, 0))
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 USED = re.compile(r"Used (\d+) registers")
 
@@ -845,10 +854,11 @@ def backward_errors(got, want) -> list[float]:
 def check_backward(fa, space, measure, h100) -> dict:
     """The backward kernel against ``attention_backward`` on the card at
     BACKWARD_CASES (unit-normal bf16 operands from SEED), each run twice
-    (the two results bitwise equal: no atomics) and counted as one kernel
-    call each; then its time at granite-8b's shape beside
-    ``attention_backward``, SDPA's forward plus backward (the yardstick)
-    and ``attention_backward_bound``.  Returns the worst error over its
+    (the two results bitwise equal: dQ's shares summed in a fixed order)
+    and counted as one kernel call each; then its time at granite-8b's
+    shape beside ``attention_backward``, SDPA's forward plus backward and
+    its backward alone (the yardsticks), ``attention_backward_bound`` and
+    each pass's ms.  Returns the worst error over its
     tolerance's reference, the max abs error and the times."""
     worst = abs_err = 0.0
     for i, (name, shape, skv, q_offset, zero) in enumerate(BACKWARD_CASES):
@@ -893,11 +903,17 @@ def check_backward(fa, space, measure, h100) -> dict:
     q, k, v = qkv(shape, GRANITE["seq_kv"], torch.bfloat16, SEED)
     do = qkv(shape, GRANITE["seq_kv"], torch.bfloat16, SEED + 1)[0]
     t = backward_times(fa, space, measure, h100, q, k, v, do)
+    t["passes_ms"] = backward_passes_ms(fa, q, k, v, do)
     print(f"  backward at {shape} bf16 causal: kernel {t['ms']:.4f} ms "
           f"({t['bound_ms'] / t['ms']:.1%} of its bound {t['bound_ms']:.4f}"
           f" ms by {t['bound_by']}), attention_backward {t['plain_ms']:.4f}"
-          f" ms, SDPA forward + backward {t['library_ms']:.4f} ms "
-          f"(yardstick only)")
+          f" ms, SDPA forward + backward {t['library_ms']:.4f} ms, SDPA "
+          f"backward alone {t['library_backward_ms']:.4f} ms (yardsticks "
+          f"only; the kernel {t['ms'] / t['library_backward_ms']:.3f}x "
+          f"SDPA's backward)")
+    print("  backward passes at the same shape (torch.profiler, device ms a "
+          "call): " + ", ".join(f"{n} {ms:.4f}"
+                                for n, ms in t["passes_ms"].items()))
     return {"worst_of_tol": worst / FA_TOL[torch.bfloat16],
             "max_abs_err": abs_err, **t}
 
@@ -905,7 +921,8 @@ def check_backward(fa, space, measure, h100) -> dict:
 def backward_times(fa, space, measure, h100, q, k, v, do) -> dict:
     """The backward kernel's CUDA-event ms on (q, k, v, dO), causal at
     q_offset 0, beside ``attention_backward``'s, SDPA's forward plus
-    backward and ``attention_backward_bound`` (10·d flops per visible
+    backward, SDPA's backward alone (its forward run once outside the
+    timed call) and ``attention_backward_bound`` (10·d flops per visible
     pair: two and a half attention passes)."""
     t_k = measure.time_cuda(
         lambda: fa.flash_attention_backward(q, k, v, do, causal=True,
@@ -921,10 +938,40 @@ def backward_times(fa, space, measure, h100, q, k, v, do) -> dict:
             qg, kg, vg, is_causal=True).backward(do)
     t_s = measure.time_cuda(sdpa_fwd_bwd, warmup=2, iters=5,
                             reps=5).wall_s * 1e3
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=True)
+
+    def sdpa_bwd():
+        torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+    t_sb = measure.time_cuda(sdpa_bwd, warmup=2, iters=5,
+                             reps=5).wall_s * 1e3
+    del out
     bound = space.attention_backward_bound(q, k, causal=True, q_offset=0,
                                            machine=h100)
     return {"ms": t_k, "plain_ms": t_p, "library_ms": t_s,
-            "bound_ms": bound.seconds * 1e3, "bound_by": bound.by}
+            "library_backward_ms": t_sb, "bound_ms": bound.seconds * 1e3,
+            "bound_by": bound.by}
+
+
+def backward_passes_ms(fa, q, k, v, do, calls: int = 5) -> dict:
+    """Device ms a call of each of the backward kernel's launches (the
+    rows pass, the fused pass, the dQ cast) over ``calls`` calls, from
+    ``torch.profiler`` (the process's first profile: the flash phase's)."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    fa.flash_attention_backward(q, k, v, do, causal=True, q_offset=0)
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(calls):
+            fa.flash_attention_backward(q, k, v, do, causal=True, q_offset=0)
+        torch.cuda.synchronize()
+    ms = {"rows": 0.0, "fused": 0.0, "dq": 0.0}
+    for e in p.events():
+        m = BWD_PASS.search(e.name)
+        if m and _is_cuda(e):
+            ms[m[1]] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+    if not all(ms.values()):
+        raise SmokeError(f"the profiler saw the backward's passes as {ms}")
+    return ms
 
 
 def print_ratios(rep, fa, config) -> None:
@@ -1245,13 +1292,13 @@ def check_build(_build, fa, info: dict) -> dict[str, int]:
     bwd = backward_ptxas(info)
     for (kern, D), (n, spill) in sorted(bwd.items()):
         print(f"  {kern}<D={D}>: {n} registers, {spill} bytes spilled")
-    if len(bwd) != 2 * len(fa.BACKWARD_HEAD_DIMS) or \
+    if len(bwd) != 3 * len(fa.BACKWARD_HEAD_DIMS) or \
             any(spill for _, spill in bwd.values()):
         raise SmokeError(f"the backward kernels' ptxas report {bwd}: "
                          "missing instantiations or spills")
     for d in fa.BACKWARD_HEAD_DIMS + (112,):
         got = fa.compiled_backward_limits(d)
-        want = (*fa.backward_smem_bytes(d), fa.BACKWARD_THREADS)
+        want = (*fa.backward_smem_bytes(d), *fa.BACKWARD_THREADS)
         if got != want:
             raise SmokeError(f"backward at head_dim {d}: the library states "
                              f"{got}, backward_smem_bytes {want}")
@@ -2833,7 +2880,8 @@ def train_flash_timing(cfg, fa, space, measure, h100,
           f"{bt['bound_ms']:.4f} ms by {bt['bound_by']}: two and a half "
           f"attention passes), attention_backward (its plain version, "
           f"float32 scores) {bt['plain_ms']:.4f} ms, SDPA forward + "
-          f"backward {bt['library_ms']:.4f} ms (yardstick only)")
+          f"backward {bt['library_ms']:.4f} ms, SDPA backward alone "
+          f"{bt['library_backward_ms']:.4f} ms (yardsticks only)")
     back = {"name": f"flash_attention_backward[{TRAIN_ARCH} train]",
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{fa.BACKWARD_SOURCE}.cu",
@@ -4303,6 +4351,7 @@ def smoke(out_path: str | None) -> int:
     back_entry["max_abs_err"] = bwd_check["max_abs_err"]
     back_entry["worst_of_tol"] = bwd_check["worst_of_tol"]
     back_entry["flash_phase_ms"] = bwd_check["ms"]
+    back_entry["passes_ms"] = bwd_check["passes_ms"]
     entries.append(back_entry)
     torch.cuda.empty_cache()
 

@@ -64,8 +64,10 @@ The rules:
 * **Memory**: the argument bytes (the local shards of the call's tensor
   arguments) and the peak of live bytes during the call: the arguments
   plus every storage an op allocated that is still alive, ``empty*``'s
-  too (they move no bytes but hold their storage).  An in-place op
-  allocates nothing.
+  too (they move no bytes but hold their storage), and the scratch the
+  backward kernel holds while it runs
+  (:func:`~repro_torch.kernels.flash_attention.backward_scratch`).  An
+  in-place op allocates nothing.
 
 A record's ``computation`` is the innermost :func:`scope` open when the
 op ran (a caller names a stretch of its program, such as the optimizer),
@@ -328,6 +330,20 @@ class Recorder(TorchDispatchMode):
             self.peak, self._peak_at = self.live, self._clock
         weakref.finalize(st, self._freed, key, life)
 
+    def _transient(self, tensors, name: str) -> None:
+        """Storages an op holds only while it runs (a kernel's scratch):
+        alive beside its results for one tick of the clock."""
+        self._clock += 1
+        n = 0
+        for t in tensors:
+            nb = t.untyped_storage().nbytes()
+            n += nb
+            self._allocs.append([nb, self._clock, self._clock + 1, name,
+                                 t.dtype, t.shape, self._computation()])
+        if self.live + n > self.peak:
+            self.peak, self._peak_at = self.live + n, self._clock
+        self._clock += 1
+
     def _freed(self, key: int, life: list) -> None:
         self.live -= self._alive.pop(key, 0)
         self._clock += 1
@@ -417,6 +433,9 @@ class Recorder(TorchDispatchMode):
             from ..kernels import flash_attention as fa
             if fa.backward_route(q, k, q_offset) == "kernel":
                 mxu = f
+                b, h, sq, d = q.shape
+                self._transient(fa.backward_scratch(b * h, sq, d, "meta"),
+                                f"{name} scratch")
             else:
                 vpu = f
             extra = 8.0 * math.prod(q.shape[:3])     # LSE and D, fp32

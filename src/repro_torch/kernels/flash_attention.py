@@ -116,14 +116,21 @@ MATMUL_PASSES = {"wgmma": 1, "simt": 1, "bf16x3": 3}
 #: their error.
 STEP_OVERHEAD_CY = {"wgmma": 600.0, "simt": 1000.0, "bf16x3": 900.0}
 #: the backward's routes (:func:`backward_route`), its kernel's source,
-#: the rows its CTAs take (q rows of a dQ CTA, kv rows of a dK/dV CTA and
-#: of the dQ CTA's step; both lengths must be multiples of it) and the
-#: instantiated head dims it takes
+#: the rows its tiles take (q rows of a rows-pass CTA and of a fused-pass
+#: step, kv rows of a fused-pass consumer; both lengths must be multiples
+#: of it) and the instantiated head dims it takes
 BACKWARD_ROUTES = ("kernel", "plain")
 BACKWARD_SOURCE = "flash_attention_bwd"
 BACKWARD_ROWS = 64
 BACKWARD_HEAD_DIMS = (32, 64, 96, 128)
-BACKWARD_THREADS = 160
+#: threads of the rows pass's CTA (a warpgroup and a producer warp) and of
+#: the fused pass's (two consumer warpgroups and a producer warpgroup)
+BACKWARD_THREADS = (160, 384)
+#: the fused pass's ring depth, its four bf16 dS tiles (by step parity and
+#: consumer) and its mbarriers
+BACKWARD_FUSED_STAGES = 2
+BACKWARD_DS_BYTES = 4 * BACKWARD_ROWS * BACKWARD_ROWS * 2
+BACKWARD_FUSED_BARRIERS = 128
 #: the kernel's dtype codes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -687,15 +694,37 @@ def attention_backward(q, k, v, grad_out, causal: bool = True,
 
 def backward_smem_bytes(head_dim: int) -> tuple[int, int]:
     """Dynamic shared memory of the backward's two CTAs at the
-    instantiated head dim D of ``head_dim``: the dQ CTA (alignment, its q
-    and dO tiles of :data:`BACKWARD_ROWS` rows, a ring of
-    :data:`WGMMA_STAGES` k and v tiles, the mbarriers) and the dK/dV CTA
-    (the same tiles, k and v held and q and dO in the ring, and each
-    stage's rows' fp32 LSE and D)."""
+    instantiated head dim D of ``head_dim``: the rows pass's (alignment,
+    its q and dO tiles of :data:`BACKWARD_ROWS` rows, a ring of
+    :data:`WGMMA_STAGES` k and v tiles, the mbarriers) and the fused
+    pass's (alignment, two k and two v tiles held, a ring of
+    :data:`BACKWARD_FUSED_STAGES` q and dO tiles with their rows' fp32 LSE
+    and D, the bf16 dS tiles, each consumer's fp32 staging of its part of
+    dQ's share — 64 columns at D = 128, else D — by step parity, and the
+    mbarriers)."""
     D, r = tc_head_dim(head_dim), BACKWARD_ROWS
-    dq = (WGMMA_SMEM_ALIGN + WGMMA_SMEM_BARRIERS
-          + 2 * D * (2 * r + 2 * WGMMA_STAGES * r))
-    return dq, dq + 8 * WGMMA_STAGES * r
+    rows = (WGMMA_SMEM_ALIGN + WGMMA_SMEM_BARRIERS
+            + 2 * D * (2 * r + 2 * WGMMA_STAGES * r))
+    stages = BACKWARD_FUSED_STAGES
+    fused = (WGMMA_SMEM_ALIGN + 2 * D * (4 * r + 2 * stages * r)
+             + BACKWARD_DS_BYTES + 4 * r * (D // 2 if D == 128 else D) * 4
+             + 8 * stages * r + BACKWARD_FUSED_BARRIERS)
+    return rows, fused
+
+
+def backward_scratch(bh: int, seq_q: int, head_dim: int, device
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scratch one kernel backward holds while it runs, allocated by
+    its caller: the rows' fp32 LSE and D (2, bh·sq), dQ's fp32 sums
+    (bh·sq·D at the instantiated head dim D) and the int32 counters, one
+    per (batch·head, q block).  At granite-8b's (32 heads, 4096, 128) that
+    is 65 MiB, freed when the call returns."""
+    D = tc_head_dim(head_dim)
+    n = bh * seq_q
+    return (torch.empty(2, n, dtype=torch.float32, device=device),
+            torch.empty(n * D, dtype=torch.float32, device=device),
+            torch.empty(n // BACKWARD_ROWS, dtype=torch.int32,
+                        device=device))
 
 
 def backward_launch_limits(seq_q: int, seq_kv: int, head_dim: int,
@@ -706,9 +735,10 @@ def backward_launch_limits(seq_q: int, seq_kv: int, head_dim: int,
     dims between them padded with zero columns), both lengths multiples
     of :data:`BACKWARD_ROWS`, ``q_offset >= 0`` and rows within the TMA's
     32-bit coordinates (checked by the wrapper, per call); the larger of
-    its two CTAs' shared memory (:func:`backward_smem_bytes`) and its
-    threads.  Anything else takes :func:`attention_backward` (route
-    ``"plain"``), and ``reason`` says why."""
+    its two CTAs' shared memory (:func:`backward_smem_bytes`) and of their
+    threads (:data:`BACKWARD_THREADS`).  Anything else takes
+    :func:`attention_backward` (route ``"plain"``), and ``reason`` says
+    why."""
     sq, skv, d = int(seq_q), int(seq_kv), int(head_dim)
     D = tc_head_dim(d)
     r = BACKWARD_ROWS
@@ -726,7 +756,7 @@ def backward_launch_limits(seq_q: int, seq_kv: int, head_dim: int,
     elif int(q_offset) < 0:
         reason = f"q_offset={q_offset} < 0"
     smem = 0 if D not in BACKWARD_HEAD_DIMS else max(backward_smem_bytes(d))
-    return LaunchLimits(smem_bytes=smem, threads=BACKWARD_THREADS,
+    return LaunchLimits(smem_bytes=smem, threads=max(BACKWARD_THREADS),
                         reason=reason, route="plain" if reason else "kernel")
 
 
@@ -754,13 +784,15 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     """(dq, dk, dv) of softmax attention, operands (b, h, s, d) as
     :func:`attention_backward` takes them, in the operands' type.
 
-    On the card at :func:`backward_route` ``"kernel"`` the two kernels of
-    ``csrc/flash_attention_bwd.cu`` run on the current stream without
-    synchronising (dQ with the rows' fp32 LSE and D = rowsum(P ⊙ dP), then
-    dK and dV; no atomics, so a repeat gives the same bits); q, k, v and
-    ``grad_out`` must be contiguous and start on 16 bytes, and a failed
-    build or launch raises.  Everywhere else — the ``"plain"`` route
-    (float32, head dim 256), and every call on the CPU —
+    On the card at :func:`backward_route` ``"kernel"`` the three launches
+    of ``csrc/flash_attention_bwd.cu`` run on the current stream without
+    synchronising (the rows pass: fp32 LSE and D = rowsum(P ⊙ dP); the
+    fused pass: dK, dV and dQ's fp32 sums, added in a fixed order, so a
+    repeat gives the same bits; the dQ cast), with
+    :func:`backward_scratch` allocated here; q, k, v and ``grad_out``
+    must be contiguous and start on 16 bytes, and a failed build or
+    launch raises.  Everywhere else — the ``"plain"`` route (float32,
+    head dim 256), and every call on the CPU —
     :func:`attention_backward` runs.
     ``flash_attention.backward_calls_by_route`` counts the route that
     ran."""
@@ -785,16 +817,17 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             raise ValueError("flash_attention_backward operands must be "
                              "contiguous and start on a 16-byte boundary")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    rows = torch.empty(2, b * h * sq, dtype=torch.float32, device=q.device)
-    fn = _build.entry(BACKWARD_SOURCE, [ctypes.c_void_p] * 9
+    rows, sums, counters = backward_scratch(b * h, sq, d, q.device)
+    fn = _build.entry(BACKWARD_SOURCE, [ctypes.c_void_p] * 11
                       + [ctypes.c_longlong] + [ctypes.c_int] * 5
                       + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check_status(BACKWARD_SOURCE, fn(
             *[t.data_ptr() for t in (q, k, v, grad_out, dq, dk, dv)],
-            rows[0].data_ptr(), rows[1].data_ptr(), b * h, sq, skv, d,
-            int(causal), int(q_offset), _scale(d), stream))
+            rows[0].data_ptr(), rows[1].data_ptr(), sums.data_ptr(),
+            counters.data_ptr(), b * h, sq, skv, d, int(causal),
+            int(q_offset), _scale(d), stream))
     _count_backward("kernel")
     return dq, dk, dv
 
@@ -816,6 +849,9 @@ _LIB.impl("flash_attention_backward",
 @torch.library.register_fake("repro_torch::flash_attention_backward",
                              lib=_LIB)
 def _backward_fake(q, k, v, grad_out, causal, q_offset):
+    if backward_route(q, k, q_offset) == "kernel":
+        b, h, sq, d = q.shape
+        backward_scratch(b * h, sq, d, q.device)   # the card's transient
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -892,15 +928,18 @@ def compiled_bf16x3_limits(block_q: int, block_kv: int, head_dim: int
     return _compiled_limits("bf16x3", block_q, block_kv, head_dim)
 
 
-def compiled_backward_limits(head_dim: int) -> tuple[int, int, int]:
-    """(dQ CTA shared bytes, dK/dV CTA shared bytes, threads) as the built
-    backward library states them (``repro_flash_attention_bwd_limits``),
-    to hold :func:`backward_smem_bytes` to the source; raises at a head
-    dim it is not built for; builds the library if needed."""
-    fn = _build.entry(BACKWARD_SOURCE, [ctypes.c_int] + [ctypes.c_void_p] * 3,
+def compiled_backward_limits(head_dim: int) -> tuple[int, int, int, int]:
+    """(rows-pass CTA shared bytes, fused-pass CTA shared bytes, threads of
+    each) as the built backward library states them
+    (``repro_flash_attention_bwd_limits``), to hold
+    :func:`backward_smem_bytes` and :data:`BACKWARD_THREADS` to the
+    source; raises at a head dim it is not built for; builds the library
+    if needed."""
+    fn = _build.entry(BACKWARD_SOURCE, [ctypes.c_int] + [ctypes.c_void_p] * 4,
                       symbol=f"{BACKWARD_SOURCE}_limits")
-    a, b, threads = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+    a, b = ctypes.c_longlong(), ctypes.c_longlong()
+    ta, tb = ctypes.c_int(), ctypes.c_int()
     _build.check_status(f"{BACKWARD_SOURCE}_limits", fn(
-        int(head_dim), ctypes.byref(a), ctypes.byref(b),
-        ctypes.byref(threads)))
-    return a.value, b.value, threads.value
+        int(head_dim), ctypes.byref(a), ctypes.byref(b), ctypes.byref(ta),
+        ctypes.byref(tb)))
+    return a.value, b.value, ta.value, tb.value

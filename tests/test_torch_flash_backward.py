@@ -2,16 +2,19 @@
 ``jax.grad`` of the JAX package's reference attention.
 
 The CUDA kernel runs only on the card; here :func:`_emulate_backward`
-writes its arithmetic out in PyTorch — its 64-row blocks and the blocks
-it skips, fp32 scores of the bf16 operands in the base-2 domain, LSE and
-D = rowsum(P ⊙ dP) from one online sweep over the fp32 P and dP tiles,
-and P and dS rounded to bf16 before their products — and holds it, and
-the plain version ``attention_backward``, within the reference's bf16
-tolerance (2e-2 of each gradient's largest entry) of ``jax.grad``
-through ``repro.kernels.ref.attention`` in float32 on the same
-bf16-rounded operands.  Inputs are made with numpy from a seed.  The
-kernel itself is held against ``attention_backward`` on the card by
-``chip_smoke.py``'s flash phase.
+writes its arithmetic out in PyTorch — the rows pass (64 q rows a CTA,
+fp32 scores of the bf16 operands in the base-2 domain, LSE and D =
+rowsum(P ⊙ dP) from one online sweep over the fp32 P and dP tiles), the
+fused pass (64 kv rows a consumer, the q blocks that see them from the
+last to the first, P and dS rounded to bf16 before their products, dK
+and dV summed in that order) and dQ's fp32 shares, one per 64-row kv
+block, added in ascending kv-block order — and holds it, and the plain
+version ``attention_backward``, within the reference's bf16 tolerance
+(2e-2 of each gradient's largest entry) of ``jax.grad`` through
+``repro.kernels.ref.attention`` in float32 on the same bf16-rounded
+operands.  Inputs are made with numpy from a seed.  The kernel itself is
+held against ``attention_backward`` on the card by ``chip_smoke.py``'s
+flash phase and ``tests/test_torch_port.py``.
 """
 import numpy as np
 import pytest
@@ -63,13 +66,13 @@ def _emulate_backward(q, k, v, do, causal=True, q_offset=None,
 
     lse = torch.empty(b * h, sq)
     dsum = torch.empty(b * h, sq)
-    dq = torch.zeros(b * h, sq, d)
-    for i0 in range(0, sq, ROWS):          # (a): one CTA per q block
-        blocks = [j0 for j0 in range(0, skv, ROWS) if visited(i0, j0)]
+    for i0 in range(0, sq, ROWS):          # (a) rows pass: a CTA per q block
         m = torch.full((b * h, ROWS), fa.NEG_INF)
         l = torch.zeros(b * h, ROWS)
         acc = torch.zeros(b * h, ROWS)
-        for j0 in blocks:                  # sweep 1: LSE and D together
+        for j0 in range(0, skv, ROWS):     # LSE and D in one sweep
+            if not visited(i0, j0):
+                continue
             s, dp, mask = tile(i0, j0)
             x = torch.where(mask, fa.NEG_INF, s * c)
             mx = torch.maximum(m, x.amax(-1))
@@ -80,28 +83,40 @@ def _emulate_backward(q, k, v, do, causal=True, q_offset=None,
             m = mx
         lse[:, i0:i0 + ROWS] = m + torch.log2(l)
         dsum[:, i0:i0 + ROWS] = acc / l
-        if d_rows is not None:
-            dsum[:, i0:i0 + ROWS] = d_rows.reshape(b * h, sq)[:, i0:i0 + ROWS]
-        for j0 in blocks:                  # sweep 2: dS, dQ
-            s, dp, mask = tile(i0, j0)
-            p = torch.where(mask, 0.0,
-                            torch.exp2(s * c - lse[:, i0:i0 + ROWS, None]))
-            ds = p * (dp - dsum[:, i0:i0 + ROWS, None])
-            dq[:, i0:i0 + ROWS] += ds.bfloat16().float() @ K[:, j0:j0 + ROWS]
+    if d_rows is not None:
+        dsum = d_rows.reshape(b * h, sq).float()
+    # (b) fused pass: a consumer per 64 kv rows, q blocks from the last
     dk = torch.zeros(b * h, skv, d)
     dv = torch.zeros(b * h, skv, d)
-    for j0 in range(0, skv, ROWS):         # (b): one CTA per kv block
-        for i0 in range(0, sq, ROWS):
+    dss = {}                     # (q block, kv block) -> bf16 dS
+    for j0 in range(0, skv, ROWS):
+        for i0 in reversed(range(0, sq, ROWS)):
             if not visited(i0, j0):
                 continue
             s, dp, mask = tile(i0, j0)
             p = torch.where(mask, 0.0,
                             torch.exp2(s * c - lse[:, i0:i0 + ROWS, None]))
-            ds = p * (dp - dsum[:, i0:i0 + ROWS, None])
+            ds = (p * (dp - dsum[:, i0:i0 + ROWS, None])).bfloat16().float()
             dv[:, j0:j0 + ROWS] += p.bfloat16().float().transpose(-1, -2) \
                 @ O[:, i0:i0 + ROWS]
-            dk[:, j0:j0 + ROWS] += ds.bfloat16().float().transpose(-1, -2) \
-                @ Q[:, i0:i0 + ROWS]
+            dk[:, j0:j0 + ROWS] += ds.transpose(-1, -2) @ Q[:, i0:i0 + ROWS]
+            dss[i0, j0] = ds
+    # dQ's shares — at head dim 128 one per 128 kv rows (a fused-pass
+    # item: both its consumers' dS in one product), else one per 64 — and
+    # their fp32 sums in ascending kv order
+    group = 2 * ROWS if fa.tc_head_dim(d) == 128 else ROWS
+    dq = torch.zeros(b * h, sq, d)
+    for i0 in range(0, sq, ROWS):
+        acc = None
+        for g0 in range(0, skv, group):
+            parts = [j0 for j0 in range(g0, g0 + group, ROWS)
+                     if (i0, j0) in dss]
+            if not parts:
+                continue
+            share = torch.cat([dss[i0, j0] for j0 in parts], -1) \
+                @ torch.cat([K[:, j0:j0 + ROWS] for j0 in parts], 1)
+            acc = share if acc is None else acc + share
+        dq[:, i0:i0 + ROWS] = acc
     return tuple(g.reshape(t.shape).bfloat16() for g, t in
                  ((dq * scale, q), (dk * scale, k), (dv, v)))
 
@@ -145,15 +160,18 @@ def _within(got, want, tol=TOL) -> list[float]:
     (2, 2, 128, 128, 32, True), (1, 2, 128, 128, 64, True),
     (1, 2, 128, 128, 96, True), (1, 2, 128, 128, 112, True),
     (1, 1, 128, 128, 128, True), (1, 2, 64, 192, 64, True),
-    (1, 2, 128, 128, 64, False)],
-    ids=["d32", "d64", "d96", "d112", "d128", "q_offset128", "full"])
+    (1, 2, 128, 128, 64, False), (1, 2, 192, 192, 32, True),
+    (1, 1, 128, 320, 64, False)],
+    ids=["d32", "d64", "d96", "d112", "d128", "q_offset128", "full",
+         "odd_kv_blocks", "odd_kv_blocks_full"])
 def test_emulated_kernel_and_plain_match_jax_grad(b, h, sq, skv, d, causal,
                                                   sharp):
     """The kernel's arithmetic and the plain version within 2e-2 of
     jax.grad at each head dim the kernel takes (112 at 128 with zero
     columns, which change nothing here), causal at q_offset 0 and
-    skv - sq > 0, and full attention; at unit-normal scores and at
-    scores in the hundreds."""
+    skv - sq > 0, and full attention, and at an odd number of 64-row kv
+    blocks (the last fused-pass item's second consumer idle); at
+    unit-normal scores and at scores in the hundreds."""
     q, k, v, do = _operands(b, h, sq, skv, d, seed=sq + skv + d, sharp=sharp)
     assert fa.backward_route(q, k) == "kernel"
     want = _jax_grads(q, k, v, do, causal)
@@ -268,18 +286,68 @@ def test_backward_route_and_launch_limits(dtype, d, sq, skv, q_offset,
     the plain version, with a reason."""
     lim = fa.backward_launch_limits(sq, skv, d, dtype, q_offset)
     assert lim.route == route and lim.ok == (route == "kernel")
-    assert lim.threads == fa.BACKWARD_THREADS
+    assert fa.BACKWARD_THREADS == (160, 384)
+    assert lim.threads == 384
     q = torch.empty(1, 1, sq, d, dtype=dtype)
     k = torch.empty(1, 1, skv, d, dtype=dtype)
     assert fa.backward_route(q, k, q_offset) == route
     if route == "kernel":
         D = fa.tc_head_dim(d)
-        dq_cta, dkv_cta = fa.backward_smem_bytes(d)
-        assert dq_cta == 1024 + 64 + 2 * D * (2 * 64 + 2 * 2 * 64)
-        assert dkv_cta == dq_cta + 8 * 2 * 64
-        assert lim.smem_bytes == dkv_cta <= fa.SMEM_PER_CTA
+        rows_cta, fused_cta = fa.backward_smem_bytes(d)
+        assert rows_cta == 1024 + 64 + 2 * D * (2 * 64 + 2 * 2 * 64)
+        assert fused_cta == (1024 + 2 * D * (4 * 64 + 2 * 2 * 64)
+                             + 4 * 64 * 64 * 2
+                             + 4 * 64 * (64 if D == 128 else D) * 4
+                             + 8 * 2 * 64 + 128)
+        assert lim.smem_bytes == max(rows_cta, fused_cta) <= fa.SMEM_PER_CTA
+        rows, sums, counters = fa.backward_scratch(3, sq, d, "meta")
+        assert rows.shape == (2, 3 * sq) and rows.dtype == torch.float32
+        assert sums.shape == (3 * sq * D,) and sums.dtype == torch.float32
+        assert counters.shape == (3 * sq // 64,)
+        assert counters.dtype == torch.int32
     else:
         assert lim.reason
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,q_offset", [
+    (1, 32, 4096, 4096, 128, 0), (1, 32, 1024, 1024, 112, 0),
+    (1, 32, 1024, 1024, 96, 0), (4, 4, 64, 64, 32, 0),
+    (2, 8, 256, 1024, 128, 700), (1, 2, 192, 192, 64, 0),
+    (2, 2, 128, 320, 64, 192)],
+    ids=["granite-8b", "zamba2-7b-d112", "phi3-d96", "10a-d32",
+         "sq<skv-q_offset700", "odd-kv-192", "odd-kv-320"])
+def test_backward_route_keeps_every_kernel_shape(b, h, sq, skv, d,
+                                                 q_offset):
+    """Every shape the kernel took before its fused redesign still takes
+    it: the smoke's training shapes (granite-8b, zamba2-7b's 112 padded to
+    128, phi-3's 96, the reduced configs' 32), a causal call with sq < skv
+    at q_offset 700, and odd numbers of 64-row kv blocks (3 and 5)."""
+    q = torch.empty(b, h, sq, d, dtype=torch.bfloat16)
+    k = torch.empty(b, h, skv, d, dtype=torch.bfloat16)
+    assert fa.backward_route(q, k, q_offset) == "kernel"
+    assert fa.backward_launch_limits(sq, skv, d, torch.bfloat16,
+                                     q_offset).ok
+
+
+def test_dry_run_counts_the_kernels_scratch():
+    """The dry run's memory (a Recorder over fake tensors) holds the
+    kernel backward's scratch — LSE and D rows, dQ's fp32 sums and the
+    counters — beside its results while the op runs; the plain route's
+    op holds none."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core import graph_analysis as ga
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        for dtype, extra in ((torch.bfloat16, True), (torch.float32, False)):
+            q = torch.empty(1, 4, 256, 128, dtype=dtype)
+            _, cap = ga.capture(
+                lambda a, g: fa.backward_op(a, a, a, g, True, 0), q,
+                torch.empty_like(q))
+            scratch = sum(t.untyped_storage().nbytes() for t in
+                          fa.backward_scratch(4, 256, 128, "meta"))
+            outs = 3 * q.numel() * q.element_size()
+            assert cap.argument_bytes == 2 * q.numel() * q.element_size()
+            assert cap.peak_bytes == (cap.argument_bytes + outs
+                                      + (scratch if extra else 0))
 
 
 def test_function_backward_on_the_cpu_is_the_plain_version():

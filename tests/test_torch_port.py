@@ -584,13 +584,15 @@ def test_cuda_flash_never_reaches_plain(cuda, monkeypatch, fail):
 @pytest.mark.parametrize("d", [32, 40, 64, 96, 112, 128])
 @pytest.mark.parametrize("causal, sq, skv, q_offset", [
     (True, 256, 256, 0), (True, 128, 512, 384), (True, 128, 512, 100),
-    (False, 128, 256, 0)])
+    (False, 128, 256, 0), (True, 192, 192, 0), (False, 128, 320, 0)])
 def test_cuda_flash_backward_matches_plain(cuda, d, causal, sq, skv,
                                            q_offset):
     """The backward kernel at each head dim it takes (40 and 112 padded)
-    against ``attention_backward``: each of dQ, dK and dV within 2e-2 of
-    its largest entry, one kernel call counted, and a repeat bitwise
-    equal (no atomics)."""
+    against ``attention_backward``, also at an odd number of 64-row kv
+    blocks (192, 320: the last fused-pass item's second consumer idle):
+    each of dQ, dK and dV within 2e-2 of its largest entry, one kernel
+    call counted, and a repeat bitwise equal (dQ's shares summed in a
+    fixed order)."""
     q, k, v = _qkv((2, 2, sq, d), skv, torch.bfloat16, cuda, seed=d + skv)
     do = _qkv((2, 2, sq, d), skv, torch.bfloat16, cuda, seed=d + 1)[0]
     n0 = dict(t_fa.flash_attention.backward_calls_by_route)
