@@ -22,7 +22,13 @@ followed by its seconds:
                libraries), and the launch limits of every wgmma and bf16x3
                instantiation as the library states them against
                ``launch_limits``, at the instantiated head dims and at 112
-               (padded to 128);
+               (padded to 128); the registers and spills of every
+               CUDA-core instantiation (the tiled kernel at each triple
+               of ``SIMT_TILED_SET`` and the general kernel, both types;
+               none may spill, nor hold fewer CTAs an SM than
+               ``launch_limits`` says) and the simt library's launch
+               limits against ``_simt_limits`` at every triple the smoke
+               launches on simt;
   3. check   — each kernel against its plain PyTorch version on the card,
                at the reference tolerances: the stencils at ragged shapes,
                at the ring's edges (N below one tile, M <= 2r, M below
@@ -32,7 +38,10 @@ followed by its seconds:
                attention on all three routes — bf16 on the tensor cores
                ("wgmma"), f32 on the tensor cores as three bf16 passes
                ("bf16x3"), and both types off those sets on the CUDA cores
-               ("simt": blocks (64, 32), head_dim 100) — at head_dim
+               ("simt": blocks ``SIMT_BLOCKS``, head_dim 100, and
+               ``SIMT_CASES`` forced onto simt, causal and full, at two
+               q_offsets: head dims 4, 100, 136, 264, blocks 4, 48, 116,
+               the tiled triples) — at head_dim
                32/64/96/128/256 and 40/112/136 (padded), causal and full,
                the decode shape (1, 32, 128, 4096), padded q blocks
                (16, 32), and every feasible candidate of the seq-256 tune
@@ -131,7 +140,9 @@ followed by its seconds:
                timed with its split pass (the split also alone), beside
                the plain version, SDPA in f32, the three-pass bound and
                the FP32 floor; then the CUDA-core route at the same shape
-               at (64, 32), a pair off the bf16x3 set, held and timed;
+               at ``SIMT_BLOCKS`` (128, 32), the fastest simt pair, and at
+               (64, 32), the pair timed before, held and timed, with the
+               share of the FP32 floor and the ratio to SDPA in f32;
   7. models  — gemma-7b's attention (16 heads of 256) and zamba2-7b's (32
                heads of 112, run at 128 with zero columns) at the same
                length, in bf16 and f32: one launch at ``default_config``,
@@ -373,8 +384,21 @@ GRANITE = {"batch": 1, "heads": 32, "seq_q": 4096, "seq_kv": 4096,
            "head_dim": 128, "causal": True, "dtype": "bfloat16"}
 GRANITE_F32 = {**GRANITE, "dtype": "float32"}
 # the CUDA-core route's pair at the granite shape in f32: off the bf16x3
-# set (block_kv 32), the fastest simt pair measured at this shape
-SIMT_BLOCKS = (64, 32)
+# set (block_kv 32), the fastest simt pair measured at this shape (the
+# tiled kernel at (128, 32)); SIMT_BLOCKS_BEFORE, the pair phase 6 timed
+# before the tiled kernel, is timed beside it
+SIMT_BLOCKS = (128, 32)
+SIMT_BLOCKS_BEFORE = (64, 32)
+# phase 3's CUDA-core cases, forced onto simt in both types, causal and
+# full, q_offset > 0: (head_dim, blocks, seq_q, seq_kv) — head dims off
+# every tensor-core rule (4, 100, 136, 264), blocks of 4, 48 and 116, the
+# tiled kernel's triples at their own and padded head dims (the
+# tests/test_torch_port.py SIMT_CASES)
+SIMT_CASES = [(4, (4, 4), 64, 96), (100, (64, 32), 128, 256),
+              (136, (64, 32), 128, 192), (264, (64, 32), 128, 192),
+              (128, (48, 48), 96, 192), (100, (116, 4), 116, 232),
+              (128, (128, 32), 128, 256), (112, (64, 64), 128, 256),
+              (256, (64, 32), 64, 128), (128, (64, 32), 128, 256)]
 # gemma-7b (src/repro/configs/gemma_7b.py: 16 heads of 256, kv 16) and
 # zamba2-7b (src/repro/configs/zamba2_7b.py: 32 heads of 112, kv 32) at
 # the same length; the tensor-core routes pad 112 to 128
@@ -397,6 +421,9 @@ SIM_MARGIN_S = 6.0
 SIM_PROBE_ROWS = 256
 TC_KERNEL = re.compile(r"_ZN\w*?(flash_attention_(?:wgmma|bf16x3)_kernel)"
                        r"ILi(\d+)ELi(\d+)ELi(\d+)E\w*")
+SIMT_KERNEL = re.compile(r"_ZN\w*?(flash_attention_simt_kernel|"
+                         r"flash_attention_kernel)I(f|13__nv_bfloat16)"
+                         r"(?:NS_4TileILi(\d+)ELi(\d+)ELi(\d+)E\w*|E\w*)")
 BWD_KERNEL = re.compile(r"_ZN\w*?"
                         r"(flash_attention_bwd_(?:rows|fused|dq)_kernel)"
                         r"ILi(\d+)E\w*")
@@ -809,6 +836,21 @@ def check_flash(fa, ops, space) -> dict[tuple[str, str], float]:
         res = case(f"{name} d=100", lambda: ops.flash_attention(q, k, v),
                    fa.plain(q, k, v), dtype, "simt")
         print(f"  flash (2, 4, 256, 100) kv 512 {name} through ops: {res}")
+        # the CUDA-core kernels, tiled and general, forced onto simt
+        for d, (bq, bkv), sq, skv in SIMT_CASES:
+            q, k, v = qkv((1, 3, sq, d), skv, dtype, seed=d + bq)
+            kern = ("tiled" if (bq, bkv, fa.simt_head_dim(bq, bkv, d))
+                    in fa.SIMT_TILED_SET else "general")
+            for causal in (True, False):
+                for off in (skv - sq, (skv - sq) // 2):
+                    what = (f"{name} simt {kern} d={d} ({bq}, {bkv}) "
+                            f"causal={causal} q_offset={off}")
+                    res = case(what, lambda: fa.flash_attention(
+                        q, k, v, causal=causal, block_q=bq, block_kv=bkv,
+                        q_offset=off, force_simt=True), fa.plain(
+                        q, k, v, causal=causal, q_offset=off), dtype, "simt")
+                    print(f"  flash (1, 3, {sq}, {d}) kv {skv} {what}: "
+                          f"{res}")
     for dtype in ("float32", "bfloat16"):
         sp = space.resolve_space("flash_attention", "H100", batch=1,
                                  heads=4, seq_q=256, seq_kv=256,
@@ -1063,21 +1105,28 @@ def tune_path(fa, space, tune_mod, measure, machine_mod, config: dict,
 
 def simt_path(fa, space, measure) -> dict:
     """The same attention in float32 on the CUDA-core route, at
-    :data:`SIMT_BLOCKS`, a pair off the bf16x3 set."""
+    :data:`SIMT_BLOCKS`, a pair off the bf16x3 set, and timed at
+    :data:`SIMT_BLOCKS_BEFORE` too (held against the first)."""
     sp = space.resolve_space("flash_attention", "H100", **GRANITE_F32)
     q, k, v = sp.inputs("cuda")
-    bq, bkv = SIMT_BLOCKS
-
-    def call():
-        return fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
-    out, route = routed(fa, call)
-    if route != "simt":
-        raise SmokeError(f"f32 attention at {SIMT_BLOCKS} launched on "
-                         f"{route}, not simt")
-    t_kernel = measure.time_cuda(call, warmup=1, iters=3, reps=5)
+    times = {}
+    for bq, bkv in (SIMT_BLOCKS_BEFORE, SIMT_BLOCKS):
+        def call():
+            return fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+        out, route = routed(fa, call)
+        if route != "simt":
+            raise SmokeError(f"f32 attention at {(bq, bkv)} launched on "
+                             f"{route}, not simt")
+        times[(bq, bkv)] = measure.time_cuda(call, warmup=1, iters=3,
+                                             reps=5)
+        if (bq, bkv) == SIMT_BLOCKS_BEFORE:
+            before = out
+    fa_compare(f"granite f32 simt at {SIMT_BLOCKS_BEFORE}", before,
+               fa.plain(q, k, v), q.dtype)
     torch.cuda.synchronize()
     return {"report": None, "qkv": (q, k, v), "out": out, "route": route,
-            "blocks": (bq, bkv), "t_kernel": t_kernel}
+            "blocks": SIMT_BLOCKS, "t_kernel": times[SIMT_BLOCKS],
+            "t_before": times[SIMT_BLOCKS_BEFORE]}
 
 
 def flash_report(run: dict, fa, space, measure, h100, card: str,
@@ -1131,6 +1180,17 @@ def flash_report(run: dict, fa, space, measure, h100, card: str,
         print(f"    FP32     {floor.seconds * 1e3:.4f} ms, the floor of the "
               f"CUDA cores at {h100.peak_flops['FP32'] / 1e12:.0f} TFLOP/s "
               f"({floor.seconds * 1e3 / ms:.1%} of it)")
+        if route == "simt":
+            before = run["t_before"].wall_s * 1e3
+            entry.update(fp32_floor_share=floor.seconds * 1e3 / ms,
+                         sdpa_ratio=ms / lib_ms,
+                         before_blocks=list(SIMT_BLOCKS_BEFORE),
+                         before_blocks_ms=before)
+            print(f"    simt     {floor.seconds * 1e3 / ms:.1%} of the FP32 "
+                  f"floor, {ms / lib_ms:.3f}x SDPA in f32's {lib_ms:.4f} ms;"
+                  f" at {SIMT_BLOCKS_BEFORE} (the pair timed before) "
+                  f"{before:.4f} ms, {floor.seconds * 1e3 / before:.1%} of "
+                  f"the floor, {before / lib_ms:.3f}x SDPA")
     if "t_split" in run:
         split_ms = run["t_split"].wall_s * 1e3
         moved = fa.split_bytes(q.numel(), k.numel())
@@ -1269,6 +1329,88 @@ def backward_ptxas(info: dict) -> dict[tuple, tuple[int, int]]:
     return out
 
 
+def simt_ptxas(info: dict) -> dict[tuple, tuple[int, int]]:
+    """(registers, spill bytes stored) of every CUDA-core kernel
+    instantiation, keyed (dtype, block_q, block_kv, D) for the tiled
+    kernel and (dtype, 0, 0, 0) for the general one."""
+    out, key = {}, None
+    for ln in info.get("flash_attention", {}).get("ptxas", []):
+        m = SIMT_KERNEL.search(ln)
+        if "Compiling" in ln:
+            key = None if not m else (
+                "float32" if m[2] == "f" else "bfloat16",
+                *(int(x) if x else 0 for x in m.groups()[2:]))
+        elif key and SPILL.search(ln):
+            out[key] = (0, int(SPILL.search(ln)[1]))
+        elif key and USED.search(ln):
+            out[key] = (int(USED.search(ln)[1]), out[key][1])
+    return out
+
+
+def simt_triples(fa, space) -> list[tuple[int, int, int]]:
+    """Every (block_q, block_kv, head_dim) the smoke launches on the simt
+    route: the tiled set, phase 3's cases and its head-dim-100 call
+    (``default_config``), the simt candidates of the seq-256 tune spaces,
+    phase 6's pairs and phase 7's."""
+    out = set(fa.SIMT_TILED_SET)
+    out |= {(bq, bkv, d) for d, (bq, bkv), _, _ in SIMT_CASES}
+    out.add((*fa.default_config(256, 512, 100, "float32"), 100))
+    out |= {(*SIMT_BLOCKS, 128), (*SIMT_BLOCKS_BEFORE, 128)}
+    out |= {(*SIMT_BEFORE[m], c["head_dim"]) for m, c in REAL_MODELS.items()}
+    for dtype in ("float32", "bfloat16"):
+        sp = space.resolve_space("flash_attention", "H100", batch=1,
+                                 heads=4, seq_q=256, seq_kv=256,
+                                 head_dim=128, causal=True, dtype=dtype)
+        cands = sp.candidates()
+        out |= {(c.config["block_q"], c.config["block_kv"], 128)
+                for c, p in zip(cands, sp.predict(cands))
+                if p.feasible and sp.route(c) == "simt"}
+    return sorted(out)
+
+
+def check_simt_build(fa, space, info: dict) -> None:
+    """The ptxas report of every CUDA-core instantiation (tiled at each
+    triple of the set, general, both types): no spill, and registers that
+    hold no fewer CTAs an SM than ``launch_limits`` states (one tiled CTA
+    by shared memory; 256 threads at up to 255 registers fit beside it);
+    then the library's ``repro_flash_attention_limits`` against
+    ``_simt_limits`` at every triple the smoke launches on simt."""
+    regs = simt_ptxas(info)
+    want = {(t, *k) for k in set(fa.SIMT_TILED_SET) | {(0, 0, 0)}
+            for t in ("float32", "bfloat16")}
+    for key, (n, spill) in sorted(regs.items()):
+        kern = ("general" if not key[1] else
+                f"tiled ({key[1]}, {key[2]}, {key[3]})")
+        print(f"  flash_attention simt {kern} {key[0]}: {n} registers, "
+              f"{spill} bytes spilled")
+    if set(regs) != want or any(spill for _, spill in regs.values()):
+        raise SmokeError(f"the simt kernels' ptxas report {regs}: missing "
+                         "instantiations or spills")
+    for key, (n, _) in regs.items():
+        if key[1]:
+            lim = fa._simt_limits(*key[1:])
+            by_regs = 65536 // (fa.THREADS * -(-n // 8) * 8)
+            if by_regs < lim.ctas_per_sm:
+                raise SmokeError(f"simt {key}: {n} registers hold {by_regs}"
+                                 f" CTAs an SM, launch_limits says "
+                                 f"{lim.ctas_per_sm}")
+    triples = simt_triples(fa, space)
+
+    def tiled(t):
+        return (t[0], t[1], fa.simt_head_dim(*t)) in fa.SIMT_TILED_SET
+    for t in triples:
+        lim = fa._simt_limits(*t)
+        got = fa.compiled_simt_limits(*t)
+        if not lim.ok or got != (lim.smem_bytes, lim.threads):
+            raise SmokeError(f"simt {t}: the library states {got}, "
+                             f"_simt_limits {(lim.smem_bytes, lim.threads)}"
+                             f" ({lim.reason or 'ok'})")
+    print(f"  simt launch limits: the library and _simt_limits agree at all "
+          f"{len(triples)} (block_q, block_kv, head_dim) the smoke launches "
+          f"on simt, {sum(tiled(t) for t in triples)} of them on the tiled "
+          "kernel")
+
+
 def check_build(_build, fa, info: dict) -> dict[str, int]:
     """The ptxas report (no spill at head dim 256), the HGMMA counts, and
     the tensor-core libraries' launch limits against ``launch_limits``;
@@ -1277,6 +1419,9 @@ def check_build(_build, fa, info: dict) -> dict[str, int]:
         print(f"  {name}: {d['seconds']:.1f} s")
         for ln in d["ptxas"]:
             ln = BWD_KERNEL.sub(lambda m: f"{m[1]}<D={m[2]}>", ln)
+            ln = SIMT_KERNEL.sub(lambda m: f"{m[1]}<" + (
+                "float" if m[2] == "f" else "bf16") + (
+                f", BQ={m[3]}, BKV={m[4]}, D={m[5]}>" if m[3] else ">"), ln)
             print("    " + TC_KERNEL.sub(
                 lambda m: f"{m[1]}<D={m[2]}, BKV={m[3]}, NWG={m[4]}>", ln))
     regs = tc_ptxas(info)
@@ -4140,6 +4285,7 @@ def smoke(out_path: str | None) -> int:
     print(f"built {sorted(info)} in {time.perf_counter() - t0:.1f} s "
           "(parallel nvcc, sm_90a)")
     hgmma = check_build(_build, fa, info)
+    check_simt_build(fa, space, info)
     check_stencil_build(_build, ops, stencil, info)
 
     phase("3 check against the plain versions on the card")

@@ -31,7 +31,11 @@ launches:
   off :func:`tc_head_dim` (not a multiple of 8, or above 256) and block
   pairs off those sets — on the CUDA cores in fp32.  A caller may also
   force it (``force_simt=True``) at a pair that a tensor-core route
-  takes, to time the CUDA cores there.
+  takes, to time the CUDA cores there.  The source holds two CTAs: the
+  tiled kernel at the triples of :data:`SIMT_TILED_SET` (a head dim
+  between its instantiations run with zero columns,
+  :func:`simt_head_dim`), and the general kernel for every other triple
+  that fits; :func:`launch_limits` says which, before any launch.
 
 A failed build or launch on a route raises; it never falls back to the
 other route or to :func:`plain`.  ``flash_attention.launches`` counts
@@ -65,11 +69,22 @@ from . import _build
 
 NEG_INF = -2.0 ** 30
 
-#: CTA size of the CUDA-core ("simt") kernel
+#: CTA size of the CUDA-core ("simt") kernels
 THREADS = 256
 #: block_q, block_kv and head_dim must be multiples of this: the simt
-#: kernel's 4x4 register microtiles and 16-byte shared loads
+#: kernels' float4 units (16-byte shared loads and fp32 copies, 8-byte
+#: bf16 copies)
 GRANULE = 4
+#: the simt route's tiled kernel (``csrc/flash_attention.cu``'s
+#: ``with_tile``): per instantiated ``(block_q, block_kv, head_dim)``, the
+#: q rows a warp and the lanes along q rows of S = q·kᵀ and of the output
+#: (32 lanes a warp); a head dim d, a multiple of :data:`GRANULE` with
+#: 64 < d <= 256, runs at the next instantiated one with zero columns
+#: (:func:`simt_head_dim`)
+SIMT_TILES = {(64, 32, 128): (16, 4, 2), (64, 64, 128): (16, 4, 2),
+              (128, 32, 128): (16, 4, 2), (64, 32, 256): (8, 2, 2)}
+SIMT_TILED_SET = frozenset(SIMT_TILES)
+SIMT_TILED_HEAD_DIMS = tuple(sorted({t[2] for t in SIMT_TILES}))
 #: shared memory one CTA may use on the H100 (227 KiB, opt-in maximum)
 SMEM_PER_CTA = 232448
 #: shared memory of one SM (228 KiB), of which each resident CTA also
@@ -107,14 +122,25 @@ SOURCES = {"wgmma": "flash_attention_wgmma", "simt": "flash_attention",
 #: fp32
 MATMUL_UNIT = {"wgmma": "BF16", "simt": "FP32", "bf16x3": "BF16"}
 MATMUL_PASSES = {"wgmma": 1, "simt": 1, "bf16x3": 3}
-#: cycles a CTA spends per kv step outside the arithmetic.  simt: four
-#: barriers and the exposed latency of staging the k/v tiles.  wgmma: the
+#: cycles a CTA spends per kv step outside the arithmetic.  simt: the
+#: tiled kernel's one barrier, its softmax (three shuffles a row for the
+#: max, exp2 of every score), the store of P and the rescale of the
+#: register accumulator; the copies of the next tile are in flight
+#: meanwhile (:data:`SIMT_GENERAL_STEP_CY` for the general kernel: four
+#: barriers and the exposed latency of staging the k/v tiles).  wgmma: the
 #: full-barrier wait and two wgmma issue → wait round trips that the
 #: softmax sits between.  bf16x3: the same round trips around three times
 #: the products, the split of p, and no second resident CTA at d = 128 to
 #: hide them.  All are estimates; the tuner's calibration factor absorbs
 #: their error.
-STEP_OVERHEAD_CY = {"wgmma": 600.0, "simt": 1000.0, "bf16x3": 900.0}
+STEP_OVERHEAD_CY = {"wgmma": 600.0, "simt": 400.0, "bf16x3": 900.0}
+SIMT_GENERAL_STEP_CY = 1000.0
+#: FFMA issue slots one 16-byte shared load of the simt products costs
+#: (the loads and the FFMAs they feed share each scheduler's issue), and
+#: the general kernel's FFMA slots per FMA: both estimates, from the
+#: designs (:func:`simt_issue_factor`)
+SIMT_LOAD_SLOTS = 6.0
+SIMT_GENERAL_FACTOR = 4.0
 #: the backward's routes (:func:`backward_route`), its kernel's source,
 #: the rows its tiles take (q rows of a rows-pass CTA and of a fused-pass
 #: step, kv rows of a fused-pass consumer; both lengths must be multiples
@@ -177,7 +203,11 @@ class LaunchLimits:
     @property
     def ctas_per_sm(self) -> int:
         """CTAs of this size one SM holds at once, by shared memory and
-        threads (registers are not modelled)."""
+        threads.  The simt route's tiled CTA takes more than half an SM's
+        shared memory, so its registers (up to 255 a thread at 256
+        threads; ``chip_smoke.py`` phase 2 holds ptxas's count to this)
+        never hold fewer than its one; other CTAs' registers are not
+        modelled."""
         return min(SMEM_PER_SM // (self.smem_bytes + SMEM_RESERVED),
                    THREADS_PER_SM // self.threads, CTAS_PER_SM)
 
@@ -297,12 +327,76 @@ def launch_limits(block_q: int, block_kv: int, head_dim: int,
     return LaunchLimits(smem_bytes=smem, threads=128 * nwg + 32, route=r)
 
 
+def simt_head_dim(block_q: int, block_kv: int, head_dim: int) -> int:
+    """The head dim the simt route computes at for a triple: the tiled
+    kernel's instantiated head dim (the smallest of
+    :data:`SIMT_TILED_HEAD_DIMS` at least ``head_dim``, for a multiple of
+    :data:`GRANULE` above 64) where that triple is in
+    :data:`SIMT_TILED_SET`, else ``head_dim`` itself (the general
+    kernel)."""
+    d = int(head_dim)
+    if d > 64 and d % GRANULE == 0:
+        D = next((D for D in SIMT_TILED_HEAD_DIMS if D >= d), None)
+        if (int(block_q), int(block_kv), D) in SIMT_TILED_SET:
+            return D
+    return d
+
+
+def _simt_shapes(block_q: int, block_kv: int, D: int
+                 ) -> tuple[int, int, int, int, int, int]:
+    """(q rows a warp, lanes along S's columns, S's rows and kv columns a
+    thread, the output's rows and columns a thread) of the tiled CTA at a
+    triple of :data:`SIMT_TILED_SET`."""
+    wm, lrs, lro = SIMT_TILES[(block_q, block_kv, D)]
+    lcs, lco = 32 // lrs, 32 // lro
+    slice_kv = block_kv // ((THREADS // 32) // (block_q // wm))
+    return wm, lcs, wm // lrs, slice_kv // lcs, wm // lro, D // lco
+
+
+def simt_issue_factor(block_q: int, block_kv: int, head_dim: int) -> float:
+    """FFMA issue slots per FMA of the simt route's two products at a
+    triple, an estimate from the design.  The tiled kernel's products are
+    register micro-tiles fed by 16-byte shared loads: S takes TM + TN
+    loads per 4·TM·TN FMAs, P·V TM + TD per 4·TM·TD (:func:`_simt_shapes`),
+    each load costing :data:`SIMT_LOAD_SLOTS` slots; the two products do
+    equal FMAs.  The general kernel: :data:`SIMT_GENERAL_FACTOR` (two
+    float4 loads per 16 FMAs in S, a float4 and four scalars in P·V, the
+    accumulator's round trip through shared memory)."""
+    bq, bkv, d = int(block_q), int(block_kv), int(head_dim)
+    D = simt_head_dim(bq, bkv, d)
+    if (bq, bkv, D) not in SIMT_TILED_SET:
+        return SIMT_GENERAL_FACTOR
+    _, _, tms, tn, tmo, td = _simt_shapes(bq, bkv, D)
+    loads = ((tms + tn) / (4 * tms * tn) + (tmo + td) / (4 * tmo * td)) / 2
+    return 1.0 + SIMT_LOAD_SLOTS * loads
+
+
+def simt_tiled_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
+    """Dynamic shared memory of one tiled simt CTA at a triple of
+    :data:`SIMT_TILED_SET` (D the instantiated head dim): the fp32 q tile
+    and the ring's two k and two v tiles, rows of D + 4 floats; each of
+    the 8 warps' P rows (its q rows by its slice of the kv block, a stride
+    of c mod 2c floats for the c lanes along S's columns) and its rows'
+    alpha; and the bfloat16 staging tile of block_kv x D."""
+    bq, bkv, D = int(block_q), int(block_kv), int(head_dim)
+    wm, lcs, _, tn, _, _ = _simt_shapes(bq, bkv, D)
+    slice_kv = tn * lcs
+    ps = slice_kv + (lcs - slice_kv) % (2 * lcs)
+    return (4 * ((bq + 4 * bkv) * (D + 4) + (THREADS // 32) * wm * (ps + 1))
+            + 2 * bkv * D)
+
+
 def _simt_limits(bq: int, bkv: int, d: int) -> LaunchLimits:
-    """The CUDA-core CTA: the three sizes positive multiples of
-    :data:`GRANULE` and the CTA's shared memory — q and k staged
-    transposed, v, the score tile and the accumulator, all fp32, plus m, l
-    and alpha — within :data:`SMEM_PER_CTA`, for 256 threads."""
-    smem = 4 * (2 * d * bq + 2 * d * bkv + bq * bkv + 3 * bq)
+    """The CUDA-core CTA of 256 threads: the three sizes positive
+    multiples of :data:`GRANULE`; at a triple of :data:`SIMT_TILED_SET`
+    (head dim at :func:`simt_head_dim`) the tiled CTA
+    (:func:`simt_tiled_smem_bytes`, one an SM by shared memory), else the
+    general CTA — q and k staged transposed, v, the score tile and the
+    accumulator, all fp32, plus m, l and alpha — within
+    :data:`SMEM_PER_CTA`."""
+    D = simt_head_dim(bq, bkv, d)
+    smem = (simt_tiled_smem_bytes(bq, bkv, D) if (bq, bkv, D) in SIMT_TILED_SET
+            else 4 * (2 * d * bq + 2 * d * bkv + bq * bkv + 3 * bq))
     reason = ""
     if min(bq, bkv, d) <= 0 or bq % GRANULE or bkv % GRANULE or d % GRANULE:
         reason = (f"block_q={bq}, block_kv={bkv} and head_dim={d} must be "
@@ -926,6 +1020,16 @@ def compiled_bf16x3_limits(block_q: int, block_kv: int, head_dim: int
     (``repro_flash_attention_bf16x3_limits``); raises outside
     :data:`BF16X3_SET`, as the library refuses such a triple."""
     return _compiled_limits("bf16x3", block_q, block_kv, head_dim)
+
+
+def compiled_simt_limits(block_q: int, block_kv: int, head_dim: int
+                         ) -> tuple[int, int]:
+    """(shared memory bytes, threads) of the CUDA-core CTA a triple
+    launches, tiled or general, as the built library states them
+    (``repro_flash_attention_limits``), to hold :func:`_simt_limits` to
+    the source; raises where the library refuses the triple (sizes off
+    the granule, or over :data:`SMEM_PER_CTA`)."""
+    return _compiled_limits("simt", block_q, block_kv, head_dim)
 
 
 def compiled_backward_limits(head_dim: int) -> tuple[int, int, int, int]:

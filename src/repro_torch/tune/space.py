@@ -142,11 +142,13 @@ class FlashAttentionSpace(CandidateSpace):
     the causal diagonal, so the exact visited-step count enters the
     model.  Per visited step the CTA does the two products (4·rows·bkv·d
     flops, rows = bq, or the 64-row tile a short tensor-core q block is
-    padded to, and d the instantiated head dim a tensor-core route pads
-    to, ``fa.tc_head_dim``) on the unit its route names
-    (``fa.MATMUL_UNIT``), once per pass (``fa.MATMUL_PASSES``: three for
-    bf16x3), ~8 fp32 flops per score for the online softmax, and the
-    route's fixed ``fa.STEP_OVERHEAD_CY``.  The card's peak is scaled by
+    padded to, and d the instantiated head dim a route pads to,
+    ``fa.tc_head_dim`` or on simt ``fa.simt_head_dim``) on the unit its
+    route names (``fa.MATMUL_UNIT``), once per pass (``fa.MATMUL_PASSES``:
+    three for bf16x3; on simt the FFMA issue slots per FMA of the kernel
+    the triple takes, ``fa.simt_issue_factor``), ~8 fp32 flops per score
+    for the online softmax, and the route's fixed ``fa.STEP_OVERHEAD_CY``
+    (``fa.SIMT_GENERAL_STEP_CY`` for the simt route's general kernel).  The card's peak is scaled by
     the share of its SMs that the ``b·h·(seq_q/block_q)`` CTAs keep
     busy.  The per-step overhead is latency, hidden across the CTAs
     resident at once: it is spread over ``min(ctas, SMs × CTAs per SM)``,
@@ -293,12 +295,18 @@ class FlashAttentionSpace(CandidateSpace):
             steps = self._steps(bq, bkv)
             share = min(B * (sq // bq), sms) / sms
             r = lim.route
-            rows, dm = ((bq, d) if r == "simt"
-                        else (max(bq, fa.WGMMA_TILE_M), fa.tc_head_dim(d)))
+            step_cy = fa.STEP_OVERHEAD_CY[r]
             peak_mm = m.peak_flops[fa.MATMUL_UNIT[r]] / fa.MATMUL_PASSES[r]
+            if r == "simt":
+                rows, dm = bq, fa.simt_head_dim(bq, bkv, d)
+                peak_mm /= fa.simt_issue_factor(bq, bkv, d)
+                if (bq, bkv, dm) not in fa.SIMT_TILED_SET:
+                    step_cy = fa.SIMT_GENERAL_STEP_CY
+            else:
+                rows, dm = max(bq, fa.WGMMA_TILE_M), fa.tc_head_dim(d)
             t_mm = 4.0 * B * steps * rows * bkv * dm / (peak_mm * share)
             t_vec = 8.0 * B * steps * rows * bkv / (peak_vec * share)
-            t_step = (B * steps * fa.STEP_OVERHEAD_CY[r]
+            t_step = (B * steps * step_cy
                       / (m.clock_hz * self.concurrency(bq, bkv)))
             t_compute = t_mm + t_vec + t_step
             # bytes per element streamed: the input type's; on bf16x3 a

@@ -199,8 +199,13 @@ def test_launch_limits_shared_memory():
     of alignment slack and 64 of mbarriers; 128 threads per warpgroup and
     a producer warp.  bf16x3 (csrc/flash_attention_bf16x3.cu): the same
     layout with a hi and a lo tile for each.  simt
-    (csrc/flash_attention.cu): q and k transposed, v, the score tile and
-    the accumulator in fp32, plus m, l, alpha; 256 threads."""
+    (csrc/flash_attention.cu), 256 threads: at a triple of the tiled set,
+    the fp32 q tile and two stages of fp32 k and v tiles in rows of d + 4
+    floats, each of the 8 warps' P rows (its q rows by its kv slice,
+    padded to a stride of c mod 2c floats for its c lanes along S's
+    columns) and alpha, and a bf16 staging tile; elsewhere (the general
+    kernel) q and k transposed, v, the score tile and the accumulator in
+    fp32, plus m, l, alpha."""
     lim = t_fa.launch_limits(64, 64, 128, "bfloat16")
     assert lim.ok and lim.route == "wgmma" and lim.threads == 160
     assert lim.smem_bytes == 1024 + 64 + 2 * 128 * (64 + 2 * 2 * 64)
@@ -212,8 +217,15 @@ def test_launch_limits_shared_memory():
     assert x3.smem_bytes == 1024 + 64 + 4 * 128 * (64 + 2 * 2 * 64)
     f32 = t_fa.launch_limits(64, 32, 128, torch.float32)
     assert f32.ok and f32.route == "simt" and f32.threads == 256
-    assert f32.smem_bytes == 4 * (2 * 128 * 64 + 2 * 128 * 32 + 64 * 32
-                                  + 3 * 64)
+    # q rows 16 a warp, 2 warps along the 32 kv columns: 16 columns a
+    # warp over 8 lanes, P rows of 24 floats
+    assert f32.smem_bytes == (4 * ((64 + 4 * 32) * 132 + 8 * 16 * (24 + 1))
+                              + 2 * 32 * 128) == 122368
+    assert f32.ctas_per_sm == 1
+    gen = t_fa.launch_limits(32, 32, 128, torch.float32)
+    assert gen.ok and gen.route == "simt" and gen.threads == 256
+    assert gen.smem_bytes == 4 * (2 * 128 * 32 + 2 * 128 * 32 + 32 * 32
+                                  + 3 * 32)
     assert not t_fa.launch_limits(128, 128, 128).ok
     # a padded head dim takes the CTA of its instantiation: 112 runs at 128
     assert t_fa.launch_limits(128, 64, 112, "float32") == t_fa.LaunchLimits(
@@ -288,6 +300,78 @@ def test_route(blocks, d, dtype, want):
     assert t_fa.launch_limits(*blocks, d, dtype).route == want
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         t_fa.route(*blocks, d, torch.float16)
+
+
+def test_simt_reach_does_not_shrink():
+    """Every (block_q, block_kv, head_dim) of positive multiples of 4 (the
+    blocks up to 256, the head dim up to 264) whose CUDA-core CTA fit
+    before the tiled kernel — shared memory 4·(2·d·bq + 2·d·bkv + bq·bkv
+    + 3·bq) bytes within 232,448, 104,615 triples — still launches on the
+    simt route, 80 of them on the tiled kernel, the rest on the general
+    one; and a length with an odd factor still fits a pair."""
+    n = tiled = 0
+    for d in range(4, 265, 4):
+        for bq in range(4, 257, 4):
+            for bkv in range(4, 257, 4):
+                if 4 * (2 * d * bq + 2 * d * bkv + bq * bkv + 3 * bq) \
+                        > 232448:
+                    continue
+                lim = t_fa._simt_limits(bq, bkv, d)
+                assert lim.ok and lim.route == "simt" \
+                    and lim.threads == 256, (bq, bkv, d, lim.reason)
+                n += 1
+                D = t_fa.simt_head_dim(bq, bkv, d)
+                if (bq, bkv, D) in t_fa.SIMT_TILED_SET:
+                    tiled += 1
+                    assert lim.smem_bytes == t_fa.simt_tiled_smem_bytes(
+                        bq, bkv, D)
+    assert (n, tiled) == (104615, 80)
+    assert t_fa.fit_blocks(116, 116, 128, 128, 128, "float32") == (116, 4)
+    assert t_fa.launch_limits(116, 4, 128, "float32").ok
+
+
+def test_simt_tiled_set():
+    """The tiled kernel's triples, each fitting one CTA an SM; a head dim
+    between instantiations (a multiple of 4 above 64) runs at the next
+    one, anything else — head dims of 64 or less, above 256 or off the
+    granule, pairs off the set — on the general kernel at its own d."""
+    assert t_fa.SIMT_TILED_SET == {(64, 32, 128), (64, 64, 128),
+                                   (128, 32, 128), (64, 32, 256)}
+    for t in t_fa.SIMT_TILED_SET:
+        lim = t_fa._simt_limits(*t)
+        assert lim.ok and lim.ctas_per_sm == 1
+        assert lim.smem_bytes == t_fa.simt_tiled_smem_bytes(*t)
+        assert t_fa.SMEM_PER_SM // 2 < lim.smem_bytes <= t_fa.SMEM_PER_CTA
+    assert [t_fa.simt_head_dim(64, 32, d) for d in (4, 64, 68, 100, 112,
+                                                    128, 132, 136, 256,
+                                                    264)] == \
+        [4, 64, 128, 128, 128, 128, 256, 256, 256, 264]
+    assert t_fa.simt_head_dim(128, 32, 200) == 200     # (128, 32, 256): off
+    assert t_fa.simt_head_dim(64, 64, 100) == 128
+    assert t_fa.simt_head_dim(32, 32, 128) == 128       # general, at d
+    assert (32, 32, 128) not in t_fa.SIMT_TILED_SET
+    # a padded head dim takes the CTA of its instantiation
+    assert t_fa._simt_limits(64, 32, 100) == t_fa._simt_limits(64, 32, 128)
+    assert t_fa._simt_limits(64, 32, 136) == t_fa._simt_limits(64, 32, 256)
+
+
+def test_simt_issue_factor():
+    """The tune model's FFMA slots per FMA on the simt route, from the
+    designs: the tiled kernel's loads per FMA of S (TM + TN per 4·TM·TN)
+    and of P·V (TM + TD per 4·TM·TD), each load at SIMT_LOAD_SLOTS; the
+    general kernel's fixed SIMT_GENERAL_FACTOR."""
+    slots = t_fa.SIMT_LOAD_SLOTS
+    # (128, 32, 128): S 4 x 4 a thread, the output 8 x 8
+    assert t_fa.simt_issue_factor(128, 32, 128) == pytest.approx(
+        1 + slots * (8 / 64 + 16 / 256) / 2)
+    # (64, 32, 128): two warps along the kv block, S 4 x 2 a thread
+    assert t_fa.simt_issue_factor(64, 32, 128) == pytest.approx(
+        1 + slots * (6 / 32 + 16 / 256) / 2)
+    # (64, 32, 256): 8 rows a warp, S 4 x 2, the output 4 x 16
+    assert t_fa.simt_issue_factor(64, 32, 200) == pytest.approx(
+        1 + slots * (6 / 32 + 20 / 256) / 2)
+    assert t_fa.simt_issue_factor(32, 32, 128) == t_fa.SIMT_GENERAL_FACTOR
+    assert t_fa.simt_issue_factor(64, 32, 264) == t_fa.SIMT_GENERAL_FACTOR
 
 
 def test_launch_limits_wgmma_instantiated_set():

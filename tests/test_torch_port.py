@@ -878,6 +878,60 @@ def test_cuda_flash_forced_simt_route(cuda, dtype, d, blocks):
 
 
 # ----------------------------------------------------------------------
+# on the card: the CUDA-core route's two CTAs, tiled and general
+# ----------------------------------------------------------------------
+
+#: (head_dim, blocks, seq_q, seq_kv): head dims off every tensor-core rule
+#: (4, 100, 136, 264), blocks of 4, 48 and 116, the tiled triples at their
+#: own head dims and padded ones (100 and 112 at 128, 136 at 256); seq_kv
+#: above seq_q, so a causal call has q_offset > 0
+SIMT_CASES = [(4, (4, 4), 64, 96), (100, (64, 32), 128, 256),
+              (136, (64, 32), 128, 192), (264, (64, 32), 128, 192),
+              (128, (48, 48), 96, 192), (100, (116, 4), 116, 232),
+              (128, (128, 32), 128, 256), (112, (64, 64), 128, 256),
+              (256, (64, 32), 64, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d, blocks, sq, skv", SIMT_CASES)
+def test_cuda_flash_simt_matches_plain(cuda, dtype, causal, d, blocks, sq,
+                                       skv):
+    """The CUDA-core kernel the triple takes (``force_simt`` where a
+    tensor-core route would) launches once on the simt route and matches
+    plain, at the default q_offset (skv - sq) and at half of it."""
+    q, k, v = _qkv((1, 3, sq, d), skv, dtype, cuda, seed=d + blocks[0])
+    for off in (skv - sq, (skv - sq) // 2):
+        n0 = dict(t_fa.flash_attention.launches_by_route)
+        got = t_fa.flash_attention(q, k, v, causal=causal, block_q=blocks[0],
+                                   block_kv=blocks[1], q_offset=off,
+                                   force_simt=True)
+        assert t_fa.flash_attention.launches_by_route == {
+            **n0, "simt": n0["simt"] + 1}
+        _close(got, t_fa.plain(q, k, v, causal=causal, q_offset=off), dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_simt_limits_match_the_library(cuda):
+    """The library's ``repro_flash_attention_limits`` states the CTA
+    ``_simt_limits`` states, tiled or general, at every tiled triple, its
+    padded head dims and the cases above, and refuses a triple over the
+    shared memory a CTA has."""
+    triples = set(t_fa.SIMT_TILED_SET) | {(64, 32, 100), (64, 64, 112),
+                                          (64, 32, 136), (32, 32, 128)}
+    triples |= {(bq, bkv, d) for d, (bq, bkv), _, _ in SIMT_CASES}
+    for t in sorted(triples):
+        lim = t_fa._simt_limits(*t)
+        assert lim.ok
+        assert t_fa.compiled_simt_limits(*t) == (lim.smem_bytes,
+                                                 lim.threads), t
+    assert not t_fa._simt_limits(128, 128, 128).ok
+    with pytest.raises(RuntimeError):
+        t_fa.compiled_simt_limits(128, 128, 128)
+
+
+# ----------------------------------------------------------------------
 # the LM stack: the CPU path never launches; on the card, causal prefill
 # and the forward go through the flash kernel
 # ----------------------------------------------------------------------

@@ -247,23 +247,32 @@ def test_real_model_spaces_take_the_tensor_cores(model, dtype):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_model_charges_the_padded_head_dim(dtype):
     """A tensor-core candidate at head_dim 112 does the arithmetic of
-    128, the instantiation it runs, and moves the bytes of 112; the
-    CUDA-core route computes at 112.  Seen with the HBM term taken away
-    (compute alone), and with it (the bytes shrink by 112/128)."""
+    128, the instantiation it runs, and moves the bytes of 112; so does a
+    CUDA-core candidate on the simt route's tiled kernel (its zero
+    columns), while one on the general kernel computes at 112.  Seen with
+    the HBM term taken away (compute alone), and with it (the bytes
+    shrink by 112/128)."""
     fast = dataclasses.replace(H100, hbm_bandwidth=1e30)
     cfg = dict(batch=1, heads=32, seq_q=4096, seq_kv=4096, causal=True,
                dtype=dtype)
     tc = t_space.Candidate.make("flash_attention", block_q=64, block_kv=64)
     simt = t_space.Candidate.make("flash_attention", block_q=64,
                                   block_kv=32)
+    general = t_space.Candidate.make("flash_attention", block_q=32,
+                                     block_kv=32)
+    assert (64, 32, 128) in t_fa.SIMT_TILED_SET
+    assert t_fa.simt_head_dim(64, 32, 112) == 128
+    assert t_fa.simt_head_dim(32, 32, 112) == 112
     by_d = {}
     for d in (112, 128):
         sp = t_space.resolve_space("flash_attention", fast, head_dim=d,
                                    **cfg)
         assert sp.route(tc) == TC_ROUTE[dtype] and sp.route(simt) == "simt"
-        by_d[d] = [p.seconds for p in sp.predict([tc, simt])]
+        assert sp.route(general) == "simt"
+        by_d[d] = [p.seconds for p in sp.predict([tc, simt, general])]
     assert by_d[112][0] == by_d[128][0]
-    assert by_d[112][1] < by_d[128][1]
+    assert by_d[112][1] == by_d[128][1]
+    assert by_d[112][2] < by_d[128][2]
     hbm = {d: t_space.resolve_space("flash_attention", H100, head_dim=d,
                                     **cfg).predict([tc])[0]
            for d in (112, 128)}
