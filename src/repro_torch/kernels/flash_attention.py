@@ -65,6 +65,7 @@ import math
 
 import torch
 
+from .. import obs
 from . import _build
 
 NEG_INF = -2.0 ** 30
@@ -972,7 +973,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_kv, q_offset):
-        with torch.no_grad():
+        with torch.no_grad(), obs.span("kernel.flash_fwd"):
             out = flash_op(q, k, v, causal, block_q, block_kv, q_offset)
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.q_offset = causal, q_offset
@@ -982,12 +983,14 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, grad_out):
         q, k, v = ctx.saved_tensors
         grad_out = grad_out.contiguous()
-        if backward_route(q, k, ctx.q_offset) == "kernel":
-            dq, dk, dv = backward_op(q, k, v, grad_out, ctx.causal,
-                                     ctx.q_offset)
-        else:
-            dq, dk, dv = flash_attention_backward(
-                q, k, v, grad_out, causal=ctx.causal, q_offset=ctx.q_offset)
+        with obs.span("kernel.flash_bwd", "bwd"):
+            if backward_route(q, k, ctx.q_offset) == "kernel":
+                dq, dk, dv = backward_op(q, k, v, grad_out, ctx.causal,
+                                         ctx.q_offset)
+            else:
+                dq, dk, dv = flash_attention_backward(
+                    q, k, v, grad_out, causal=ctx.causal,
+                    q_offset=ctx.q_offset)
         return dq, dk, dv, None, None, None, None
 
 

@@ -31,6 +31,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from . import attention, mamba2, mlp, moe
 from .common import PRec, constrain, dtype_of, einsum, layer_norm, pad_heads
 from .common import on_replicas, rms_norm, sharded, take, tmap
@@ -40,6 +41,12 @@ from .common import on_replicas, rms_norm, sharded, take, tmap
 class Block:
     kind: str
     opts: dict = dataclasses.field(default_factory=dict)
+
+
+#: the span (``repro_torch.obs``) around each kind of block that is one
+#: layer; ``shared_attn`` opens both of its own
+BLOCK_SPANS = {"attn": "layer.attention", "mla": "layer.attention",
+               "mlp": "layer.mlp", "moe": "layer.mlp"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +232,18 @@ class LM:
     # -- forward ----------------------------------------------------------
     def _apply_block(self, blk: Block, p, x, cache=None, pos=None,
                      shared=None, enc_out=None, x_emb=None, rule=None):
+        """One block, residual included, inside the span of its layer
+        (:data:`BLOCK_SPANS`).  The span's input is the block's whole
+        input: the gradients that meet there are then summed in the
+        order they were summed without the span."""
+        args = (cache, pos, shared, enc_out, x_emb, rule)
+        name = BLOCK_SPANS.get(blk.kind)
+        if name is None:
+            return self._block(blk, p, x, *args)
+        return obs.layer(name, lambda x: self._block(blk, p, x, *args), x)
+
+    def _block(self, blk: Block, p, x, cache, pos, shared, enc_out, x_emb,
+               rule):
         cfg = self.cfg
         if blk.kind == "attn":
             kind = blk.opts.get("kind", "causal")
@@ -234,13 +253,16 @@ class LM:
                 window=cfg.local_window if kind == "local" else 0,
                 use_rope=kind != "nope")
             return x + dx, c
-        if blk.kind == "shared_attn":
-            xin = einsum("bse,ed->bsd", torch.cat([x, x_emb], -1),
-                         shared["w_concat"])
-            dx, c = attention.gqa_apply(shared, xin, cfg, kind="causal",
-                                        cache=cache, pos=pos, rule=rule)
-            x = x + dx
-            return x + mlp.mlp_apply(shared["mlp"], x, cfg, rule=rule), c
+        if blk.kind == "shared_attn":    # an attention and an MLP: two spans
+            def attend(x):
+                xin = einsum("bse,ed->bsd", torch.cat([x, x_emb], -1),
+                             shared["w_concat"])
+                dx, c = attention.gqa_apply(shared, xin, cfg, kind="causal",
+                                            cache=cache, pos=pos, rule=rule)
+                return x + dx, c
+            x, c = obs.layer("layer.attention", attend, x)
+            return obs.layer("layer.mlp", lambda x: x + mlp.mlp_apply(
+                shared["mlp"], x, cfg, rule=rule), x), c
         if blk.kind == "mla":
             dx, c = attention.mla_apply(p, x, cfg, cache=cache, pos=pos,
                                         rule=rule)
@@ -266,11 +288,15 @@ class LM:
         raise ValueError(blk.kind)
 
     def _group(self, st: Stage, lp, x, shared, enc_out, x_emb, rule=None):
-        """One layer's group of blocks without caches (JAX's scan body)."""
-        for bi, blk in enumerate(st.blocks):
-            x, _ = self._apply_block(blk, lp[bi], x, shared=shared,
-                                     enc_out=enc_out, x_emb=x_emb, rule=rule)
-        return x
+        """One layer's group of blocks without caches (JAX's scan body),
+        inside the span ``lm.layer`` (under remat its re-forward too)."""
+        def body(x):
+            for bi, blk in enumerate(st.blocks):
+                x, _ = self._apply_block(blk, lp[bi], x, shared=shared,
+                                         enc_out=enc_out, x_emb=x_emb,
+                                         rule=rule)
+            return x
+        return obs.layer("lm.layer", body, x)
 
     def _run_stages(self, params, x, caches=None, pos=None, enc_out=None,
                     x_emb=None, remat=False, rule=None):
@@ -360,6 +386,10 @@ class LM:
             return self._head(params, x, rule)
 
     def _head(self, params, x, rule=None):
+        return obs.layer("lm.head", lambda x: self._logits(params, x, rule),
+                         x)
+
+    def _logits(self, params, x, rule=None):
         cfg = self.cfg
         x = (rms_norm(x, params["final_ln"]) if cfg.norm == "rmsnorm"
              else layer_norm(x, params["final_ln"], params["final_ln_b"]))

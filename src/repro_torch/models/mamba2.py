@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from .. import obs
 from .common import PRec, constrain, einsum, on_replicas, rms_norm
 
 
@@ -152,12 +153,11 @@ def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
     if rule is not None:
         xh = constrain(xh, rule, ("batch", None, "act_heads", None))
     A = -torch.exp(p["A_log"].float())                          # (h,)
-    l_t = A[None, None, :] * dt                                 # (b,L,h)
     Dp = p["D"].float()[:, None]
 
     if cache is not None and L == 1:  # ---- decode: one recurrent step ----
         st = cache["ssm"]                                       # (b,h,P,N)
-        a = torch.exp(l_t[:, 0])                                # (b,h)
+        a = torch.exp(A[None, :] * dt[:, 0])                    # (b,h)
         dx = dt[:, 0][..., None] * xh[:, 0].float()             # (b,h,P)
         st = st * a[..., None, None] + einsum(
             "bhp,bn->bhpn", dx, B[:, 0].float())
@@ -171,12 +171,19 @@ def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
         state = (torch.zeros(b, h, P, N, dtype=torch.float32,
                              device=x.device) if cache is None
                  else cache["ssm"])
-        # on each rank's rows and heads under a rule: DTensor has no
-        # sharding strategy for the scan's three-operand einsums on every
-        # torch version, and each head scans alone (B and C are shared)
-        y, state = on_replicas(lambda *a: _ssd(*a, Q), xh, B, C, dt, l_t,
+
+        def scan(xh, B, C, dt, A, Dp, state):
+            l_t = A[None, None, :] * dt                         # (b,L,h)
+            # on each rank's rows and heads under a rule: DTensor has no
+            # sharding strategy for the scan's three-operand einsums on
+            # every torch version, and each head scans alone (B and C are
+            # shared)
+            return on_replicas(lambda *a: _ssd(*a, Q), xh, B, C, dt, l_t,
                                Dp, state, rows=(0, 1, 2, 3, 4, 6),
                                keep=_head_split(rule))
+        # every use of dt inside the span, so that its gradients are
+        # summed in the order they are without it
+        y, state = obs.layer("layer.scan", scan, xh, B, C, dt, A, Dp, state)
         y = y.reshape(b, L, h * P).to(x.dtype)
         if cache is not None:
             cache = {"ssm": _rows_only(state), "conv": conv_state}

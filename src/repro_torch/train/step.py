@@ -27,6 +27,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from .. import obs
 from ..models.common import on_replicas, row_shards, sharded, spec_tree, tmap
 from ..models.common import with_sharding
 from ..optim import OptConfig, adamw_update, cosine_schedule
@@ -174,7 +175,9 @@ def loss_fn(model, params, batch, rule=None, tcfg: TrainConfig | None = None,
         logits, hidden = out
     else:
         logits = out
-    ce, z = _xent(logits, labels[:, :-1], tcfg.z_loss)
+    ce, z = obs.layer("train.xent",
+                      lambda lg: _xent(lg, labels[:, :-1], tcfg.z_loss),
+                      logits)
     loss = ce + z
     metrics = {"ce": ce, "z_loss": z}
     if cfg.mtp:
@@ -182,7 +185,9 @@ def loss_fn(model, params, batch, rule=None, tcfg: TrainConfig | None = None,
         # row by row: torch 2.11's DTensor has no strategy for roll
         mtp_labels = on_replicas(lambda t: torch.roll(t, -1, dims=1),
                                  labels, rows=(0,))
-        mtp_ce, _ = _xent(mtp_logits, mtp_labels[:, :-2], 0.0)
+        mtp_ce, _ = obs.layer("train.xent",
+                              lambda lg: _xent(lg, mtp_labels[:, :-2], 0.0),
+                              mtp_logits)
         loss = loss + tcfg.mtp_weight * mtp_ce
         metrics["mtp_ce"] = mtp_ce
     metrics["loss"] = loss
@@ -222,7 +227,7 @@ def make_train_step(model, tcfg: TrainConfig, rule=None):
             _pin(grads)
 
     def step_fn(params, opt_state, batch, step):
-        with sharded(rule):
+        with obs.span("train.step", None), sharded(rule):
             if k == 1:
                 loss, metrics, grads = grads_of(params, batch)
             else:
@@ -248,8 +253,9 @@ def make_train_step(model, tcfg: TrainConfig, rule=None):
             lr = cosine_schedule(step, peak_lr=tcfg.opt.lr,
                                  warmup_steps=tcfg.warmup_steps,
                                  total_steps=tcfg.total_steps)
-            params, opt_state, om = adamw_update(grads, params, opt_state,
-                                                 tcfg.opt, lr)
+            with obs.span("optim.adamw", None):
+                params, opt_state, om = adamw_update(grads, params,
+                                                     opt_state, tcfg.opt, lr)
             metrics = dict(metrics, **om, lr=lr, loss=loss)
             # scalars every rank holds whole, as JAX's replicated metrics
             metrics = {n: v.full_tensor() if isinstance(v, DTensor) else v
