@@ -563,6 +563,32 @@ SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 USED = re.compile(r"Used (\d+) registers")
 
 
+# the SSD scan phase (3b): mamba2-2.7b's training shape (b, L, h, P, N,
+# Q) in bf16, and the largest |kernel - plain| allowed per output as a
+# share of the plain value's largest entry: y and the dt and l_t
+# gradients are fp32 on both sides but S = C.B^T is rounded to bf16 after
+# fp32 sums in other orders, so an entry near a rounding boundary takes
+# the other neighbour, one bf16 ulp away (300-336 of the 4.2 M causal
+# entries at this shape), and moves its terms by that much: 1.8e-4 to
+# 2.3e-3 of the largest entry over five draws of the operands, as the few
+# hundred such entries fall against dt and x.  The phase's "exact S"
+# witness draws B and C from {-1, 0, 1}, so that S is exact on both sides:
+# there y, dt and l_t agree within 1.1e-6.  dx, dB and dC are stored in
+# bf16 (one ulp is up to 2^-7 of the largest entry) after the plain
+# version's autograd rounded its parts to bf16 on the way
+# (tests/test_torch_ssd.py holds the arithmetic itself in float32)
+SSD_CELL = (8, 4096, 80, 64, 128, 256)
+# the scan's other runners, timed beside the cell: zamba2-7b's state
+# (112 heads, N 64) at the cell's rows, and mamba2-2.7b's heads split
+# over four ranks (20 a rank), as the head-sharded path hands them over
+SSD_OTHER = {"zamba2-7b": (8, 4096, 112, 64, 64, 256),
+             "mamba2-2.7b, 20 heads a rank": (8, 4096, 20, 64, 128, 256)}
+# a serving prefill of the long_500k cell's 524,288 tokens, one row
+SSD_PREFILL = (1, 524_288, 80, 64, 128, 256)
+SSD_TOL = {"y": 4e-3, "final": 1e-5, "xh": 3e-2, "B": 3e-2, "C": 3e-2,
+           "dt": 4e-3, "l_t": 4e-3, "Dp": 1e-4, "state": 1e-5}
+
+
 class SmokeError(Exception):
     """A failed phase.  Not a ``RuntimeError``: the trainer of phase 10
     would take one raised inside its step for a node failure and replay
@@ -958,6 +984,211 @@ def check_backward(fa, space, measure, h100) -> dict:
                                 for n, ms in t["passes_ms"].items()))
     return {"worst_of_tol": worst / FA_TOL[torch.bfloat16],
             "max_abs_err": abs_err, **t}
+
+
+def _ssd_operands(shape, g, *, state=False, exact_s=False):
+    """A conv output (b, L, h*P + 2N) in bf16 whose slices are xh, B and
+    C, as ``mamba2_apply`` hands them over, and dt, the log-decays, D and
+    the initial state (zero, or unit-normal with ``state``) in float32,
+    drawn from ``g``.  ``exact_s`` draws B and C from {-1, 0, 1}: then
+    S = C.B^T is an integer of at most N in magnitude, exact in bf16 and
+    in any order of the sum."""
+    b, L, h, P, N, _ = shape
+    cuda = dict(device="cuda", generator=g)
+    conv = torch.randn(b, L, h * P + 2 * N, **cuda)
+    if exact_s:
+        conv[..., h * P:] = torch.randint(-1, 2, (b, L, 2 * N), **cuda).float()
+    dt = torch.nn.functional.softplus(torch.randn(b, L, h, **cuda)) * 0.5
+    A = -(torch.rand(h, **cuda) * 2 + 0.5)
+    s0 = torch.randn(b, h, P, N, **cuda) if state else \
+        torch.zeros(b, h, P, N, device="cuda")
+    return conv.to(torch.bfloat16), [dt, A * dt, torch.randn(h, 1, **cuda),
+                                     s0]
+
+
+def _ssd_split(conv, shape):
+    b, L, h, P, N, _ = shape
+    return (conv[..., :h * P].reshape(b, L, h, P), conv[..., h * P:h * P + N],
+            conv[..., h * P + N:])
+
+
+def _ssd_grads(fn, conv, ins, dy, dfin, shape):
+    """y, the final state and every operand's gradient through ``fn``
+    (``mamba2._ssd`` or the plain loop) under autograd."""
+    h, P, N, Q = shape[2:]
+    c = conv.detach().requires_grad_()
+    rest = [t.detach().requires_grad_() for t in ins]
+    y, fin = fn(*_ssd_split(c, shape), *rest, Q)
+    gc, *gr = torch.autograd.grad((y, fin), [c, *rest], (dy, dfin))
+    return [y, fin, gc[..., :h * P], gc[..., h * P:h * P + N],
+            gc[..., h * P + N:], *gr]
+
+
+def _ssd_times(ss, measure, shape, g) -> dict:
+    """The kernels' and the plain loop's forward and backward ms at
+    ``shape`` in bf16: the forward through ``ss.forward``, the backward
+    through ``ss.backward`` on what it kept, the plain loop's forward
+    under no_grad and its backward as autograd's less that."""
+    b, L, h, P, N, Q = shape
+    conv, ins = _ssd_operands(shape, g)
+    dy = torch.randn(b, L, h, P, device="cuda", generator=g)
+    dfin = torch.randn(b, h, P, N, device="cuda", generator=g)
+    xh, B, C = _ssd_split(conv, shape)
+    args = (xh, B, C, *ins)
+    _, _, Lc, S, Hs = ss.forward(*args, Q)
+    fwd = measure.time_cuda(lambda: ss.forward(*args, Q), warmup=2,
+                            iters=5, reps=3).wall_s * 1e3
+    bwd = measure.time_cuda(
+        lambda: ss.backward(xh, B, C, ins[0], Lc, ins[2], S, Hs, dy, dfin,
+                            Q), warmup=2, iters=5, reps=3).wall_s * 1e3
+    del Lc, S, Hs
+    with torch.no_grad():
+        p_fwd = measure.time_cuda(lambda: ss.plain(*args, Q), warmup=1,
+                                  iters=2, reps=3).wall_s * 1e3
+    leaves = [t.detach().requires_grad_() for t in args]
+
+    def plain_step():
+        y, fin = ss.plain(*leaves, Q)
+        torch.autograd.grad((y, fin), leaves, (dy, dfin))
+    p_all = measure.time_cuda(plain_step, warmup=1, iters=2,
+                              reps=3).wall_s * 1e3
+    torch.cuda.empty_cache()
+    return {"ms": fwd, "backward_ms": bwd, "plain_ms": p_fwd,
+            "plain_backward_ms": p_all - p_fwd}
+
+
+def _ssd_prefill(ss, mamba2, shape, g) -> dict:
+    """A serving prefill's scan at ``shape`` (one row, a non-zero cache
+    state, no gradient) through ``mamba2._ssd`` and through the plain
+    loop: each one's ms (one timed call after one untimed) and the
+    device memory it held above its operands at its peak, in GiB."""
+    conv, ins = _ssd_operands(shape, g, state=True)
+    args = (*_ssd_split(conv, shape), *ins, shape[-1])
+    out = {}
+    for name, fn in (("kernel", mamba2._ssd), ("plain", ss.plain)):
+        with torch.no_grad():
+            fn(*args)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0, t1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            t0.record()
+            fn(*args)
+            t1.record()
+            torch.cuda.synchronize()
+        out[f"{name}_ms"] = t0.elapsed_time(t1)
+        out[f"{name}_transient_gib"] = \
+            (torch.cuda.max_memory_allocated() - base) / 2**30
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssd_phase(measure, h100, card: str) -> dict:
+    """Phase 3b: the SSD scan at SSD_CELL in bf16 (xh, B and C slices of
+    one conv output, a zero initial state, unit-normal dy and final state
+    gradient from SEED) through the main path's entry ``mamba2._ssd``
+    against the plain loop under autograd, forward and backward, within
+    SSD_TOL; two backward runs bitwise equal; the route counters, set to
+    zero before those two runs, read 2 kernel forwards and 2 kernel
+    backwards and no plain one.  Two witnesses of the bf16 limits, each
+    against the plain loop: B and C drawn from {-1, 0, 1} (S exact on both
+    sides) and a unit-normal initial state.  Then the kernels' forward and
+    backward ms beside their FP32 floor (``ssd_scan.flops`` at the machine
+    file's FP32 peak) and the plain loop's, at SSD_CELL and at the other
+    shapes of SSD_OTHER, and a 524,288-token prefill's ms and transient
+    memory on both routes."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import mamba2
+    b, L, h, P, N, Q = SSD_CELL
+    g = torch.Generator("cuda").manual_seed(SEED)
+    conv, ins = _ssd_operands(SSD_CELL, g)
+    dy = torch.randn(b, L, h, P, device="cuda", generator=g)
+    dfin = torch.randn(b, h, P, N, device="cuda", generator=g)
+    names = ("y", "final", "xh", "B", "C", "dt", "l_t", "Dp", "state")
+
+    def rel(got, want):
+        return {n: (a.float() - w.float()).abs().max().item()
+                / max(w.float().abs().max().item(), 1e-30)
+                for n, a, w in zip(names, got, want)}
+
+    fwd_counts = ss.ssd_scan.launches_by_route
+    bwd_counts = ss.ssd_scan.backward_calls_by_route
+    for r in fwd_counts:
+        fwd_counts[r] = bwd_counts[r] = 0
+    ss.ssd_scan.launches = 0
+    got = _ssd_grads(mamba2._ssd, conv, ins, dy, dfin, SSD_CELL)
+    again = _ssd_grads(mamba2._ssd, conv, ins, dy, dfin, SSD_CELL)
+    torch.cuda.synchronize()
+    counts = {"launches": ss.ssd_scan.launches,
+              "launches_by_route": dict(fwd_counts),
+              "backward_calls_by_route": dict(bwd_counts)}
+    print(f"  route counters over two runs through mamba2._ssd: {counts}")
+    if counts != {"launches": 2, "launches_by_route": {"kernel": 2,
+                                                       "plain": 0},
+                  "backward_calls_by_route": {"kernel": 2, "plain": 0}}:
+        raise SmokeError("3b: the SSD scan did not take the kernels")
+    if not all(torch.equal(a, w) for a, w in zip(got, again)):
+        raise SmokeError("3b: two SSD backward runs differ in bits")
+    del again
+    err = rel(got, _ssd_grads(ss.plain, conv, ins, dy, dfin, SSD_CELL))
+    del got
+    witness = {}
+    for name, kw in (("exact S", {"exact_s": True}),
+                     ("initial state", {"state": True})):
+        c2, i2 = _ssd_operands(SSD_CELL, g, **kw)
+        witness[name] = rel(_ssd_grads(mamba2._ssd, c2, i2, dy, dfin,
+                                       SSD_CELL),
+                            _ssd_grads(ss.plain, c2, i2, dy, dfin, SSD_CELL))
+        del c2, i2
+        torch.cuda.empty_cache()
+    for label, r in (("", err), *((f" ({n})", w) for n, w in
+                                  witness.items())):
+        print(f"  SSD scan {SSD_CELL} bf16{label} on {card}: kernel "
+              "against the plain loop, |diff| / max: "
+              + ", ".join(f"{n} {v:.2e}" for n, v in r.items()))
+    print("  two backward runs bitwise equal")
+    bad = {f"{label} {n}": v for label, r in (("", err), *witness.items())
+           for n, v in r.items() if not v <= SSD_TOL[n]}
+    if bad:
+        raise SmokeError(f"3b: SSD kernels off the plain loop beyond "
+                         f"SSD_TOL: {bad}")
+    del conv, ins, dy, dfin
+    torch.cuda.empty_cache()
+    peak = h100.peak_flops["FP32"]
+    shapes = {"mamba2-2.7b": SSD_CELL, **SSD_OTHER}
+    times = {}
+    for name, shape in shapes.items():
+        t = times[name] = _ssd_times(ss, measure, shape, g)
+        f_fwd, f_bwd = ss.flops(*shape)
+        t["bound_ms"], t["backward_bound_ms"] = (f_fwd / peak * 1e3,
+                                                 f_bwd / peak * 1e3)
+        print(f"  {name} {shape}: forward {t['ms']:.4f} ms "
+              f"({t['bound_ms'] / t['ms']:.1%} of its FP32 floor "
+              f"{t['bound_ms']:.4f} ms: {f_fwd / 1e9:.1f} GFLOP at "
+              f"{peak / 1e12:.0f} TFLOP/s), plain loop {t['plain_ms']:.4f} "
+              f"ms; backward {t['backward_ms']:.4f} ms "
+              f"({t['backward_bound_ms'] / t['backward_ms']:.1%} of "
+              f"{t['backward_bound_ms']:.4f} ms), plain loop's autograd "
+              f"{t['plain_backward_ms']:.4f} ms")
+    prefill = _ssd_prefill(ss, mamba2, SSD_PREFILL, g)
+    print(f"  prefill {SSD_PREFILL} under no_grad: kernels "
+          f"{prefill['kernel_ms']:.2f} ms holding "
+          f"{prefill['kernel_transient_gib']:.3f} GiB above the operands; "
+          f"plain loop {prefill['plain_ms']:.2f} ms holding "
+          f"{prefill['plain_transient_gib']:.3f} GiB")
+    cell = times["mamba2-2.7b"]
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "repro.models.mamba2's chunked SSD loop (plain jnp, "
+                        "no Pallas kernel)",
+            "shape": list(SSD_CELL), "max_rel_err": err,
+            "witness_rel_err": witness, **cell, "bound_by":
+                "operations (FP32)", "other_shapes": {
+                n: {"shape": list(shapes[n]), **times[n]}
+                for n in SSD_OTHER}, "prefill": {"shape": list(SSD_PREFILL),
+                                                 **prefill}, **counts}
 
 
 def backward_times(fa, space, measure, h100, q, k, v, do) -> dict:
@@ -4299,6 +4530,9 @@ def smoke(out_path: str | None) -> int:
     fa_err = check_flash(fa, ops, space)
     bwd_check = check_backward(fa, space, measure, h100)
 
+    phase("3b the SSD scan at mamba2-2.7b's training shape")
+    ssd_entry = ssd_phase(measure, h100, card)
+
     phase("4 main path at full size")
     # each family's kernel wrapper carries the family's name
     wrappers = {n: getattr(stencil.family(n).module, n) for n in MAIN}
@@ -4311,7 +4545,7 @@ def smoke(out_path: str | None) -> int:
     for name, n in launches.items():
         if n <= 0:
             raise SmokeError(f"main path never launched the {name} kernel")
-    entries, predicted = [], {}
+    entries, predicted = [ssd_entry], {}
     for name, run in runs.items():
         e = report(name, run, stencil, measure, h100, card, ops, sweep)
         e["launches"] = launches[name]

@@ -27,7 +27,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("stencil3d7pt", "longrange3d", "flash_attention",
            "flash_attention_wgmma", "flash_attention_bf16x3",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

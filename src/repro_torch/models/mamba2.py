@@ -1,10 +1,12 @@
 """Mamba-2 block via the SSD (state-space duality) chunked algorithm
 [arXiv:2405.21060].
 
-Counterpart of ``repro.models.mamba2``, in plain PyTorch as the JAX
-package computes it outside any kernel: within a chunk the dual quadratic
-(attention-like) form, across chunks a loop carrying the (heads, headdim,
-state) recurrent state in float32; decode is the one-step recurrence.
+Counterpart of ``repro.models.mamba2``: within a chunk the dual
+quadratic (attention-like) form, across chunks a loop carrying the
+(heads, headdim, state) recurrent state in float32, which the JAX package
+computes in plain ``jnp`` and the port on the card in the SSD kernels
+(``kernels/ssd_scan.py``; on the CPU the same plain loop); decode is the
+one-step recurrence.
 Under a sharding rule the chunked scan runs on plain tensors, each rank
 on its own rows of the batch and its own heads, where the heads split
 evenly over the mesh dim ``act_heads`` names, else with every head
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .. import obs
+from ..kernels import ssd_scan
 from .common import PRec, constrain, einsum, on_replicas, rms_norm
 
 
@@ -222,38 +225,11 @@ def _ssd(xh, B, C, dt, l_t, Dp, state, Q: int):
     the log-decays l_t (b, L, h), ``Dp`` (h, 1), the carried state
     (b, h, P, N) in float32.  Within a chunk of ``Q`` the dual quadratic
     form, across chunks the recurrence.  Returns y (b, L, h, P) in
-    float32 and the final state.  Float64 operands stay float64 (the
-    sharded scan is held to this one there); narrower ones compute in
-    float32."""
-    wide = torch.promote_types(xh.dtype, torch.float32)
-    b, L, h, P = xh.shape
-    N = B.shape[-1]
-    nc = L // Q
-    xc = xh.reshape(b, nc, Q, h, P)
-    Bc = B.reshape(b, nc, Q, N)
-    Cc = C.reshape(b, nc, Q, N)
-    dtc = dt.reshape(b, nc, Q, h)
-    Lcum = l_t.reshape(b, nc, Q, h).cumsum(dim=2)                # (b,nc,Q,h)
-    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xh.device))
-    ys = []
-    for c in range(nc):
-        xq, Bq, Cq = xc[:, c], Bc[:, c], Cc[:, c]
-        dtq, Lq = dtc[:, c], Lcum[:, c]
-        scores = einsum("bln,bmn->blm", Cq, Bq).to(wide)
-        gamma = torch.exp(torch.clamp(
-            Lq[:, :, None, :] - Lq[:, None, :, :], -60.0, 0.0))
-        gamma = torch.where(mask[None, :, :, None], gamma, 0.0)
-        M = scores[..., None] * gamma * dtq[:, None, :, :]      # (b,l,m,h)
-        xf = xq.to(wide)
-        y_intra = einsum("blmh,bmhp->blhp", M, xf)
-        y_inter = einsum("blh,bln,bhpn->blhp", torch.exp(Lq),
-                         Cq.to(wide), state)
-        w = dtq * torch.exp(Lq[:, -1:, :] - Lq)                  # (b,l,h)
-        s_chunk = einsum("blh,blhp,bln->bhpn", w, xf, Bq.to(wide))
-        state = state * torch.exp(Lq[:, -1])[..., None, None] + s_chunk
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(b, L, h, P)
-    return y + Dp * xh.to(wide), state
+    float32 and the final state.  On the card the SSD kernels run it
+    (:func:`repro_torch.kernels.ssd_scan.ssd_scan`); on the CPU, and in
+    float64, the plain chunk loop (:func:`~repro_torch.kernels.ssd_scan.plain`:
+    float64 operands stay float64, narrower ones compute in float32)."""
+    return ssd_scan.ssd_scan(xh, B, C, dt, l_t, Dp, state, Q)
 
 
 def mamba2_cache_shape(cfg, batch: int):
