@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import ClassVar
 
 import torch
 
@@ -66,6 +67,19 @@ class ArchConfig:
     n_img_tokens: int = 0          # pixtral: stubbed patch-embedding count
     zero_inference: bool = False   # shard weights over `data` when serving
     source: str = ""
+    # Zamba2 as published: fields of PublishedHybridConfig, which every
+    # other config (and the JAX package's, field for field) has not
+    hybrid_layer_ids: ClassVar[tuple[int, ...]] = ()
+    n_mem_blocks: ClassVar[int] = 0
+    adapter_rank: ClassVar[int] = 0
+    norm_eps: ClassVar[float] = 1e-6
+
+    def __new__(cls, *args, **kw):
+        """A config given any of :class:`PublishedHybridConfig`'s own
+        fields is one."""
+        if cls is ArchConfig and not PUBLISHED_HYBRID.isdisjoint(kw):
+            cls = PublishedHybridConfig
+        return super().__new__(cls)
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -103,6 +117,29 @@ class ArchConfig:
         if self.moe_every > 1:
             return self.n_layers // self.moe_every
         return self.n_layers - self.n_dense_layers
+
+
+@dataclasses.dataclass(frozen=True)
+class PublishedHybridConfig(ArchConfig):
+    """Zamba2 as published (``models/lm.py``): before each Mamba layer in
+    ``hybrid_layer_ids``, the next of ``n_mem_blocks`` weight-shared
+    attention+MLP blocks (in turn) over concat(hidden, embedding), its MLP
+    with a rank ``adapter_rank`` adapter and a linear of each invocation's
+    own, added to that layer's input; RMS norms at ``norm_eps``."""
+    hybrid_layer_ids: tuple[int, ...] = ()
+    n_mem_blocks: int = 0
+    adapter_rank: int = 0
+    norm_eps: float = 1e-6
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "hybrid_layer_ids",
+                           tuple(self.hybrid_layer_ids))
+
+
+PUBLISHED_HYBRID = frozenset(
+    f.name for f in dataclasses.fields(PublishedHybridConfig)) - frozenset(
+    f.name for f in dataclasses.fields(ArchConfig))
 
 
 # ----------------------------------------------------------------------

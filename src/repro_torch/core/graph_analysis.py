@@ -419,7 +419,7 @@ class Recorder(TorchDispatchMode):
             a.flops_by_shape[(name, rec.shape)] += f
         elif name == _FLASH:
             q, k, _, causal, bq, bkv, q_offset = _in_order(func, args,
-                                                           kwargs)
+                                                           kwargs)[:7]
             f = flash_flops(q, k, causal, q_offset)
             route = _flash_route(q, bq, bkv)
             if route == "simt":
@@ -428,7 +428,8 @@ class Recorder(TorchDispatchMode):
                 mxu = f * (3 if route == "bf16x3" else 1)
             a.flops_by_shape[(name, rec.shape)] += f
         elif name == _FLASH_BACKWARD:
-            q, k, _, _, causal, q_offset = _in_order(func, args, kwargs)
+            q, k, _, _, causal, q_offset = _in_order(func, args,
+                                                     kwargs)[:6]
             f = 2.5 * flash_flops(q, k, causal, q_offset)
             from ..kernels import flash_attention as fa
             if fa.backward_route(q, k, q_offset) == "kernel":

@@ -12,7 +12,8 @@
 // compute the same function with no (b, Q, Q, h) tensor in device memory.
 //
 // What it computes, per row b, chunk c of Q positions and head h (x the
-// (Q, P) inputs, B and C the (Q, N) projections shared by every head, dt
+// (Q, P) inputs, B and C the (Q, N) projections of the head's group, one
+// of G that split the heads into G equal runs (Mamba-2's ngroups), dt
 // the step sizes, Lc the within-chunk cumulative sum of the log-decays,
 // all as repro_torch.kernels.ssd_scan.plain computes them):
 //   S[l,m]  = C[l].B[m], rounded to the operands' type (bf16 inputs: the
@@ -48,8 +49,8 @@
 //    zero, so any Q up to 256, P up to 64 and any N run.  (A warp of 4 x 8
 //    threads, two shared wavefronts a k step where this 2 x 16 layout
 //    takes three, measured no faster.)
-//  - Forward, four launches: S once per (row, chunk), not per head; the
-//    chunk states per (row, chunk, head); the state passing over chunks,
+//  - Forward, four launches: S once per (row, chunk, group), not per head;
+//    the chunk states per (row, chunk, head); the state passing over chunks,
 //    elementwise over P x N, which leaves the chunk-start states in place
 //    (kept for the backward); the chunk output per (row, chunk, head,
 //    64-row l tile), flash-style: Mt's tiles at or below the diagonal are
@@ -63,12 +64,16 @@
 //    less column sums of dMt.Mt, the state and output terms, then the
 //    reverse cumulative sum within the chunk), all in one CTA that walks
 //    the chunk's tiles;
-//    dS = sum_h dMt.G.dt per (row, chunk, tile pair), the heads walked in
-//    order inside the CTA; dB and dC per (row, chunk, 64 x 64 tile), the
-//    intra-chunk part from dS and the state parts summed over heads in
-//    order.  No float atomics: two runs give the same bits.  dS and the
-//    state parts stay fp32 where the plain version's autograd rounds them
-//    to bf16 on the way to dB and dC.
+//    dS = sum_h dMt.G.dt per (row, chunk, group, tile pair), the group's
+//    heads walked in order inside the CTA; dB and dC per (row, chunk,
+//    group, 64 x 64 tile), the intra-chunk part from dS and the state
+//    parts summed over the group's heads in order.  G = 1 launches the
+//    grids it always had, from instantiations that fold the group
+//    arithmetic away (measured: a runtime group stride and signed block
+//    arithmetic cost the one-group kernels 1-2%, the dS kernel 12%).  No
+//    float atomics: two runs give the same bits.  dS and the state parts
+//    stay fp32 where the plain version's autograd rounds them to bf16 on
+//    the way to dB and dC.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -84,10 +89,10 @@ constexpr int PASS_SPAN = THREADS * 4;
 typedef float Tile[TILE][LD];
 
 struct Dims {
-  int b, L, h, P, N, Q, nc, nt, ny;
+  int b, L, h, P, N, Q, G, hg, nc, nt, ny;  // hg = h / G heads a group
   long long xb, xl, xh;  // strides of x (b, L, h, P); the last is 1
-  long long Bb, Bl;      // of B (b, L, N)
-  long long Cb, Cl;      // of C (b, L, N)
+  long long Bb, Bl, Bg;  // of B (b, L, G, N)
+  long long Cb, Cl, Cg;  // of C (b, L, G, N)
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -226,22 +231,38 @@ __device__ __forceinline__ void pair_of(int p, int& lt, int& mt) {
   mt = p;
 }
 
+// the groups a kernel sees: with GR false (one group) the constants 1
+// and 0, and the (row, chunk) and head ranges computed as before groups
+// (unsigned from blockIdx), so that the one-group kernels compile to what
+// they were, and run in the time they did
+template <bool GR>
+__device__ __forceinline__ int groups(const Dims& d) {
+  return GR ? d.G : 1;
+}
+template <bool GR>
+__device__ __forceinline__ int group_of(int hh, const Dims& d) {
+  return GR ? hh / d.hg : 0;
+}
+
 // ------------------------------------------------------------------
 // forward
 // ------------------------------------------------------------------
 
-// S = C.B^T of one (row, chunk), lower tile pairs; grid (b*nc, pairs)
-template <class T>
+// S = C.B^T of one (row, chunk, group), lower tile pairs; grid
+// (b*nc*G, pairs)
+template <class T, bool GR>
 __global__ void __launch_bounds__(THREADS)
     cb_kernel(const T* __restrict__ B, const T* __restrict__ C,
               float* __restrict__ S, Dims d) {
   extern __shared__ float4 smem4[];
   Tile* t = reinterpret_cast<Tile*>(smem4);
-  const int bi = blockIdx.x / d.nc, c = blockIdx.x % d.nc;
+  const unsigned g = GR ? blockIdx.x % d.G : 0;
+  const unsigned bc = GR ? blockIdx.x / d.G : blockIdx.x;
+  const int bi = bc / d.nc, c = bc % d.nc;
   int lt, mt;
   pair_of(blockIdx.y, lt, mt);
-  const T* Cb = C + bi * d.Cb + (long long)c * d.Q * d.Cl;
-  const T* Bb = B + bi * d.Bb + (long long)c * d.Q * d.Bl;
+  const T* Cb = C + bi * d.Cb + (long long)c * d.Q * d.Cl + g * d.Cg;
+  const T* Bb = B + bi * d.Bb + (long long)c * d.Q * d.Bl + g * d.Bg;
   float acc[4][4];
   zero(acc);
   for (int n0 = 0; n0 < d.N; n0 += TILE) {
@@ -270,12 +291,12 @@ __global__ void __launch_bounds__(THREADS)
 // out[b,c,h][p,n] = sum_l s[l] U[l,p] V[l,n] over one chunk: the chunk
 // states (forward: s = dt exp(Lc[Q-1] - Lc), U = x, V = B) or the chunk
 // states of dy (backward: s = exp(Lc), U = dy, V = C); grid
-// (b*nc*h, N tiles)
-template <class TU, class TV, bool BWD>
+// (b*nc*h, N tiles); V is the head's group's
+template <class TU, class TV, bool BWD, bool GR>
 __global__ void __launch_bounds__(THREADS)
     states_kernel(const TU* __restrict__ U, long long ub, long long ul,
                   long long uh, const TV* __restrict__ V, long long vb,
-                  long long vl, const float* __restrict__ dt,
+                  long long vl, long long vg, const float* __restrict__ dt,
                   const float* __restrict__ Lc, float* __restrict__ out,
                   Dims d) {
   extern __shared__ float4 smem4[];
@@ -291,7 +312,8 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
   const TU* Ub = U + bi * ub + (long long)c * d.Q * ul + hh * uh;
-  const TV* Vb = V + bi * vb + (long long)c * d.Q * vl;
+  const TV* Vb =
+      V + bi * vb + (long long)c * d.Q * vl + group_of<GR>(hh, d) * vg;
   float acc[4][4];
   zero(acc);
   for (int l0 = 0; l0 < d.Q; l0 += TILE) {
@@ -390,7 +412,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // y of one (row, chunk, head, l tile); grid (b*nc*h, l tiles)
-template <class T>
+template <class T, bool GR>
 __global__ void __launch_bounds__(THREADS)
     out_kernel(const T* __restrict__ x, const T* __restrict__ C,
                const float* __restrict__ S, const float* __restrict__ Hs,
@@ -407,7 +429,8 @@ __global__ void __launch_bounds__(THREADS)
   const int r = threadIdx.x;
   if (r < TILE)
     Ll[r] = lt * TILE + r < d.Q ? Lc[(pos0 + lt * TILE + r) * d.h + hh] : 0.f;
-  const float* Sc = S + (long long)bc * d.Q * d.Q;
+  const int g = group_of<GR>(hh, d);
+  const float* Sc = S + ((long long)bc * groups<GR>(d) + g) * d.Q * d.Q;
   const T* xb = x + bi * d.xb + (long long)c * d.Q * d.xl + hh * d.xh;
   float acc[4][4];
   zero(acc);
@@ -435,7 +458,7 @@ __global__ void __launch_bounds__(THREADS)
   }
   float inter[4][4];
   zero(inter);
-  const T* Cb = C + bi * d.Cb + (long long)c * d.Q * d.Cl;
+  const T* Cb = C + bi * d.Cb + (long long)c * d.Q * d.Cl + g * d.Cg;
   const float* H = Hs + (long long)blockIdx.x * d.P * d.N;
   for (int n0 = 0; n0 < d.N; n0 += TILE) {
     fill<true>(t[0], [&](int i, int c0, float (&v)[8]) {
@@ -521,7 +544,7 @@ __global__ void __launch_bounds__(THREADS)
 
 // dx, ddt and dl_t of one (row, chunk, head), and its share of dD; grid
 // (b*nc*h)
-template <class T>
+template <class T, bool GR>
 __global__ void __launch_bounds__(THREADS, 2)
     dx_kernel(const T* __restrict__ x, const T* __restrict__ B,
               const T* __restrict__ C, const float* __restrict__ S,
@@ -554,10 +577,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   const float Lend = Lq[d.Q - 1], D = Dp[hh];
   const long long hP = (long long)d.h * d.P;
   const T* xb = x + bi * d.xb + (long long)c * d.Q * d.xl + hh * d.xh;
-  const T* Bb = B + bi * d.Bb + (long long)c * d.Q * d.Bl;
-  const T* Cb = C + bi * d.Cb + (long long)c * d.Q * d.Cl;
+  const int g = group_of<GR>(hh, d);
+  const T* Bb = B + bi * d.Bb + (long long)c * d.Q * d.Bl + g * d.Bg;
+  const T* Cb = C + bi * d.Cb + (long long)c * d.Q * d.Cl + g * d.Cg;
   const float* dyb = dy + pos0 * hP + (long long)hh * d.P;
-  const float* Sc = S + (long long)bc * d.Q * d.Q;
+  const float* Sc = S + ((long long)bc * groups<GR>(d) + g) * d.Q * d.Q;
   const float* Hb = Hs + (long long)blockIdx.x * d.P * d.N;
   const float* dHb = dHe + (long long)blockIdx.x * d.P * d.N;
   float dlast = 0.f, dDsum = 0.f;
@@ -733,9 +757,10 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// dS[l][m] = sum_h dMt_h[l][m] dt_h[m] G_h[l][m] of one (row, chunk) on
-// one lower tile pair, the heads in order; grid (b*nc, pairs)
-template <class T>
+// dS[l][m] = sum_h dMt_h[l][m] dt_h[m] G_h[l][m] of one (row, chunk,
+// group) on one lower tile pair, the group's heads in order; grid
+// (b*nc*G, pairs)
+template <class T, bool GR>
 __global__ void __launch_bounds__(THREADS)
     ds_kernel(const float* __restrict__ dy, const T* __restrict__ x,
               const float* __restrict__ dt, const float* __restrict__ Lc,
@@ -745,15 +770,18 @@ __global__ void __launch_bounds__(THREADS)
   float* Ll = reinterpret_cast<float*>(t + 2);
   float* Lm = Ll + TILE;
   float* dm = Lm + TILE;
-  const int bi = blockIdx.x / d.nc, c = blockIdx.x % d.nc;
+  const unsigned g = GR ? blockIdx.x % d.G : 0;
+  const unsigned bc = GR ? blockIdx.x / d.G : blockIdx.x;
+  const int bi = bc / d.nc, c = bc % d.nc;
   int lt, mt;
   pair_of(blockIdx.y, lt, mt);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const long long pos0 = (long long)bi * d.L + (long long)c * d.Q;
   const long long hP = (long long)d.h * d.P;
+  const int h0 = GR ? (int)g * d.hg : 0, h1 = GR ? h0 + d.hg : d.h;
   float acc[4][4];
   zero(acc);
-  for (int hh = 0; hh < d.h; ++hh) {
+  for (int hh = h0; hh < h1; ++hh) {
     const int r = threadIdx.x;
     if (r < TILE) {
       const int l = lt * TILE + r, m = mt * TILE + r;
@@ -794,10 +822,10 @@ __global__ void __launch_bounds__(THREADS)
     }
 }
 
-// dC (z even) or dB (z odd) of one (row, chunk) on one 64 x 64 tile: the
-// chunk's part from dS, then the state parts summed over heads in order;
-// grid (b*nc, row tiles, 2 * N tiles)
-template <class T>
+// dC (z even) or dB (z odd) of one (row, chunk, group) on one 64 x 64
+// tile: the chunk's part from dS, then the state parts summed over the
+// group's heads in order; grid (b*nc*G, row tiles, 2 * N tiles)
+template <class T, bool GR>
 __global__ void __launch_bounds__(THREADS)
     dbc_kernel(const float* __restrict__ dS, const T* __restrict__ x,
                const T* __restrict__ B, const T* __restrict__ C,
@@ -808,14 +836,16 @@ __global__ void __launch_bounds__(THREADS)
   extern __shared__ float4 smem4[];
   Tile* t = reinterpret_cast<Tile*>(smem4);
   float* sv = reinterpret_cast<float*>(t + 2);
-  const int bi = blockIdx.x / d.nc, c = blockIdx.x % d.nc;
+  const unsigned g = GR ? blockIdx.x % d.G : 0;
+  const unsigned bc = GR ? blockIdx.x / d.G : blockIdx.x;
+  const int bi = bc / d.nc, c = bc % d.nc;
   const int rt = blockIdx.y, n0 = (blockIdx.z >> 1) * TILE;
   const bool wantB = blockIdx.z & 1;
   const long long pos0 = (long long)bi * d.L + (long long)c * d.Q;
   const long long hP = (long long)d.h * d.P;
   const float* dSc = dS + (long long)blockIdx.x * d.Q * d.Q;
-  const T* Bb = B + bi * d.Bb + (long long)c * d.Q * d.Bl;
-  const T* Cb = C + bi * d.Cb + (long long)c * d.Q * d.Cl;
+  const T* Bb = B + bi * d.Bb + (long long)c * d.Q * d.Bl + g * d.Bg;
+  const T* Cb = C + bi * d.Cb + (long long)c * d.Q * d.Cl + g * d.Cg;
   float acc[4][4];
   zero(acc);
   if (!wantB) {  // dC[l] = sum_m dS[l][m] B[m]
@@ -844,10 +874,11 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   // dC[l] += sum_h exp(Lc_h[l]) dy_h[l] . H_h;
-  // dB[m] += sum_h w_h[m] x_h[m] . dH_h
-  for (int hh = 0; hh < d.h; ++hh) {
+  // dB[m] += sum_h w_h[m] x_h[m] . dH_h, over the group's heads
+  const int h0 = GR ? (int)g * d.hg : 0, h1 = GR ? h0 + d.hg : d.h;
+  for (int hh = h0; hh < h1; ++hh) {
     const int r = threadIdx.x;
-    const long long cell = (long long)blockIdx.x * d.h + hh;
+    const long long cell = (long long)bc * d.h + hh;
     if (r < TILE) {
       const int q = rt * TILE + r;
       float v = 0.f;
@@ -886,7 +917,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int q = rt * TILE + ty * 4 + i, n = n0 + tx * 4 + j;
-      if (q < d.Q && n < d.N) o[(pos0 + q) * d.N + n] = from_f<T>(acc[i][j]);
+      if (q < d.Q && n < d.N)
+        o[((pos0 + q) * groups<GR>(d) + g) * d.N + n] =
+            from_f<T>(acc[i][j]);
     }
 }
 
@@ -925,25 +958,27 @@ bool four_aligned(const Dims& d, Ptrs... ps) {
 
 bool valid(const Dims& d) {
   return d.b > 0 && d.h > 0 && d.P > 0 && d.P <= TILE && d.N > 0 &&
-         d.Q > 0 && d.Q <= MAX_Q && d.L % d.Q == 0 &&
-         (long long)d.b * d.nc <= (1ll << 30) &&
+         d.Q > 0 && d.Q <= MAX_Q && d.L % d.Q == 0 && d.G > 0 &&
+         d.h % d.G == 0 && (long long)d.b * d.nc * d.G <= (1ll << 30) &&
          (long long)d.b * d.nc * d.h <= (1ll << 30);
 }
 
-Dims make_dims(int b, int L, int h, int P, int N, int Q, long long xb,
-               long long xl, long long xh, long long Bb, long long Bl,
-               long long Cb, long long Cl) {
+Dims make_dims(int b, int L, int h, int P, int N, int Q, int G,
+               long long xb, long long xl, long long xh, long long Bb,
+               long long Bl, long long Bg, long long Cb, long long Cl,
+               long long Cg) {
   Dims d;
   d.b = b; d.L = L; d.h = h; d.P = P; d.N = N; d.Q = Q;
+  d.G = G; d.hg = G > 0 ? h / G : 0;
   d.nc = Q > 0 ? L / Q : 0;
   d.nt = (Q + TILE - 1) / TILE;
   d.ny = (int)(((long long)P * N + PASS_SPAN - 1) / PASS_SPAN);
   d.xb = xb; d.xl = xl; d.xh = xh;
-  d.Bb = Bb; d.Bl = Bl; d.Cb = Cb; d.Cl = Cl;
+  d.Bb = Bb; d.Bl = Bl; d.Bg = Bg; d.Cb = Cb; d.Cl = Cl; d.Cg = Cg;
   return d;
 }
 
-template <class T>
+template <class T, bool GR>
 int forward(const T* x, const T* B, const T* C, const float* dt,
             const float* Lc, const float* Dp, const float* state0, float* y,
             float* final_state, float* S, float* Hs, const Dims& d,
@@ -951,18 +986,31 @@ int forward(const T* x, const T* B, const T* C, const float* dt,
   const int pairs = d.nt * (d.nt + 1) / 2;
   const int ntn = (d.N + TILE - 1) / TILE;
   const unsigned cells = (unsigned)(d.b * d.nc * d.h);
-  LAUNCH(cb_kernel<T>, dim3(d.b * d.nc, pairs), SMEM_TWO, st, B, C, S, d);
-  LAUNCH((states_kernel<T, T, false>), dim3(cells, ntn), SMEM_STATES, st, x,
-         d.xb, d.xl, d.xh, B, d.Bb, d.Bl, dt, Lc, Hs, d);
+  LAUNCH((cb_kernel<T, GR>), dim3(d.b * d.nc * d.G, pairs), SMEM_TWO, st, B,
+         C, S, d);
+  LAUNCH((states_kernel<T, T, false, GR>), dim3(cells, ntn), SMEM_STATES, st,
+         x, d.xb, d.xl, d.xh, B, d.Bb, d.Bl, d.Bg, dt, Lc, Hs, d);
   const bool vec = four_aligned(d, Hs, state0, final_state);
   LAUNCH(vec ? pass_kernel<true> : pass_kernel<false>, dim3(d.b * d.h, d.ny),
          0, st, Hs, state0, final_state, Lc, d);
-  LAUNCH(out_kernel<T>, dim3(cells, d.nt), SMEM_TWO, st, x, C, S, Hs, dt, Lc,
-         Dp, y, d);
+  LAUNCH((out_kernel<T, GR>), dim3(cells, d.nt), SMEM_TWO, st, x, C, S, Hs,
+         dt, Lc, Dp, y, d);
   return (int)cudaSuccess;
 }
 
+// one group or several: separate instantiations (groups<GR>)
 template <class T>
+int forward(const T* x, const T* B, const T* C, const float* dt,
+            const float* Lc, const float* Dp, const float* state0, float* y,
+            float* final_state, float* S, float* Hs, const Dims& d,
+            cudaStream_t st) {
+  return d.G == 1 ? forward<T, false>(x, B, C, dt, Lc, Dp, state0, y,
+                                      final_state, S, Hs, d, st)
+                  : forward<T, true>(x, B, C, dt, Lc, Dp, state0, y,
+                                     final_state, S, Hs, d, st);
+}
+
+template <class T, bool GR>
 int backward(const T* x, const T* B, const T* C, const float* dt,
              const float* Lc, const float* Dp, const float* S,
              const float* Hs, const float* dy, const float* dfinal,
@@ -973,36 +1021,56 @@ int backward(const T* x, const T* B, const T* C, const float* dt,
   const int ntn = (d.N + TILE - 1) / TILE;
   const unsigned cells = (unsigned)(d.b * d.nc * d.h);
   const long long hP = (long long)d.h * d.P;
-  LAUNCH((states_kernel<float, T, true>), dim3(cells, ntn), SMEM_STATES, st,
-         dy, (long long)d.L * hP, hP, (long long)d.P, C, d.Cb, d.Cl, dt, Lc,
-         dHe, d);
+  LAUNCH((states_kernel<float, T, true, GR>), dim3(cells, ntn), SMEM_STATES,
+         st,
+         dy, (long long)d.L * hP, hP, (long long)d.P, C, d.Cb, d.Cl, d.Cg, dt,
+         Lc, dHe, d);
   const bool vec = four_aligned(d, dHe, Hs, dfinal, dstate0);
   LAUNCH(vec ? pass_bwd_kernel<true> : pass_bwd_kernel<false>,
          dim3(d.b * d.h, d.ny), 0, st, dHe, Hs, dfinal, dstate0, part, Lc, d);
-  LAUNCH(dx_kernel<T>, dim3(cells), SMEM_DX, st, x, B, C, S, Hs, dHe, dy, dt,
+  LAUNCH((dx_kernel<T, GR>), dim3(cells), SMEM_DX, st, x, B, C, S, Hs, dHe,
+         dy, dt,
          Lc, part, Dp, dx, ddt, dlt, dD, d);
-  LAUNCH(ds_kernel<T>, dim3(d.b * d.nc, pairs), SMEM_TWO, st, dy, x, dt, Lc,
-         dS, d);
-  LAUNCH(dbc_kernel<T>, dim3(d.b * d.nc, d.nt, 2 * ntn), SMEM_TWO, st, dS, x,
-         B, C, dy, Hs, dHe, dt, Lc, dB, dC, d);
+  LAUNCH((ds_kernel<T, GR>), dim3(d.b * d.nc * d.G, pairs), SMEM_TWO, st, dy,
+         x, dt, Lc, dS, d);
+  LAUNCH((dbc_kernel<T, GR>), dim3(d.b * d.nc * d.G, d.nt, 2 * ntn), SMEM_TWO,
+         st, dS, x, B, C, dy, Hs, dHe, dt, Lc, dB, dC, d);
   return (int)cudaSuccess;
+}
+
+template <class T>
+int backward(const T* x, const T* B, const T* C, const float* dt,
+             const float* Lc, const float* Dp, const float* S,
+             const float* Hs, const float* dy, const float* dfinal,
+             float* dHe, float* part, float* dS, T* dx, T* dB, T* dC,
+             float* ddt, float* dlt, float* dD, float* dstate0,
+             const Dims& d, cudaStream_t st) {
+  return d.G == 1
+             ? backward<T, false>(x, B, C, dt, Lc, Dp, S, Hs, dy, dfinal, dHe,
+                                  part, dS, dx, dB, dC, ddt, dlt, dD, dstate0,
+                                  d, st)
+             : backward<T, true>(x, B, C, dt, Lc, Dp, S, Hs, dy, dfinal, dHe,
+                                 part, dS, dx, dB, dC, ddt, dlt, dD, dstate0,
+                                 d, st);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (x, B and C; everything else float32).
-// x (b, L, h, P) and B, C (b, L, N) by their strides in elements, the
-// last dim contiguous; dt, Lc (b, L, h), y (b, L, h, P), states
-// (b, h, P, N), S (b, L/Q, Q, Q) and Hs (b, L/Q, h, P, N) contiguous.
+// x (b, L, h, P) and B, C (b, L, G, N) by their strides in elements, the
+// last dim contiguous; head hh reads group hh / (h / G), and G divides h.
+// dt, Lc (b, L, h), y (b, L, h, P), states (b, h, P, N), S
+// (b, L/Q, G, Q, Q) and Hs (b, L/Q, h, P, N) contiguous.
 extern "C" int repro_ssd_scan(const void* x, const void* B, const void* C,
                               const void* dt, const void* Lc, const void* Dp,
                               const void* state0, void* y, void* final_state,
                               void* S, void* Hs, int b, int L, int h, int P,
-                              int N, int Q, long long xb, long long xl,
+                              int N, int Q, int G, long long xb, long long xl,
                               long long xh, long long Bb, long long Bl,
-                              long long Cb, long long Cl, int dtype,
-                              void* stream) {
-  const Dims d = make_dims(b, L, h, P, N, Q, xb, xl, xh, Bb, Bl, Cb, Cl);
+                              long long Bg, long long Cb, long long Cl,
+                              long long Cg, int dtype, void* stream) {
+  const Dims d =
+      make_dims(b, L, h, P, N, Q, G, xb, xl, xh, Bb, Bl, Bg, Cb, Cl, Cg);
   if (!valid(d) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -1019,17 +1087,20 @@ extern "C" int repro_ssd_scan(const void* x, const void* B, const void* C,
 
 // dy (b, L, h, P) and dfinal (b, h, P, N, or null) float32 contiguous;
 // scratch dHe like Hs, part (b, L/Q, h, 8 ny), dS like S; dx (b, L, h, P),
-// dB and dC (b, L, N) in the operands' type; ddt, dlt (b, L, h), dD
-// (b, L/Q, h: each chunk's share) and dstate0 (b, h, P, N) float32.
+// dB and dC (b, L, G, N) contiguous in the operands' type; ddt, dlt
+// (b, L, h), dD (b, L/Q, h: each chunk's share) and dstate0 (b, h, P, N)
+// float32.
 extern "C" int repro_ssd_scan_backward(
     const void* x, const void* B, const void* C, const void* dt,
     const void* Lc, const void* Dp, const void* S, const void* Hs,
     const void* dy, const void* dfinal, void* dHe, void* part, void* dS,
     void* dx, void* dB, void* dC, void* ddt, void* dlt, void* dD,
-    void* dstate0, int b, int L, int h, int P, int N, int Q, long long xb,
-    long long xl, long long xh, long long Bb, long long Bl, long long Cb,
-    long long Cl, int dtype, void* stream) {
-  const Dims d = make_dims(b, L, h, P, N, Q, xb, xl, xh, Bb, Bl, Cb, Cl);
+    void* dstate0, int b, int L, int h, int P, int N, int Q, int G,
+    long long xb, long long xl, long long xh, long long Bb, long long Bl,
+    long long Bg, long long Cb, long long Cl, long long Cg, int dtype,
+    void* stream) {
+  const Dims d =
+      make_dims(b, L, h, P, N, Q, G, xb, xl, xh, Bb, Bl, Bg, Cb, Cl, Cg);
   if (!valid(d) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -1059,7 +1130,7 @@ extern "C" int repro_ssd_scan_backward(
 extern "C" int repro_ssd_scan_backward_scratch(int P, int N,
                                                long long* slots) {
   if (P <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const Dims d = make_dims(1, 1, 1, P, N, 1, 0, 0, 0, 0, 0, 0, 0);
+  const Dims d = make_dims(1, 1, 1, P, N, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0);
   *slots = (long long)d.ny * (THREADS / 32);
   return (int)cudaSuccess;
 }

@@ -544,18 +544,19 @@ def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-          causal: bool = True, q_offset: int | None = None) -> torch.Tensor:
+          causal: bool = True, q_offset: int | None = None,
+          scale: float | None = None) -> torch.Tensor:
     """The plain PyTorch version of the kernel: fp32 scores ``q.kᵀ *
-    scale``, the causal mask ``q_pos + q_offset >= k_pos`` with the finite
-    -2^30, softmax, ``p.v``, output in the input dtype.  ``q_offset``
-    defaults to ``skv - sq``."""
+    scale`` (:func:`_scale`: 1/sqrt(d) unless given), the causal mask
+    ``q_pos + q_offset >= k_pos`` with the finite -2^30, softmax, ``p.v``,
+    output in the input dtype.  ``q_offset`` defaults to ``skv - sq``."""
     sq, d = q.shape[2], q.shape[3]
     skv = k.shape[2]
     if q_offset is None:
         q_offset = skv - sq
     _check_offset(causal, q_offset)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * \
-        _scale(d)
+        _scale(d, scale)
     if causal:
         rows = torch.arange(sq, device=q.device)[:, None] + q_offset
         s = torch.where(rows >= torch.arange(skv, device=q.device)[None],
@@ -564,8 +565,11 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-def _scale(d: int) -> float:
-    return float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32))
+def _scale(d: int, scale: float | None = None) -> float:
+    """The softmax scale as the kernels take it, a float32: 1/sqrt(d), or
+    ``scale`` where one is given (Zamba2 scales by (d/2)^-1/2)."""
+    want = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    return float(torch.tensor(want, dtype=torch.float32))
 
 
 def split_bytes(n_q: int, n_kv: int) -> int:
@@ -623,7 +627,8 @@ split_bf16x3.launches = 0
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int | None = None,
                     block_kv: int | None = None, q_offset: int | None = None,
-                    force_simt: bool = False) -> torch.Tensor:
+                    force_simt: bool = False,
+                    scale: float | None = None) -> torch.Tensor:
     """q: (b, h, sq, d); k, v: (b, h, skv, d), float32 or bfloat16,
     contiguous.  Grouped-head (GQA) callers broadcast kv heads before the
     call.  ``q_offset`` is the absolute position of q[0] in the kv
@@ -633,7 +638,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     card the kernel of the pair's :func:`route` runs on the current
     stream without synchronising; ``force_simt`` runs the CUDA-core
     kernel instead, within its own limits (to time it where a tensor-core
-    route is the rule)."""
+    route is the rule).  ``scale`` multiplies the fp32 scores inside the
+    kernel (:func:`_scale`; 1/sqrt(d) when None)."""
     b, h, sq, skv, d = _check_operands(q, k, v)
     if q_offset is None:
         q_offset = skv - sq
@@ -659,7 +665,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if not t.is_contiguous():
             raise ValueError("flash_attention operands must be contiguous")
     if q.device.type == "cpu":
-        return plain(q, k, v, causal=causal, q_offset=q_offset)
+        return plain(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("flash_attention operands must start on a "
@@ -670,7 +676,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         operands = sum(split_bf16x3(q, k, v), ())
     args = [t.data_ptr() for t in operands] + [
         out.data_ptr(), b * h, sq, skv, d, int(block_q), int(block_kv),
-        int(causal), int(q_offset), _scale(d)]
+        int(causal), int(q_offset), _scale(d, scale)]
     argtypes = ([ctypes.c_void_p] * (len(operands) + 1) + [ctypes.c_longlong]
                 + [ctypes.c_int] * 7 + [ctypes.c_float])
     if lim.route == "simt":
@@ -702,22 +708,29 @@ flash_attention.backward_calls = 0
 # host time of every call.
 _LIB = torch.library.Library("repro_torch", "DEF")
 _LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
-            "int block_q, int block_kv, int q_offset) -> Tensor")
+            "int block_q, int block_kv, int q_offset, float? scale=None) "
+            "-> Tensor")
 _LIB.impl("flash_attention",
-          lambda q, k, v, causal, block_q, block_kv, q_offset:
+          lambda q, k, v, causal, block_q, block_kv, q_offset, scale=None:
           flash_attention(q, k, v, causal=causal, block_q=block_q,
-                          block_kv=block_kv, q_offset=q_offset),
+                          block_kv=block_kv, q_offset=q_offset, scale=scale),
           "CompositeExplicitAutograd")
 
 
 @torch.library.register_fake("repro_torch::flash_attention", lib=_LIB)
-def _flash_fake(q, k, v, causal, block_q, block_kv, q_offset):
+def _flash_fake(q, k, v, causal, block_q, block_kv, q_offset, scale=None):
     return torch.empty_like(q)
+
+
+def _scaled(args: tuple, scale: float | None) -> tuple:
+    """An operator's arguments, the scale appended only where one is
+    given: the default call stays the call it has always been."""
+    return args if scale is None else args + (float(scale),)
 
 
 def flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, block_q: int, block_kv: int,
-             q_offset: int) -> torch.Tensor:
+             q_offset: int, scale: float | None = None) -> torch.Tensor:
     """:func:`flash_attention` at a fitted block pair and a resolved
     ``q_offset``, as one operator (``repro_torch::flash_attention``) that
     the dispatcher sees whole: a dispatch mode records it as one op (the
@@ -726,7 +739,7 @@ def flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is the wrapper: the kernel of the pair's route on the card, or a
     raise; the plain version on the CPU."""
     return torch.ops.repro_torch.flash_attention.default(
-        q, k, v, causal, block_q, block_kv, q_offset)
+        *_scaled((q, k, v, causal, block_q, block_kv, q_offset), scale))
 
 
 #: the float32 transient :func:`attention_backward` may hold at once:
@@ -735,7 +748,8 @@ BACKWARD_TRANSIENT_BYTES = 2 << 30
 
 
 def attention_backward(q, k, v, grad_out, causal: bool = True,
-                       q_offset: int | None = None
+                       q_offset: int | None = None,
+                       scale: float | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of softmax attention with respect to q, k and v, written
     out in PyTorch: the counterpart of what ``jax.grad`` takes through
@@ -756,12 +770,13 @@ def attention_backward(q, k, v, grad_out, causal: bool = True,
     large terms, which that rounding moves by several per cent of dQ.
     Masked pairs have P = 0, so they get no gradient.  The (batch, head)
     pairs are walked in chunks that keep four score-sized float32
-    tensors within ``BACKWARD_TRANSIENT_BYTES``."""
+    tensors within ``BACKWARD_TRANSIENT_BYTES``.  ``scale`` is the
+    forward's (:func:`_scale`)."""
     b, h, sq, skv, d = _check_operands(q, k, v)
     if q_offset is None:
         q_offset = skv - sq
     _check_offset(causal, q_offset)
-    scale = _scale(d)
+    scale = _scale(d, scale)
     bh = b * h
     chunk = max(1, BACKWARD_TRANSIENT_BYTES // (4 * 4 * sq * skv))
     flat = [t.reshape(bh, t.shape[2], d) for t in (q, k, v, grad_out)]
@@ -873,7 +888,8 @@ def _count_backward(route_name: str) -> None:
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, grad_out: torch.Tensor,
-                             causal: bool = True, q_offset: int | None = None
+                             causal: bool = True, q_offset: int | None = None,
+                             scale: float | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """(dq, dk, dv) of softmax attention, operands (b, h, s, d) as
@@ -890,7 +906,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     head dim 256), and every call on the CPU —
     :func:`attention_backward` runs.
     ``flash_attention.backward_calls_by_route`` counts the route that
-    ran."""
+    ran.  ``scale`` is the forward's (:func:`_scale`)."""
     b, h, sq, skv, d = _check_operands(q, k, v)
     if grad_out.shape != q.shape or grad_out.dtype != q.dtype \
             or grad_out.device != q.device:
@@ -902,8 +918,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     lim = backward_launch_limits(sq, skv, d, q.dtype, q_offset)
     if lim.route == "plain" or q.device.type == "cpu":
         _count_backward("plain")
+        extra = {} if scale is None else {"scale": scale}
         return attention_backward(q, k, v, grad_out, causal=causal,
-                                  q_offset=q_offset)
+                                  q_offset=q_offset, **extra)
     if b * h * max(sq, skv) >= 2 ** 31:
         raise ValueError("flash_attention_backward: b*h*s rows exceed the "
                          "32-bit TMA coordinates")
@@ -922,7 +939,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             *[t.data_ptr() for t in (q, k, v, grad_out, dq, dk, dv)],
             rows[0].data_ptr(), rows[1].data_ptr(), sums.data_ptr(),
             counters.data_ptr(), b * h, sq, skv, d, int(causal),
-            int(q_offset), _scale(d), stream))
+            int(q_offset), _scale(d, scale), stream))
     _count_backward("kernel")
     return dq, dk, dv
 
@@ -932,18 +949,18 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 # train step) run its fake, which launches nothing.  Its kernel serves
 # every device (the wrapper picks the route); it has no autograd kernel.
 _LIB.define("flash_attention_backward(Tensor q, Tensor k, Tensor v, "
-            "Tensor grad_out, bool causal, int q_offset) -> "
-            "(Tensor, Tensor, Tensor)")
+            "Tensor grad_out, bool causal, int q_offset, float? scale=None) "
+            "-> (Tensor, Tensor, Tensor)")
 _LIB.impl("flash_attention_backward",
-          lambda q, k, v, grad_out, causal, q_offset:
+          lambda q, k, v, grad_out, causal, q_offset, scale=None:
           flash_attention_backward(q, k, v, grad_out, causal=causal,
-                                   q_offset=q_offset),
+                                   q_offset=q_offset, scale=scale),
           "CompositeExplicitAutograd")
 
 
 @torch.library.register_fake("repro_torch::flash_attention_backward",
                              lib=_LIB)
-def _backward_fake(q, k, v, grad_out, causal, q_offset):
+def _backward_fake(q, k, v, grad_out, causal, q_offset, scale=None):
     if backward_route(q, k, q_offset) == "kernel":
         b, h, sq, d = q.shape
         backward_scratch(b * h, sq, d, q.device)   # the card's transient
@@ -951,14 +968,15 @@ def _backward_fake(q, k, v, grad_out, causal, q_offset):
 
 
 def backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                grad_out: torch.Tensor, causal: bool, q_offset: int
+                grad_out: torch.Tensor, causal: bool, q_offset: int,
+                scale: float | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_backward` at a resolved ``q_offset`` as the
     operator ``repro_torch::flash_attention_backward``: the graph
     analysis prices it by its formula, and on meta or fake tensors it
     runs its fake."""
     return torch.ops.repro_torch.flash_attention_backward.default(
-        q, k, v, grad_out, causal, q_offset)
+        *_scaled((q, k, v, grad_out, causal, q_offset), scale))
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -969,14 +987,17 @@ class FlashAttentionFn(torch.autograd.Function):
     :func:`backward_op` where :func:`backward_route` picks the kernel
     (the backward kernel on the card, :func:`attention_backward` on the
     CPU), else :func:`flash_attention_backward` on its plain route, whose
-    own ops a dispatch mode records."""
+    own ops a dispatch mode records.  ``scale`` (None: 1/sqrt(d)) reaches
+    both."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, block_q, block_kv, q_offset):
+    def forward(ctx, q, k, v, causal, block_q, block_kv, q_offset,
+                scale=None):
         with torch.no_grad(), obs.span("kernel.flash_fwd"):
-            out = flash_op(q, k, v, causal, block_q, block_kv, q_offset)
+            out = flash_op(q, k, v, causal, block_q, block_kv, q_offset,
+                           scale)
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.q_offset = causal, q_offset
+        ctx.causal, ctx.q_offset, ctx.scale = causal, q_offset, scale
         return out
 
     @staticmethod
@@ -986,12 +1007,12 @@ class FlashAttentionFn(torch.autograd.Function):
         with obs.span("kernel.flash_bwd", "bwd"):
             if backward_route(q, k, ctx.q_offset) == "kernel":
                 dq, dk, dv = backward_op(q, k, v, grad_out, ctx.causal,
-                                         ctx.q_offset)
+                                         ctx.q_offset, ctx.scale)
             else:
                 dq, dk, dv = flash_attention_backward(
                     q, k, v, grad_out, causal=ctx.causal,
-                    q_offset=ctx.q_offset)
-        return dq, dk, dv, None, None, None, None
+                    q_offset=ctx.q_offset, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _compiled_limits(route_name: str, block_q: int, block_kv: int,

@@ -35,8 +35,8 @@ def longrange3d(u: torch.Tensor, v: torch.Tensor, roc: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    q_offset: int | None = None) -> torch.Tensor:
+                    causal: bool = True, q_offset: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """Attention with blocks from the shared-memory advisor, fitted to the
     lengths (a tensor-core pair wherever one divides them); kv heads
     broadcast by GQA callers.  The call is the operator
@@ -44,7 +44,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``repro_torch::flash_attention``); with grad mode on and an operand
     that requires grad, it goes through
     :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn` (the
-    same forward, on either device, and its backward)."""
+    same forward, on either device, and its backward).  ``scale`` is the
+    softmax's (None: 1/sqrt(d))."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention takes (b, h, s, d) tensors")
     sq, d = int(q.shape[2]), int(q.shape[3])
@@ -53,5 +54,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bq, bkv = _fa.fit_blocks(sq, skv, tiles.bq, tiles.bkv, d, q.dtype)
     q_offset = skv - sq if q_offset is None else int(q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _fa.FlashAttentionFn.apply(q, k, v, causal, bq, bkv, q_offset)
-    return _fa.flash_op(q, k, v, causal, bq, bkv, q_offset)
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, bq, bkv, q_offset,
+                                          scale)
+    return _fa.flash_op(q, k, v, causal, bq, bkv, q_offset, scale)

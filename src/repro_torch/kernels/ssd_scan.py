@@ -5,18 +5,21 @@ version and the plain twin of the kernels' backward.
 Counterpart of the chunked scan inside ``repro.models.mamba2`` (no
 Pallas kernel there: JAX computes it in plain ``jnp``).  The operands are
 those of ``repro_torch.models.mamba2._ssd``: xh (b, L, h, P), B and C
-(b, L, N) shared by every head, the step sizes dt and the log-decays l_t
-(b, L, h), ``Dp`` (h, 1), the carried state (b, h, P, N) in float32, and
-the chunk length ``Q``, which divides L.  It returns y (b, L, h, P) in
-float32 and the final state.
+(b, L, N) shared by every head or (b, L, G, N) in G groups (Mamba-2's
+``ngroups``: head h reads group h // (h_total / G), and G divides the
+heads), the step sizes dt and the log-decays l_t (b, L, h), ``Dp``
+(h, 1), the carried state (b, h, P, N) in float32, and the chunk length
+``Q``, which divides L.  It returns y (b, L, h, P) in float32 and the
+final state.
 
 :func:`ssd_scan` takes one of two routes, chosen by :func:`route` from
 the operands alone:
 
 - ``"kernel"`` (``csrc/ssd_scan.cu``): CUDA tensors in float32 or
   bfloat16, P up to :data:`MAX_HEADDIM` and Q up to :data:`MAX_CHUNK`.
-  :class:`SSDScanFn` launches the forward kernels (S = C·Bᵀ once per row
-  and chunk, the chunk states, the state passing, the chunk output) and,
+  :class:`SSDScanFn` launches the forward kernels (S = C·Bᵀ once per row,
+  chunk and group, the chunk states, the state passing, the chunk output)
+  and,
   in its backward, the backward kernels; no (b, Q, Q, h) tensor reaches
   device memory.  Every product is fp32 on the CUDA cores; S is rounded
   to the operands' type as the plain version's einsum rounds it.  The
@@ -58,14 +61,24 @@ MAX_HEADDIM = 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def heads_of_groups(h: int, G: int, device=None) -> torch.Tensor:
+    """The group each of ``h`` heads reads: h // (h / G), G dividing h."""
+    if G <= 0 or h % G:
+        raise ValueError(f"ssd_scan: {G} groups do not split {h} heads")
+    return torch.arange(h, device=device) // (h // G)
+
+
 def plain(xh, B, C, dt, l_t, Dp, state, Q: int):
-    """The chunked SSD scan: xh (b, L, h, P), B and C (b, L, N), dt and
-    the log-decays l_t (b, L, h), ``Dp`` (h, 1), the carried state
-    (b, h, P, N) in float32.  Within a chunk of ``Q`` the dual quadratic
-    form, across chunks the recurrence.  Returns y (b, L, h, P) in
-    float32 and the final state.  Float64 operands stay float64 (the
-    sharded scan is held to this one there); narrower ones compute in
-    float32: every product's operands are cast to that type."""
+    """The chunked SSD scan: xh (b, L, h, P), B and C (b, L, N) or, in
+    groups, (b, L, G, N), dt and the log-decays l_t (b, L, h), ``Dp``
+    (h, 1), the carried state (b, h, P, N) in float32.  Within a chunk of
+    ``Q`` the dual quadratic form, across chunks the recurrence.  Returns
+    y (b, L, h, P) in float32 and the final state.  Float64 operands stay
+    float64 (the sharded scan is held to this one there); narrower ones
+    compute in float32: every product's operands are cast to that
+    type."""
+    if B.dim() == 4:
+        return _plain_groups(xh, B, C, dt, l_t, Dp, state, Q)
     wide = torch.promote_types(xh.dtype, torch.float32)
     b, L, h, P = xh.shape
     N = B.shape[-1]
@@ -98,6 +111,43 @@ def plain(xh, B, C, dt, l_t, Dp, state, Q: int):
     return y + Dp * xh.to(wide), state
 
 
+def _plain_groups(xh, B, C, dt, l_t, Dp, state, Q: int):
+    """:func:`plain` with B and C (b, L, G, N): each head's B and C taken
+    from its group (the gradients of a group's heads meet there), then
+    the loop of :func:`plain` with per-head products."""
+    wide = torch.promote_types(xh.dtype, torch.float32)
+    b, L, h, P = xh.shape
+    N = B.shape[-1]
+    nc = L // Q
+    grp = heads_of_groups(h, B.shape[2], xh.device)
+    xc = xh.reshape(b, nc, Q, h, P)
+    Bc = B[:, :, grp].reshape(b, nc, Q, h, N)
+    Cc = C[:, :, grp].reshape(b, nc, Q, h, N)
+    dtc = dt.reshape(b, nc, Q, h)
+    Lcum = l_t.reshape(b, nc, Q, h).cumsum(dim=2)
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xh.device))
+    ys = []
+    for c in range(nc):
+        xq, Bq, Cq = xc[:, c], Bc[:, c], Cc[:, c]
+        dtq, Lq = dtc[:, c], Lcum[:, c]
+        scores = torch.einsum("blhn,bmhn->blmh", Cq, Bq).to(wide)
+        gamma = torch.exp(torch.clamp(
+            Lq[:, :, None, :] - Lq[:, None, :, :], -60.0, 0.0))
+        gamma = torch.where(mask[None, :, :, None], gamma, 0.0)
+        M = scores * gamma * dtq[:, None, :, :]                  # (b,l,m,h)
+        xf = xq.to(wide)
+        y_intra = torch.einsum("blmh,bmhp->blhp", M.to(wide), xf)
+        y_inter = torch.einsum("blh,blhn,bhpn->blhp", torch.exp(Lq).to(wide),
+                               Cq.to(wide), state.to(wide))
+        w = dtq * torch.exp(Lq[:, -1:, :] - Lq)
+        s_chunk = torch.einsum("blh,blhp,blhn->bhpn", w.to(wide), xf,
+                               Bq.to(wide))
+        state = state * torch.exp(Lq[:, -1])[..., None, None] + s_chunk
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(b, L, h, P)
+    return y + Dp * xh.to(wide), state
+
+
 def ssd_backward(xh, B, C, dt, l_t, Dp, state, dy, dstate, Q: int):
     """The gradients of :func:`plain`'s (y, final state) as the backward
     kernels compute them, written out in PyTorch: ``dy`` (b, L, h, P) and
@@ -117,7 +167,27 @@ def ssd_backward(xh, B, C, dt, l_t, Dp, state, dy, dstate, Q: int):
       cumulative sum within the chunk;
     - dS = Σ_h dMt·G·dt; dC = dS·B + Σ_h exp(Lc) dy·H; dB = dSᵀ·C +
       Σ_h w x·dH; dD = Σ x·dy.
+
+    B and C in groups (b, L, G, N): each group's heads as a scan of their
+    own with the group's B and C, as the kernels run them; the sums over
+    heads are then over the group's heads.
     """
+    if B.dim() == 4:
+        G = B.shape[2]
+        hg = xh.shape[2] // G
+        heads_of_groups(xh.shape[2], G)
+        parts = [ssd_backward(
+            xh[:, :, g * hg:(g + 1) * hg], B[:, :, g], C[:, :, g],
+            dt[..., g * hg:(g + 1) * hg], l_t[..., g * hg:(g + 1) * hg],
+            Dp[g * hg:(g + 1) * hg], state[:, g * hg:(g + 1) * hg],
+            dy[:, :, g * hg:(g + 1) * hg],
+            None if dstate is None else dstate[:, g * hg:(g + 1) * hg], Q)
+            for g in range(G)]
+        out = [torch.cat([p[i] for p in parts], dim=d)
+               for i, d in ((0, 2), (3, 2), (4, 2), (5, 0), (6, 1))]
+        dB = torch.stack([p[1] for p in parts], dim=2)
+        dC = torch.stack([p[2] for p in parts], dim=2)
+        return out[0], dB, dC, out[1], out[2], out[3], out[4]
     wide = torch.promote_types(xh.dtype, torch.float32)
     b, L, h, P = xh.shape
     N = B.shape[-1]
@@ -221,17 +291,20 @@ ssd_scan.launches_by_route = {r: 0 for r in ROUTES}
 ssd_scan.backward_calls_by_route = {r: 0 for r in ROUTES}
 
 
-def _check(xh, B, C, Q: int) -> tuple[int, int, int, int, int]:
-    """(b, L, h, P, N) of operands the kernels take; raises otherwise."""
-    if xh.dim() != 4 or B.dim() != 3 or C.shape != B.shape:
-        raise ValueError(f"ssd_scan: xh (b, L, h, P) and B, C (b, L, N), "
-                         f"got {tuple(xh.shape)}, {tuple(B.shape)}, "
-                         f"{tuple(C.shape)}")
+def _check(xh, B, C, Q: int) -> tuple[int, int, int, int, int, int]:
+    """(b, L, h, P, N, G) of operands the kernels take; raises
+    otherwise."""
+    if xh.dim() != 4 or B.dim() not in (3, 4) or C.shape != B.shape:
+        raise ValueError(f"ssd_scan: xh (b, L, h, P) and B, C (b, L, N) or "
+                         f"(b, L, G, N), got {tuple(xh.shape)}, "
+                         f"{tuple(B.shape)}, {tuple(C.shape)}")
     b, L, h, P = xh.shape
     N = B.shape[-1]
-    if B.shape[:2] != (b, L):
+    G = B.shape[2] if B.dim() == 4 else 1
+    if B.shape[:2] != (b, L) or G <= 0 or h % G:
         raise ValueError(f"ssd_scan: B {tuple(B.shape)} against xh "
-                         f"{tuple(xh.shape)}")
+                         f"{tuple(xh.shape)}: the groups must split the "
+                         f"heads evenly")
     if any(t.stride(-1) != 1 for t in (xh, B, C)):
         raise ValueError("ssd_scan: the kernels read xh, B and C through "
                          "their strides but want their last dim contiguous")
@@ -244,12 +317,16 @@ def _check(xh, B, C, Q: int) -> tuple[int, int, int, int, int]:
         raise ValueError(f"ssd_scan: chunk {Q} must divide L={L} and be at "
                          f"most {MAX_CHUNK}, head dim {P} at most "
                          f"{MAX_HEADDIM}")
-    return b, L, h, P, N
+    return b, L, h, P, N, G
 
 
 def _strides(xh, B, C) -> list[int]:
-    return [xh.stride(0), xh.stride(1), xh.stride(2), B.stride(0),
-            B.stride(1), C.stride(0), C.stride(1)]
+    """x's (b, L, h) strides, then B's and C's (b, L, group): a group's
+    stride is N where B and C hold one."""
+    def bc(t):
+        return [t.stride(0), t.stride(1),
+                t.stride(2) if t.dim() == 4 else t.shape[-1]]
+    return [xh.stride(0), xh.stride(1), xh.stride(2), *bc(B), *bc(C)]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -261,9 +338,10 @@ def forward(xh, B, C, dt, l_t, Dp, state, Q: int):
     """The forward kernels: returns (y, final state) and what the
     backward reads, (Lc, S, Hs): the within-chunk cumulative log-decays
     (b, L, h), S = C·Bᵀ (b, nc, Q, Q) and the chunk-start states
-    (b, nc, h, P, N), all float32.  Counted on the kernel route once the
-    launches succeed."""
-    b, L, h, P, N = _check(xh, B, C, Q)
+    (b, nc, h, P, N), all float32; S is (b, nc, G, Q, Q) where B and C
+    come in G groups.  Counted on the kernel route once the launches
+    succeed."""
+    b, L, h, P, N, G = _check(xh, B, C, Q)
     nc = L // Q
     f32 = dict(dtype=torch.float32, device=xh.device)
     dt = dt.to(torch.float32).contiguous()
@@ -274,14 +352,15 @@ def forward(xh, B, C, dt, l_t, Dp, state, Q: int):
     s0 = state.to(torch.float32).contiguous()
     y = torch.empty(b, L, h, P, **f32)
     final = torch.empty(b, h, P, N, **f32)
-    S = torch.empty(b, nc, Q, Q, **f32)
+    S = torch.empty(b, nc, Q, Q, **f32) if B.dim() == 3 else \
+        torch.empty(b, nc, G, Q, Q, **f32)
     Hs = torch.empty(b, nc, h, P, N, **f32)
-    fn = _build.entry(SOURCE, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                      + [ctypes.c_longlong] * 7 + [ctypes.c_int,
+    fn = _build.entry(SOURCE, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                      + [ctypes.c_longlong] * 9 + [ctypes.c_int,
                                                    ctypes.c_void_p])
     _build.check_status(SOURCE, fn(
         *(t.data_ptr() for t in (xh, B, C, dt, Lc, Dv, s0, y, final, S, Hs)),
-        b, L, h, P, N, Q, *_strides(xh, B, C), DTYPES[xh.dtype],
+        b, L, h, P, N, Q, G, *_strides(xh, B, C), DTYPES[xh.dtype],
         _stream(xh)))
     ssd_scan.launches += 1
     ssd_scan.launches_by_route["kernel"] += 1
@@ -306,7 +385,7 @@ def backward(xh, B, C, dt, Lc, Dp, S, Hs, dy, dstate, Q: int):
     the forward's operands and what :func:`forward` kept, ``dy``
     (b, L, h, P) and ``dstate`` (the final state's gradient, or None).
     Counted on the kernel route once the launches succeed."""
-    b, L, h, P, N = _check(xh, B, C, Q)
+    b, L, h, P, N, G = _check(xh, B, C, Q)
     nc = L // Q
     f32 = dict(dtype=torch.float32, device=xh.device)
     dy = torch.zeros(b, L, h, P, **f32) if dy is None \
@@ -319,14 +398,14 @@ def backward(xh, B, C, dt, Lc, Dp, S, Hs, dy, dstate, Q: int):
     part = torch.empty(b, nc, h, backward_scratch(P, N), **f32)
     dS = torch.empty_like(S)
     dx = torch.empty(b, L, h, P, dtype=xh.dtype, device=xh.device)
-    dB = torch.empty(b, L, N, dtype=B.dtype, device=xh.device)
+    dB = torch.empty(B.shape, dtype=B.dtype, device=xh.device)
     dC = torch.empty_like(dB)
     ddt = torch.empty(b, L, h, **f32)
     dl_t = torch.empty(b, L, h, **f32)
     dD = torch.empty(b, nc, h, **f32)
     ds0 = torch.empty(b, h, P, N, **f32)
-    fn = _build.entry(SOURCE, [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6
-                      + [ctypes.c_longlong] * 7 + [ctypes.c_int,
+    fn = _build.entry(SOURCE, [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7
+                      + [ctypes.c_longlong] * 9 + [ctypes.c_int,
                                                    ctypes.c_void_p],
                       symbol=f"{SOURCE}_backward")
     ptrs = [t.data_ptr() for t in (xh, B, C, dt, Lc, Dv, S, Hs, dy)]
@@ -334,7 +413,7 @@ def backward(xh, B, C, dt, Lc, Dp, S, Hs, dy, dstate, Q: int):
     ptrs += [t.data_ptr() for t in (dH, part, dS, dx, dB, dC, ddt, dl_t, dD,
                                     ds0)]
     _build.check_status(f"{SOURCE}_backward", fn(
-        *ptrs, b, L, h, P, N, Q, *_strides(xh, B, C), DTYPES[xh.dtype],
+        *ptrs, b, L, h, P, N, Q, G, *_strides(xh, B, C), DTYPES[xh.dtype],
         _stream(xh)))
     ssd_scan.backward_calls_by_route["kernel"] += 1
     return dx, dB, dC, ddt, dl_t, dD.sum((0, 1)).reshape(Dp.shape), ds0

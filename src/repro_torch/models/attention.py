@@ -121,13 +121,15 @@ def cross_recs(cfg) -> dict[str, PRec]:
 # ----------------------------------------------------------------------
 # The grouped plain path (JAX's math, outside any kernel)
 # ----------------------------------------------------------------------
-def _grouped_scores(q, k):
+def _grouped_scores(q, k, scale: float | None = None):
     """q: (b, sq, h, hd), k: (b, skv, kv, hd) -> (b, kv, g, sq, skv), in
-    float32 whatever the inputs' type (module docstring)."""
+    float32 whatever the inputs' type (module docstring), times ``scale``
+    (1/sqrt(hd) when None)."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hd)
-    return einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) / math.sqrt(hd)
+    s = einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    return s / math.sqrt(hd) if scale is None else s * scale
 
 
 def _grouped_out(p, v):
@@ -166,7 +168,7 @@ def _mask(kind: str, q_pos, kv_pos, window: int, kv_len=None):
 
 
 def attend(q, k, v, kind: str, q_pos=None, kv_pos=None, window: int = 0,
-           kv_len=None, chunk_q: int = 512):
+           kv_len=None, chunk_q: int = 512, scale: float | None = None):
     """Dense or q-chunked grouped attention with positional masking (the
     chunks give the same rows; they bound the score tile's memory).  Under
     autograd each chunk is recomputed in the backward, as JAX's scan body
@@ -180,7 +182,7 @@ def attend(q, k, v, kind: str, q_pos=None, kv_pos=None, window: int = 0,
         kv_pos = torch.arange(skv, device=q.device)
 
     def blockless(qq, qp):
-        scores = _grouped_scores(qq, k)
+        scores = _grouped_scores(qq, k, scale)
         p = _softmax(scores, _mask(kind, qp, kv_pos, window, kv_len))
         return _grouped_out(p.to(v.dtype), v)
 
@@ -216,16 +218,18 @@ def _round_rows(n: int) -> int:
     return -(-n // FLASH_ROWS) * FLASH_ROWS
 
 
-def flash(q, k, v, q_offset: int, rule=None) -> torch.Tensor:
+def flash(q, k, v, q_offset: int, rule=None,
+          scale: float | None = None) -> torch.Tensor:
     """Causal attention on the flash kernel.  q: (b, sq, h, d); k, v:
     (b, skv, kvh, d) — the in-call keys (``q_offset`` 0, skv = sq) or a
     ``max_len`` cache holding them at ``q_offset`` — whose kv heads are
     broadcast to q's; q's first row sits at position ``q_offset``.  Only
     the first ``q_offset + sq`` kv rows, rounded up, reach the kernel.
     Returns (b, sq, h, d).  DTensor operands (under ``rule``) run on each
-    rank's (batch, head) shard (module docstring)."""
+    rank's (batch, head) shard (module docstring).  ``scale`` is the
+    softmax's (1/sqrt(d) when None)."""
     if isinstance(q, DTensor):
-        return _flash_shards(q, k, v, q_offset, rule)
+        return _flash_shards(q, k, v, q_offset, rule, scale)
     b, sq, h, d = q.shape
     g = h // k.shape[2]
     dt = torch.promote_types(q.dtype, k.dtype)
@@ -237,20 +241,21 @@ def flash(q, k, v, q_offset: int, rule=None) -> torch.Tensor:
 
     def heads_first(t):
         return t.to(dt).transpose(1, 2).contiguous()
+    extra = {} if scale is None else {"scale": scale}
     o = ops.flash_attention(heads_first(_fit_rows(q, _round_rows(sq))),
                             heads_first(k), heads_first(v), causal=True,
-                            q_offset=int(q_offset))
+                            q_offset=int(q_offset), **extra)
     return o[:, :, :sq].transpose(1, 2)
 
 
-def _flash_shards(q, k, v, q_offset: int, rule) -> torch.Tensor:
+def _flash_shards(q, k, v, q_offset: int, rule, scale=None) -> torch.Tensor:
     """:func:`flash` on each rank's local shard under ``local_map``, with
     the placements JAX's ``constrain`` gives q (batch, -, act_heads, -)
     and k, v (batch, -, act_kv, -)."""
     mesh = q.device_mesh
     qp = placements(resolve(rule, ("batch", None, "act_heads", None)), mesh)
     kp = placements(resolve(rule, ("batch", None, "act_kv", None)), mesh)
-    return local_map(lambda a, b_, c: flash(a, b_, c, q_offset),
+    return local_map(lambda a, b_, c: flash(a, b_, c, q_offset, scale=scale),
                      out_placements=list(qp), in_placements=(qp, kp, kp),
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
@@ -291,9 +296,11 @@ def _write(cache_t: torch.Tensor, new: torch.Tensor, start: int) -> None:
 # GQA block
 # ----------------------------------------------------------------------
 def gqa_apply(p, x, cfg, kind: str = "causal", positions=None, cache=None,
-              pos=None, window: int = 0, use_rope: bool = True, rule=None):
+              pos=None, window: int = 0, use_rope: bool = True, rule=None,
+              scale: float | None = None):
     """Returns (delta_x, cache).  cache: dict(k, v) for a ``max_len``
-    cache, dict(k, v, pos) for a ring buffer of the window, or None."""
+    cache, dict(k, v, pos) for a ring buffer of the window, or None.
+    ``scale`` is the softmax's (1/sqrt(head_dim) when None)."""
     b, s, d = x.shape
     if isinstance(x, DTensor):
         _check_heads(x.device_mesh, rule, p["wq"].shape[1], p["wk"].shape[1])
@@ -345,10 +352,10 @@ def gqa_apply(p, x, cfg, kind: str = "causal", positions=None, cache=None,
             kv_len = int(pos) + s
     if takes_flash(kind, kv_pos, s, q.shape[-1], v.shape[-1], given):
         o = flash(q, k, v, q_offset=0 if pos is None else int(pos),
-                  rule=rule)
+                  rule=rule, scale=scale)
     else:
         o = attend(q, k, v, kind, q_pos=q_pos, kv_pos=kv_pos, window=window,
-                   kv_len=kv_len)
+                   kv_len=kv_len, scale=scale)
     out = einsum("bsnh,nhd->bsd", o, p["wo"])
     if rule is not None:
         out = constrain(out, rule, ("batch", "seq", "act_embed"))

@@ -14,6 +14,18 @@ Block kinds: attn (causal|local|nope|bidir), mla, mlp, moe, mamba,
 shared_attn (weight-tied across applications, per-application KV cache),
 cross (encoder-decoder).
 
+Zamba2 as published (``cfg.hybrid_layer_ids``; :meth:`LM._invoke`) is
+Mamba-2 layers, a stage of them from each layer it lists to the next,
+and, before each layer it lists, an invocation of one of
+``n_mem_blocks`` weight-shared blocks in turn (``params["shared"]``, one
+dict a block), with an adapter and a linear of the invocation's own
+(``params["adapters"]``, one dict an invocation): the block reads
+concat(hidden, embedding), and what it gives is added to that Mamba
+layer's input, not to the residual.  The invocation runs inside the
+layer's group, so remat recomputes it with the layer, and the shared
+weights' gradients sum over every invocation.  It trains and runs full
+forwards; its blocks keep no KV cache.
+
 ``prefill`` and ``decode_step`` update the caches in place and return
 them.  ``forward(..., remat=True)`` (training) recomputes each layer's
 group of blocks in the backward pass
@@ -23,6 +35,7 @@ forward with caches takes no remat (training has none).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Any
@@ -47,6 +60,10 @@ class Block:
 #: layer; ``shared_attn`` opens both of its own
 BLOCK_SPANS = {"attn": "layer.attention", "mla": "layer.attention",
                "mlp": "layer.mlp", "moe": "layer.mlp"}
+#: invocations of the published Zamba2's shared blocks by (block, phase):
+#: "fwd" and "recompute" counted as each runs, "bwd" as its backward
+#: reaches the invocation's output
+shared_invocations: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +73,12 @@ class Stage:
 
 
 def build_stages(cfg) -> list[Stage]:
+    if cfg.hybrid_layer_ids:
+        # Zamba2 as published: a stage of Mamba layers from each
+        # invocation of a shared block to the next (LM._invoke)
+        cuts = sorted({0, *cfg.hybrid_layer_ids, cfg.n_layers})
+        return [Stage((Block("mamba"),), b - a)
+                for a, b in zip(cuts, cuts[1:])]
     if cfg.family == "ssm":
         return [Stage((Block("mamba"),), cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -123,6 +146,38 @@ def _block_recs(blk: Block, cfg) -> dict:
     raise ValueError(blk.kind)
 
 
+def _published_shared_recs(cfg) -> dict:
+    """One of Zamba2's shared blocks: attention over concat(hidden,
+    embedding) (its norm and q, k, v at 2·d, the output back to d) and
+    the gated MLP (norm, gate, up, down)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    h = pad_heads(cfg.n_heads, cfg.tp)
+    kv = pad_heads(cfg.n_kv_heads, cfg.tp)
+    return {
+        "attn": {
+            "ln": PRec((2 * d,), ("embed",), init="zeros"),
+            "wq": PRec((2 * d, h, hd), ("embed", "heads", "hd"),
+                       scale=(2 * d) ** -0.5),
+            "wk": PRec((2 * d, kv, hd), ("embed", "kv", "hd"),
+                       scale=(2 * d) ** -0.5),
+            "wv": PRec((2 * d, kv, hd), ("embed", "kv", "hd"),
+                       scale=(2 * d) ** -0.5),
+            "wo": PRec((h, hd, d), ("heads", "hd", "embed"),
+                       scale=(h * hd) ** -0.5),
+        },
+        "mlp": mlp.mlp_recs(cfg),
+    }
+
+
+def _adapter_recs(cfg) -> dict:
+    """One invocation's own weights: the MLP's low-rank adapter (d to r,
+    r to gate|up) and the linear after the block."""
+    d, r, ff = cfg.d_model, cfg.adapter_rank, cfg.d_ff
+    return {"a_in": PRec((d, r), ("embed", None), scale=d ** -0.5),
+            "a_out": PRec((r, 2 * ff), (None, "ff"), scale=r ** -0.5),
+            "linear": PRec((d, d), ("embed", None), scale=d ** -0.5)}
+
+
 def _stack(recs, n: int):
     return tmap(lambda r: PRec((n,) + r.shape, ("layers",) + r.axes,
                                scale=r.scale, dtype=r.dtype, init=r.init), recs)
@@ -155,6 +210,11 @@ class LM:
                       else _block_recs(blk, cfg) for blk in st.blocks]
             stage_recs.append(_stack({"blocks": blocks}, st.repeat))
         recs["stages"] = stage_recs
+        if cfg.hybrid_layer_ids:
+            recs["shared"] = [_published_shared_recs(cfg)
+                              for _ in range(cfg.n_mem_blocks)]
+            recs["adapters"] = [_adapter_recs(cfg)
+                                for _ in cfg.hybrid_layer_ids]
         if any(b.kind == "shared_attn" for st in self.stages for b in st.blocks):
             shared = attention.gqa_recs(cfg)
             # Zamba2: the shared block sees concat(hidden, embedding) and is
@@ -186,6 +246,7 @@ class LM:
     def cache_recs(self, batch: int, max_len: int):
         """Zero-init cache records mirroring the stage structure."""
         cfg = self.cfg
+        _no_cache(cfg)
         kvh = pad_heads(cfg.n_kv_heads, cfg.tp)
         hd = cfg.head_dim
 
@@ -287,10 +348,48 @@ class LM:
                                              rule=rule), cache
         raise ValueError(blk.kind)
 
-    def _group(self, st: Stage, lp, x, shared, enc_out, x_emb, rule=None):
+    def _invoke(self, hyb, x, x_emb, rule=None):
+        """An invocation of shared block ``k`` (``hyb`` = (k, the block's
+        params, the invocation's)) ahead of a Mamba layer:
+        returns (x, x + the invocation's output), the layer's residual and
+        its input, inside the span ``layer.shared`` with the attention's
+        and the MLP's spans inside it.  Counted in
+        :data:`shared_invocations`."""
+        cfg = self.cfg
+        k, bp, ap = hyb
+        phase = "recompute" if torch._C._current_graph_task_id() != -1 \
+            else "fwd"
+        shared_invocations[(k, phase)] += 1
+        # the heads read 2·d, and Zamba2 scales by (head_dim / 2)^-1/2
+        scale = (cfg.head_dim / 2) ** -0.5
+
+        def attend(u):
+            return attention.gqa_apply(bp["attn"], u, cfg, rule=rule,
+                                       scale=scale)[0]
+
+        def block(x):
+            o = obs.layer("layer.attention", attend,
+                          torch.cat([x, x_emb], dim=-1))
+            t = obs.layer("layer.mlp", lambda o: mlp.adapted_apply(
+                bp["mlp"], ap, o, cfg), o)
+            tau = einsum("bsd,de->bse", t, ap["linear"])
+            if phase == "fwd" and tau.requires_grad:
+                tau.register_hook(lambda g, k=k: _count_bwd(k))
+            return x, x + tau
+        return obs.layer("layer.shared", block, x)
+
+    def _group(self, st: Stage, lp, x, shared, enc_out, x_emb, rule=None,
+               hyb=None):
         """One layer's group of blocks without caches (JAX's scan body),
-        inside the span ``lm.layer`` (under remat its re-forward too)."""
+        inside the span ``lm.layer`` (under remat its re-forward too);
+        ``hyb``, the published Zamba2's invocation ahead of this layer
+        (:meth:`_invoke`), or None."""
         def body(x):
+            if hyb is not None:             # the Mamba layer reads x + τ
+                x, x_in = self._invoke(hyb, x, x_emb, rule)
+                dx, _ = mamba2.mamba2_apply(lp[0], x_in, self.cfg,
+                                            rule=rule)
+                return x + dx
             for bi, blk in enumerate(st.blocks):
                 x, _ = self._apply_block(blk, lp[bi], x, shared=shared,
                                          enc_out=enc_out, x_emb=x_emb,
@@ -298,11 +397,24 @@ class LM:
             return x
         return obs.layer("lm.layer", body, x)
 
+    def _hybrid_at(self, params, layer: int):
+        """The published Zamba2's invocation ahead of ``layer`` for
+        :meth:`_group`, or None."""
+        ids = self.cfg.hybrid_layer_ids
+        if layer not in ids:
+            return None
+        j = ids.index(layer)
+        k = j % self.cfg.n_mem_blocks
+        return k, params["shared"][k], params["adapters"][j]
+
     def _run_stages(self, params, x, caches=None, pos=None, enc_out=None,
                     x_emb=None, remat=False, rule=None):
         if remat and caches is not None:
             raise ValueError("remat recomputes a forward without caches "
                              "(training); a forward with caches takes none")
+        if caches is not None:
+            _no_cache(self.cfg)
+        first = 0                       # the stage's first layer
         for si, st in enumerate(self.stages):
             pstack = params["stages"][si]["blocks"]
             cstack = caches[si]["blocks"] if caches is not None else None
@@ -310,7 +422,7 @@ class LM:
                 lp = take(pstack, i)
                 if cstack is None:
                     args = (st, lp, x, params.get("shared"), enc_out, x_emb,
-                            rule)
+                            rule, self._hybrid_at(params, first + i))
                     x = (checkpoint(self._group, *args, use_reentrant=False)
                          if remat else self._group(*args))
                     continue
@@ -321,6 +433,7 @@ class LM:
                         shared=params.get("shared"), enc_out=enc_out,
                         x_emb=x_emb, rule=rule)
                     _store(cstack[bi], i, bc, nc)
+            first += st.repeat
         return x, caches
 
     def _embed(self, params, tokens, batch_extra, rule=None):
@@ -360,7 +473,12 @@ class LM:
             x = self._embed(params, batch["tokens"], batch, rule)
             enc_out = (self._encoder(params, batch["frames"], rule)
                        if cfg.encdec else None)
-            x_emb = x if cfg.hybrid_attn_every else None
+            x_emb = x if cfg.hybrid_attn_every or cfg.hybrid_layer_ids \
+                else None
+            if cfg.hybrid_layer_ids:
+                # the stack's own node: the gradients of the first
+                # layer's uses meet there, with spans or without
+                x = x.view_as(x)
             x, _ = self._run_stages(params, x, enc_out=enc_out, x_emb=x_emb,
                                     remat=remat, rule=rule)
             logits = self._head(params, x, rule)
@@ -391,7 +509,8 @@ class LM:
 
     def _logits(self, params, x, rule=None):
         cfg = self.cfg
-        x = (rms_norm(x, params["final_ln"]) if cfg.norm == "rmsnorm"
+        x = (rms_norm(x, params["final_ln"], cfg.norm_eps)
+             if cfg.norm == "rmsnorm"
              else layer_norm(x, params["final_ln"], params["final_ln_b"]))
         logits = einsum("bsd,vd->bsv", x, params["embed"])
         if self.padded_vocab != cfg.vocab:   # mask vocab-padding entries
@@ -430,6 +549,17 @@ class LM:
                                          pos=int(pos), x_emb=x_emb,
                                          rule=rule)
             return self._head(params, x, rule), caches
+
+
+def _count_bwd(k: int) -> None:
+    shared_invocations[(k, "bwd")] += 1
+
+
+def _no_cache(cfg) -> None:
+    if cfg.hybrid_layer_ids:
+        raise NotImplementedError(
+            "the published Zamba2 layer trains and runs full forwards; its "
+            "shared blocks keep no KV cache")
 
 
 def _lookup(table, tokens):

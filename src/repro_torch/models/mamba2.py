@@ -7,6 +7,10 @@ quadratic (attention-like) form, across chunks a loop carrying the
 computes in plain ``jnp`` and the port on the card in the SSD kernels
 (``kernels/ssd_scan.py``; on the CPU the same plain loop); decode is the
 one-step recurrence.
+B and C come in ``n_groups`` groups (Mamba-2's ``ngroups``): head h reads
+group h // (heads / n_groups), and the gated norm normalises each group's
+d_inner / n_groups channels on their own.  One group keeps the (b, L, N)
+operands and the whole-width norm the port has always used.
 Under a sharding rule the chunked scan runs on plain tensors, each rank
 on its own rows of the batch and its own heads, where the heads split
 evenly over the mesh dim ``act_heads`` names, else with every head
@@ -131,6 +135,17 @@ def _inner_sharded(p, xn, s: SSMConfig, d: int, rule):
     return z, xin, bc, _step_sizes(p, xn), gn
 
 
+def _gate_norm(y, gain, groups: int, eps: float):
+    """The gated output's RMS norm, each of ``groups`` runs of channels
+    on its own."""
+    if groups == 1:
+        return rms_norm(y, gain, eps)
+    *lead, din = y.shape
+    return rms_norm(y.reshape(*lead, groups, din // groups),
+                    gain.reshape(groups, din // groups),
+                    eps).reshape(*lead, din)
+
+
 def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
     """Returns (delta_x, new_cache); cache = {'ssm': (b,h,p,n), 'conv':
     (b, W-1, ch)}.  Training/prefill runs the chunked SSD scan (the length
@@ -139,7 +154,13 @@ def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
     s: SSMConfig = cfg.ssm
     b, L, d = x.shape
     h, P, N = s.n_heads(d), s.headdim, s.d_state
-    xn = rms_norm(x, p["ln"])
+    G = s.n_groups
+    if G > 1 and _head_split(rule) is not None:
+        raise NotImplementedError(
+            "mamba2_apply: B and C in groups with the heads split over a "
+            "mesh: each rank would need its own heads' groups")
+    eps = cfg.norm_eps
+    xn = rms_norm(x, p["ln"], eps)
     din = s.d_inner(d)
     if rule is not None and cache is None and isinstance(xn, DTensor):
         z, xin, bc, dt, gn = _inner_sharded(p, xn, s, d, rule)
@@ -150,8 +171,10 @@ def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
             conv_in, p["conv_w"], p["conv_b"],
             None if cache is None else cache["conv"])
         xin, bc = conv_out[..., :din], conv_out[..., din:]
-    B = bc[..., :gn].reshape(b, L, s.n_groups, N)[:, :, 0]     # g=1: (b,L,N)
-    C = bc[..., gn:].reshape(b, L, s.n_groups, N)[:, :, 0]
+    B = bc[..., :gn].reshape(b, L, G, N)        # (b, L, N) for one group
+    C = bc[..., gn:].reshape(b, L, G, N)
+    if G == 1:
+        B, C = B[:, :, 0], C[:, :, 0]
     xh = xin.reshape(b, L, h, P)
     if rule is not None:
         xh = constrain(xh, rule, ("batch", None, "act_heads", None))
@@ -162,9 +185,15 @@ def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
         st = cache["ssm"]                                       # (b,h,P,N)
         a = torch.exp(A[None, :] * dt[:, 0])                    # (b,h)
         dx = dt[:, 0][..., None] * xh[:, 0].float()             # (b,h,P)
-        st = st * a[..., None, None] + einsum(
-            "bhp,bn->bhpn", dx, B[:, 0].float())
-        y = einsum("bhpn,bn->bhp", st, C[:, 0].float())
+        if G == 1:
+            st = st * a[..., None, None] + einsum(
+                "bhp,bn->bhpn", dx, B[:, 0].float())
+            y = einsum("bhpn,bn->bhp", st, C[:, 0].float())
+        else:                                   # each head its group's
+            grp = ssd_scan.heads_of_groups(h, G, x.device)
+            st = st * a[..., None, None] + einsum(
+                "bhp,bhn->bhpn", dx, B[:, 0][:, grp].float())
+            y = einsum("bhpn,bhn->bhp", st, C[:, 0][:, grp].float())
         y = y + Dp * xh[:, 0].float()
         y = y.reshape(b, 1, h * P).to(x.dtype)
         cache = {"ssm": st, "conv": conv_state}
@@ -192,7 +221,7 @@ def mamba2_apply(p, x, cfg, cache=None, pos=None, rule=None):
             cache = {"ssm": _rows_only(state), "conv": conv_state}
 
     y = y * F.silu(z)
-    y = rms_norm(y, p["gate_ln"])
+    y = _gate_norm(y, p["gate_ln"], G, eps)
     out = einsum("bse,ed->bsd", y, p["w_out"])
     if rule is not None:
         out = constrain(out, rule, ("batch", "seq", "act_embed"))
@@ -221,7 +250,8 @@ def _rows_only(t):
 
 
 def _ssd(xh, B, C, dt, l_t, Dp, state, Q: int):
-    """The chunked SSD scan: xh (b, L, h, P), B and C (b, L, N), dt and
+    """The chunked SSD scan: xh (b, L, h, P), B and C (b, L, N), or
+    (b, L, G, N) in groups, dt and
     the log-decays l_t (b, L, h), ``Dp`` (h, 1), the carried state
     (b, h, P, N) in float32.  Within a chunk of ``Q`` the dual quadratic
     form, across chunks the recurrence.  Returns y (b, L, h, P) in

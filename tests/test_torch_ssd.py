@@ -3,10 +3,12 @@
 On the CPU: :func:`ssd_backward`, the kernels' backward formulas written
 out in PyTorch, against ``torch.autograd.grad`` of the plain chunk loop
 in float64; the routes; the plain route bit for bit the loop the port
-has always run.  Marked ``gpu`` (they skip here): the kernels, forward
-and backward, against the plain version on the card at mamba2-2.7b's
-training shape and zamba2-7b's state size, in bfloat16 and float32, with
-a deterministic backward and the route counters.  No JAX here, so the
+has always run; B and C in groups against a loop over the groups, and
+the model reading each head's group.  Marked ``gpu`` (they skip here):
+the kernels, forward and backward, against the plain version on the card
+at mamba2-2.7b's training shape and zamba2-7b's state size (one group
+and its published two), in bfloat16 and float32, with a deterministic
+backward and the route counters.  No JAX here, so the
 card tests run on the card machine:
 ``python -m pytest -q -m gpu tests/test_torch_ssd.py``.
 """
@@ -27,13 +29,15 @@ TWIN_TOL = 1e-10
 
 
 def _operands(b, L, h, P, N, dtype=torch.float64, seed=0, decay=1.0,
-              device="cpu"):
+              device="cpu", G=0):
     """xh, B and C as slices of one conv output (row stride h*P + 2N, as
-    ``mamba2_apply`` hands them over), positive step sizes, log-decays
-    A*dt (``decay`` scales A: 40 sends many pairs below the clamp at
-    -60), D and a non-zero initial state."""
+    ``mamba2_apply`` hands them over; with ``G`` groups h*P + 2GN and B, C
+    (b, L, G, N)), positive step sizes, log-decays A*dt (``decay`` scales
+    A: 40 sends many pairs below the clamp at -60), D and a non-zero
+    initial state."""
     g = torch.Generator().manual_seed(seed)
-    conv = torch.randn(b, L, h * P + 2 * N, generator=g, dtype=torch.float64)
+    gn = max(G, 1) * N
+    conv = torch.randn(b, L, h * P + 2 * gn, generator=g, dtype=torch.float64)
     dt = torch.nn.functional.softplus(
         torch.randn(b, L, h, generator=g, dtype=torch.float64)) * 0.5
     A = -(torch.rand(h, generator=g, dtype=torch.float64) * 2 + 0.5) * decay
@@ -41,7 +45,9 @@ def _operands(b, L, h, P, N, dtype=torch.float64, seed=0, decay=1.0,
     state = torch.randn(b, h, P, N, generator=g, dtype=torch.float64)
     conv = conv.to(device=device, dtype=dtype)
     xh = conv[..., :h * P].reshape(b, L, h, P)
-    B, C = conv[..., h * P:h * P + N], conv[..., h * P + N:]
+    B, C = conv[..., h * P:h * P + gn], conv[..., h * P + gn:]
+    if G:
+        B, C = B.reshape(b, L, G, N), C.reshape(b, L, G, N)
     f = dict(device=device, dtype=torch.float64 if dtype == torch.float64
              else torch.float32)
     return [xh, B, C, dt.to(**f), (A * dt).to(**f), Dp.to(**f),
@@ -166,12 +172,14 @@ def test_plain_route_counts_its_forward_and_backward():
 @pytest.mark.parametrize("bad, err", [
     (dict(Q=300), ValueError), (dict(Q=7), ValueError),
     (dict(P=80), ValueError), (dict(dtype=torch.float16), TypeError),
-    (dict(transposed=True), ValueError)])
+    (dict(transposed=True), ValueError), (dict(G=3), ValueError)])
 def test_kernel_checks_refuse_what_they_cannot_launch(bad, err):
     """The kernel route's checks, on shapes alone (nothing launches)."""
     b, L, h, P, N = 1, 600, 2, bad.get("P", 64), 128
     xh = torch.zeros(b, L, h, P, dtype=bad.get("dtype", torch.bfloat16))
     B = torch.zeros(b, L, N, dtype=xh.dtype)
+    if "G" in bad:                      # 3 groups do not split 2 heads
+        B = torch.zeros(b, L, bad["G"], N, dtype=xh.dtype)
     if bad.get("transposed"):
         B = torch.zeros(b, N, L, dtype=xh.dtype).transpose(1, 2)
     with pytest.raises(err):
@@ -193,6 +201,131 @@ def test_a_refused_kernel_call_counts_nothing():
     with pytest.raises(ValueError):
         ss.backward(xh, B, B, None, None, None, None, None, None, None, 4)
     assert counters() == before
+
+
+def _group_loop(ins, Q):
+    """The scan of each group's heads with the group's B and C, one
+    group at a time, the results put back in head order."""
+    xh, B, C, dt, l_t, Dp, state = ins
+    G = B.shape[2]
+    hg = xh.shape[2] // G
+    parts = [ss.plain(xh[:, :, g * hg:(g + 1) * hg], B[:, :, g], C[:, :, g],
+                      dt[..., g * hg:(g + 1) * hg],
+                      l_t[..., g * hg:(g + 1) * hg], Dp[g * hg:(g + 1) * hg],
+                      state[:, g * hg:(g + 1) * hg], Q) for g in range(G)]
+    return (torch.cat([p[0] for p in parts], dim=2),
+            torch.cat([p[1] for p in parts], dim=1))
+
+
+@pytest.mark.parametrize("G", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plain_groups_match_a_loop_over_groups(G, dtype):
+    """B and C (b, L, G, N): each head scans with its own group's B and
+    C (head h reads group h // (h_total / G)), the loop over groups to
+    the rounding of a float32 sum's order (to 1e-12 in float64)."""
+    ins = _operands(2, 24, 6, 4, 5, dtype=dtype, G=G)
+    got = ss.plain(*ins, 8)
+    want = _group_loop(ins, 8)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        assert (a - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+def test_one_group_in_four_dims_is_the_shared_b_and_c():
+    ins = _operands(2, 24, 3, 4, 16)
+    grouped = list(ins)
+    grouped[1], grouped[2] = ins[1][:, :, None], ins[2][:, :, None]
+    for a, w in zip(ss.plain(*grouped, 8), ss.plain(*ins, 8)):
+        assert (a - w).abs().max().item() <= TWIN_TOL * w.abs().max().item()
+
+
+@pytest.mark.parametrize("final_grad", [True, False])
+def test_ssd_backward_in_groups_matches_autograd_of_the_loop(final_grad):
+    """The kernels' backward formulas with B and C in two groups: each
+    group's dB and dC sum its own heads' parts only."""
+    b, Q, h, P, N = 2, 8, 4, 4, 6
+    ins = _operands(b, 3 * Q, h, P, N, G=2)
+    g = torch.Generator().manual_seed(2)
+    dy = torch.randn(b, 3 * Q, h, P, generator=g, dtype=torch.float64)
+    dstate = torch.randn(b, h, P, N, generator=g, dtype=torch.float64) \
+        if final_grad else None
+    want = _grads_of_plain(ins, Q, dy, dstate)
+    got = ss.ssd_backward(*ins, dy, dstate, Q)
+    for name, a, w in zip(("xh", "B", "C", "dt", "l_t", "Dp", "state"),
+                          got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        err = (a - w).abs().max().item()
+        assert err <= TWIN_TOL * max(1.0, w.abs().max().item()), (name, err)
+
+
+def _mamba_cfg(G: int):
+    s = mamba2.SSMConfig(d_state=4, headdim=4, expand=2, chunk=8,
+                         conv_width=4, n_groups=G)
+    return types.SimpleNamespace(d_model=8, ssm=s, norm_eps=1e-5)
+
+
+def _mamba_params(cfg, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return {k: (torch.randn(r.shape, generator=g, dtype=torch.float64)
+                * (0.3 if r.init != "ones" else 0.0)
+                + (1.0 if r.init == "ones" else 0.0))
+            for k, r in mamba2.mamba2_recs(cfg).items()}
+
+
+def test_the_model_reads_each_heads_group():
+    """Two groups: changing the second group's B and C columns of the
+    projection changes only the second half of the heads' scan (group 0
+    is no longer read for every head)."""
+    cfg = _mamba_cfg(2)
+    p = _mamba_params(cfg)
+    x = torch.randn(1, 16, 8, generator=torch.Generator().manual_seed(1),
+                    dtype=torch.float64)
+    seen = []
+
+    def spy(xh, B, C, *rest):
+        seen.append(ss.plain(xh, B, C, *rest)[0])
+        return ss.plain(xh, B, C, *rest)
+    real = mamba2._ssd
+    mamba2._ssd = spy
+    try:
+        mamba2.mamba2_apply(p, x, cfg)
+        q = dict(p)
+        w = q["w_in_bc"].clone()        # columns: B g0, B g1, C g0, C g1
+        w[:, 4:8] += 1.0
+        w[:, 12:16] -= 1.0
+        q["w_in_bc"] = w
+        mamba2.mamba2_apply(q, x, cfg)
+    finally:
+        mamba2._ssd = real
+    a, b = seen
+    h = a.shape[2]
+    assert torch.equal(a[:, :, :h // 2], b[:, :, :h // 2])
+    assert not torch.allclose(a[:, :, h // 2:], b[:, :, h // 2:])
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_grouped_decode_follows_the_chunked_forward(G):
+    """Decoding one position at a time through the recurrence, with one
+    group or two, gives the chunked forward's outputs: to 1e-6 of the
+    largest, since the recurrence carries dt, its state and its products
+    in float32 whatever the input's type (1e-7 seen; a head reading the
+    other group's B and C is off by its whole size)."""
+    cfg = _mamba_cfg(G)
+    p = _mamba_params(cfg, 3)
+    x = torch.randn(2, 16, 8, generator=torch.Generator().manual_seed(4),
+                    dtype=torch.float64)
+    full, _ = mamba2.mamba2_apply(p, x, cfg)
+    shapes = mamba2.mamba2_cache_shape(cfg, 2)
+    cache = {k: torch.zeros(s, dtype=torch.float64)
+             for k, (s, _) in shapes.items()}
+    outs = []
+    for t in range(16):
+        y, cache = mamba2.mamba2_apply(p, x[:, t:t + 1], cfg, cache=cache,
+                                       pos=t)
+        outs.append(y)
+    err = (torch.cat(outs, 1) - full).abs().max().item()
+    assert err <= 1e-6 * full.abs().max().item()
 
 
 def test_the_kernels_module_imports_no_model():
@@ -238,16 +371,21 @@ TOL = {torch.float32: dict(y=1e-5, final=1e-5, xh=1e-5, B=3e-5, C=3e-5,
                            dt=1e-5, l_t=1e-5, Dp=1e-5, state=1e-5),
        torch.bfloat16: dict(y=4e-3, final=1e-5, xh=3e-2, B=3e-2, C=3e-2,
                             dt=4e-3, l_t=4e-3, Dp=1e-4, state=1e-5)}
-#: (b, L, h, P, N, Q): mamba2-2.7b's training cell, zamba2-7b's state
+#: (b, L, h, P, N, Q[, G]): mamba2-2.7b's training cell, zamba2-7b's state
 #: size at the same chunk, and shapes off the tile: the reduced configs'
 #: (P 16, N 16, Q 16), a chunk of 100 (a ragged last tile), one of 37, and
-#: a state of 3 x 5 (the state passing's scalar path)
+#: a state of 3 x 5 (the state passing's scalar path); with B and C in G
+#: groups: zamba2-7b's training cell as published (2 groups), the reduced
+#: shape in two, and three groups of two heads off the tile
 SHAPES = {"mamba2-2.7b": (8, 4096, 80, 64, 128, 256),
           "zamba2-7b": (2, 4096, 112, 64, 64, 256),
           "reduced": (2, 48, 4, 16, 16, 16),
           "ragged": (2, 300, 5, 64, 96, 100),
           "short": (1, 37, 3, 40, 128, 37),
-          "odd": (2, 24, 3, 3, 5, 8)}
+          "odd": (2, 24, 3, 3, 5, 8),
+          "zamba2-7b-g2": (4, 4096, 112, 64, 64, 256, 2),
+          "reduced-g2": (2, 48, 4, 16, 16, 16, 2),
+          "odd-g3": (2, 24, 6, 3, 5, 8, 3)}
 
 
 def _run(ins, Q, dy, dstate, kernel: bool):
@@ -256,22 +394,27 @@ def _run(ins, Q, dy, dstate, kernel: bool):
     kernels read them through its row stride."""
     xh, B, C, *rest = ins
     b, L, h, P = xh.shape
-    N = B.shape[-1]
-    conv = torch.cat([xh.reshape(b, L, h * P), B, C], -1).requires_grad_()
+    shape = B.shape
+    gn = B[0, 0].numel()
+    conv = torch.cat([xh.reshape(b, L, h * P), B.reshape(b, L, gn),
+                      C.reshape(b, L, gn)], -1).requires_grad_()
     rest = [t.detach().clone().requires_grad_(True) for t in rest]
     fn = ss.SSDScanFn.apply if kernel else ss.plain
     y, fin = fn(conv[..., :h * P].reshape(b, L, h, P),
-                conv[..., h * P:h * P + N], conv[..., h * P + N:], *rest, Q)
+                conv[..., h * P:h * P + gn].reshape(shape),
+                conv[..., h * P + gn:].reshape(shape), *rest, Q)
     gconv, *grads = torch.autograd.grad((y, fin), [conv, *rest],
                                         (dy, dstate))
     return [y.detach(), fin.detach(),
             gconv[..., :h * P].reshape(b, L, h, P),
-            gconv[..., h * P:h * P + N], gconv[..., h * P + N:], *grads]
+            gconv[..., h * P:h * P + gn].reshape(shape),
+            gconv[..., h * P + gn:].reshape(shape), *grads]
 
 
 def _case(cuda, shape, dtype, seed=0):
-    b, L, h, P, N, Q = shape
-    ins = _operands(b, L, h, P, N, dtype=dtype, seed=seed, device=cuda)
+    b, L, h, P, N, Q, *G = shape
+    ins = _operands(b, L, h, P, N, dtype=dtype, seed=seed, device=cuda,
+                    G=G[0] if G else 0)
     g = torch.Generator(device=cuda).manual_seed(seed + 1)
     dy = torch.randn(b, L, h, P, generator=g, device=cuda)
     dstate = torch.randn(b, h, P, N, generator=g, device=cuda)
